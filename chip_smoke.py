@@ -1,0 +1,351 @@
+"""Smoke run of kantts_tpu_torch on one CUDA card.
+
+    python3 chip_smoke.py
+
+Builds kernel K1 (the MAS Viterbi, kantts_tpu_torch/csrc/mas.cu) from the
+checkout and drives the port at the full width of sambert_16k_MAS and
+hifigan_v1_16k, with weights made from a seed:
+
+  0. device: the card's name and power limit; raises without a CUDA card;
+  1. build K1;
+  2. K1 against its plain PyTorch version, exact, at the train shape
+     (32 x 576 x 128) and the long bucket (2 x 4800 x 800);
+  3. the teacher-forced MAS forward (B=8, T_in 96, T_mel 576) through K1;
+  4. text -> wav through ``python -m kantts_tpu_torch.bin.text_to_wav`` on
+     4 tone-numbered pinyin lines, then the same path timed in this
+     process, and the card's acoustic model and vocoder held against the
+     CPU's on a short input.
+
+Each phase prints one line and raises on failure. Before the last line it
+prints a JSON object on the kernels; the last line is
+{"ok": true, "device": {...}}. TF32 is off for matmuls and cuDNN, so every
+comparison runs in float32.
+"""
+
+from __future__ import annotations
+
+import glob
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+TEXTS = ["ni3 hao3 , huan1 ying2 lai2 dao4 bei3 jing1 .",
+         "jin1 tian1 tian1 qi4 hen3 hao3 , wo3 men5 qu4 gong1 yuan2 san4 bu4 ba5 .",
+         "zhe4 shi4 yi2 ge4 yu3 yin1 he2 cheng2 de5 ce4 shi4 .",
+         "qing3 zai4 shuo1 yi2 bian4 , xie4 xie5 ."]
+HOP = 200  # samples per mel frame of hifigan_v1_16k: prod(10, 5, 2, 2)
+
+
+def log(phase: str, **fields) -> None:
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
+          flush=True)
+
+
+def cuda_ms(fn, n: int) -> float:
+    """Mean milliseconds of ``fn`` over n calls after one warmup call, from
+    CUDA events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def phase_device() -> str:
+    """-> the card's name and power limit, as nvidia-smi gives them."""
+    import importlib.util
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: this smoke run needs the card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60
+    ).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    log("device", name=repr(name), count=torch.cuda.device_count(),
+        torch=torch.__version__, cuda=torch.version.cuda,
+        yaml=importlib.util.find_spec("yaml") is not None,
+        jieba=importlib.util.find_spec("jieba") is not None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return smi
+
+
+def phase_build():
+    from kantts_tpu_torch.ops.mas import b_mas_cuda
+
+    b_mas_cuda.build()
+    ptxas = [ln.strip() for ln in b_mas_cuda.build_log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    log("build", seconds=round(b_mas_cuda.build_seconds, 3), ptxas=ptxas)
+
+
+def ragged_map(rng, B, T_mel, T_text):
+    import torch
+
+    attn = rng.rand(B, 1, T_mel, T_text).astype(np.float32)
+    attn /= attn.sum(-1, keepdims=True)
+    in_lens = rng.randint(T_text // 2, T_text + 1, B).astype(np.int32)
+    out_lens = rng.randint(T_mel // 2, T_mel + 1, B).astype(np.int32)
+    in_lens[0], out_lens[0] = T_text, T_mel
+    return (torch.from_numpy(attn).cuda(), torch.from_numpy(in_lens).cuda(),
+            torch.from_numpy(out_lens).cuda())
+
+
+def compare_k1(attn, in_lens, out_lens, n_time: int):
+    """-> (max_abs_err, k1 ms, plain ms); raises unless exactly equal."""
+    import torch
+
+    from kantts_tpu_torch.models.sambert.alignment import b_mas_torch
+    from kantts_tpu_torch.ops.mas import b_mas_cuda
+
+    hard = b_mas_cuda(attn, in_lens, out_lens)
+    ref = b_mas_torch(attn, in_lens, out_lens)
+    torch.cuda.synchronize()
+    err = (hard - ref).abs().max().item()
+    if not torch.equal(hard, ref):
+        raise AssertionError(f"K1 differs from b_mas_torch: max |diff| {err}")
+    if not torch.equal(hard.sum(dim=(1, 2, 3)), out_lens.float()):
+        raise AssertionError("K1: one aligned column per valid mel frame expected")
+    k1_ms = cuda_ms(lambda: b_mas_cuda(attn, in_lens, out_lens), n_time)
+    plain_ms = cuda_ms(lambda: b_mas_torch(attn, in_lens, out_lens), n_time)
+    return err, k1_ms, plain_ms
+
+
+def phase_k1():
+    rng = np.random.RandomState(0)
+    errs = []
+    for B, T_mel, T_text, n in ((32, 576, 128, 5), (2, 4800, 800, 2)):
+        err, k1_ms, plain_ms = compare_k1(*ragged_map(rng, B, T_mel, T_text), n)
+        errs.append(err)
+        log("k1", shape=f"{B}x{T_mel}x{T_text}", equal=True, k1_ms=round(k1_ms, 4),
+            plain_ms=round(plain_ms, 4))
+    return max(errs)
+
+
+def mas_batch(cfg, B=8, T_in=96, T_mel=576, seed=0):
+    """A MAS training batch made with numpy: ragged lengths, frame-level
+    prosody targets and a normalised random attention prior."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    in_lens = rng.randint(T_in // 2, T_in, B)
+    out_lens = rng.randint(T_mel // 6, T_mel // 3 + 1, B) * 3
+    in_lens[0], out_lens[0] = T_in, T_mel
+    prior = np.abs(rng.randn(B, T_mel, T_in)).astype(np.float32) + 0.1
+    prior /= prior.sum(axis=2, keepdims=True)
+    ling = np.stack([rng.randint(0, cfg[k], (B, T_in))
+                     for k in ("sy", "tone", "syllable_flag", "word_segment")], -1)
+    arrays = dict(
+        inputs_ling=ling, inputs_emotion=rng.randint(0, cfg["emotion"], (B, T_in)),
+        inputs_speaker=rng.randint(0, cfg["speaker"], (B, T_in)),
+        input_lengths=in_lens, output_lengths=out_lens,
+        mel_targets=rng.randn(B, T_mel, cfg["num_mels"]).astype(np.float32),
+        pitch_targets=np.abs(rng.randn(B, T_mel)).astype(np.float32),
+        energy_targets=np.abs(rng.randn(B, T_mel)).astype(np.float32),
+        attn_priors=prior)
+    return {k: torch.from_numpy(np.asarray(v)).cuda() for k, v in arrays.items()}
+
+
+def phase_mas_forward():
+    """-> (K1 launches in the forward, K1 ms and plain ms at its shape)."""
+    import torch
+
+    from kantts_tpu_torch.configs import get_config
+    from kantts_tpu_torch.models.builder import sambert_model_builder, sambert_params
+    from kantts_tpu_torch.models.sambert.alignment import b_mas_torch
+    from kantts_tpu_torch.ops.mas import b_mas_cuda
+
+    config = get_config("sambert_16k_MAS")
+    model = sambert_model_builder(config, seed=0).cuda()
+    batch = mas_batch(sambert_params(config))
+    b_mas_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        res = model(**batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = b_mas_cuda.launches
+    if launches < 1:
+        raise AssertionError("the MAS forward did not launch K1")
+
+    hard = res["attn_hard"]
+    if not torch.equal(hard, b_mas_torch(res["attn_soft"], batch["input_lengths"],
+                                         batch["output_lengths"])):
+        raise AssertionError("MAS forward: K1's alignment differs from b_mas_torch")
+    mas_durs = hard.sum(dim=2)[:, 0, :]
+    if not torch.equal(mas_durs.sum(dim=1), batch["output_lengths"].float()):
+        raise AssertionError("MAS durations do not sum to the output lengths")
+    for key in ("dec_outputs", "postnet_outputs", "log_duration_predictions",
+                "pitch_predictions", "energy_predictions", "attn_soft"):
+        if not torch.isfinite(res[key]).all():
+            raise AssertionError(f"MAS forward: {key} is not finite")
+    B, T_mel = batch["mel_targets"].shape[:2]
+    if res["postnet_outputs"].shape != (B, T_mel, 80):
+        raise AssertionError(f"MAS forward: mel {tuple(res['postnet_outputs'].shape)}")
+    _, k1_ms, plain_ms = compare_k1(res["attn_soft"].contiguous(),
+                                    batch["input_lengths"].int(),
+                                    batch["output_lengths"].int(), 5)
+    log("mas_forward", shape=f"B={B} T_in={hard.shape[-1]} T_mel={T_mel}",
+        k1_launches=launches, forward_s=round(seconds, 4),
+        k1_ms=round(k1_ms, 4), plain_ms=round(plain_ms, 4))
+    return launches, k1_ms, plain_ms
+
+
+def check_wavs(out_dir: str) -> int:
+    """Every sentence wav is finite, non-empty, in [-1, 1] and HOP samples
+    per mel frame; one joined wav per text line. -> number of sentences."""
+    from scipy.io import wavfile
+
+    chunks = sorted(glob.glob(os.path.join(out_dir, "wav_chunks", "*.wav")))
+    if not chunks:
+        raise AssertionError("text_to_wav wrote no wav")
+    for path in chunks:
+        sr, pcm = wavfile.read(path)
+        wav = pcm.astype(np.float32) / 32768.0
+        stem = os.path.splitext(os.path.basename(path))[0]
+        frames = np.load(os.path.join(out_dir, "feat", f"{stem}.npy")).shape[0]
+        if not (sr == 16000 and wav.size > 0 and np.isfinite(wav).all()
+                and np.abs(wav).max() <= 1.0 and wav.size == HOP * frames):
+            raise AssertionError(f"{path}: sr {sr}, {wav.size} samples for "
+                                 f"{frames} frames")
+    joined = glob.glob(os.path.join(out_dir, "res_wavs", "*.wav"))
+    if len(joined) != len(TEXTS):
+        raise AssertionError(f"{len(joined)} joined wavs for {len(TEXTS)} lines")
+    return len(chunks)
+
+
+def phase_text_to_wav(tmp: str):
+    import torch
+
+    from kantts_tpu_torch.bin.text_to_wav import text_to_wav
+    from kantts_tpu_torch.configs import get_config
+    from kantts_tpu_torch.models.builder import model_builder, save_checkpoint
+
+    am_cfg = get_config("sambert_16k_MAS")
+    # random weights predict ~0 frames per phone; this bias gives about 8,
+    # so utterances get realistic lengths
+    am_cfg["Model"]["KanTtsSAMBERT"]["params"]["dur_pred_bias_init"] = 2.2
+    voc_cfg = get_config("hifigan_v1_16k")
+    am_ckpt, voc_ckpt = os.path.join(tmp, "am.pt"), os.path.join(tmp, "voc.pt")
+    save_checkpoint(am_ckpt, model_builder(am_cfg, seed=1), am_cfg)
+    save_checkpoint(voc_ckpt, model_builder(voc_cfg, seed=2), voc_cfg)
+    text = os.path.join(tmp, "text.txt")
+    with open(text, "w", encoding="utf-8") as f:
+        f.write("\n".join(TEXTS) + "\n")
+
+    out_cli = os.path.join(tmp, "cli")
+    proc = subprocess.run(
+        [sys.executable, "-m", "kantts_tpu_torch.bin.text_to_wav", "--txt", text,
+         "--am_ckpt", am_ckpt, "--voc_ckpt", voc_ckpt, "--output_dir", out_cli,
+         "--am_batch", "4"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"text_to_wav exited {proc.returncode}:\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    cold = json.loads(proc.stdout.strip().splitlines()[-1])
+    if cold["device"] != "cuda":
+        raise AssertionError(f"text_to_wav ran on {cold['device']}")
+    n_sent = check_wavs(out_cli)
+    log("text_to_wav_cli", sentences=n_sent, am_frames=cold["am_frames"],
+        audio_s=round(cold["audio_seconds"], 3),
+        first_call_total_s=round(cold["total_seconds"], 3))
+
+    device = torch.device("cuda")
+    warm = text_to_wav(os.path.join(tmp, "warm"), am_ckpt, voc_ckpt, text,
+                       am_batch=4, device=device)
+    check_wavs(os.path.join(tmp, "warm"))
+    log("text_to_wav_timed", am_batch=4, am_frames=warm["am_frames"],
+        am_frames_per_s=round(warm["am_frames"] / warm["am_seconds"], 1),
+        am_s=round(warm["am_seconds"], 4), voc_s=round(warm["voc_seconds"], 4),
+        audio_s=round(warm["audio_seconds"], 3),
+        rtf_models=round((warm["am_seconds"] + warm["voc_seconds"])
+                         / warm["audio_seconds"], 5),
+        rtf_wall=round(warm["total_seconds"] / warm["audio_seconds"], 5))
+    return am_ckpt, voc_ckpt
+
+
+def phase_card_vs_cpu(am_ckpt: str, voc_ckpt: str):
+    """The card's acoustic model and vocoder against the same port on the
+    CPU, on one short utterance; durations are the card's, fed to both, so
+    that a rounding flip cannot fork the comparison. Tolerance 1e-3: both
+    run float32 (no TF32); what differs is the order of sums, compounded
+    through 12 decoder layers over the autoregressive decode."""
+    import torch
+
+    from kantts_tpu_torch.bin.infer_sambert import encode_symbol_inputs, load_am
+    from kantts_tpu_torch.bin.text_to_wav import resolve_frontend
+    from kantts_tpu_torch.models.builder import load_checkpoint
+    from kantts_tpu_torch.models.hifigan.layers import fold_weight_norm
+    from kantts_tpu_torch.models.sambert.sambert import sambert_infer
+
+    am_gpu, ling_unit = load_am(am_ckpt, torch.device("cuda"))
+    am_cpu, _ = load_am(am_ckpt, torch.device("cpu"))
+    voc_gpu, _ = load_checkpoint(voc_ckpt, torch.device("cuda"))
+    voc_cpu, _ = load_checkpoint(voc_ckpt, torch.device("cpu"))
+    fold_weight_norm(voc_gpu)
+    fold_weight_norm(voc_cpu)
+    symbols = resolve_frontend("pinyin").text_to_symbols([TEXTS[3]])[0][0]
+    L_in = int(np.ceil(len(ling_unit.encode_symbol_sequence(symbols)[0]) / 32) * 32)
+    ling, emo, spk, lens = (torch.from_numpy(a) for a in encode_symbol_inputs(
+        ling_unit, symbols, L_in))
+    args = (ling.long(), emo.long(), spk.long(), lens)
+    with torch.no_grad():
+        res = sambert_infer(am_gpu, *(a.cuda() for a in args), L_in * 24)
+        durs = torch.floor(res["duration_predictions"] + 0.5)
+        budget = int(np.ceil(durs.sum().item() / 3) * 3)
+        mel_gpu = sambert_infer(am_gpu, *(a.cuda() for a in args), budget,
+                                duration_override=durs)["postnet_outputs"]
+        mel_cpu = sambert_infer(am_cpu, *args, budget,
+                                duration_override=durs.cpu())["postnet_outputs"]
+        mel_err = (mel_gpu.cpu() - mel_cpu).abs().max().item()
+        wav_gpu = voc_gpu(mel_cpu.cuda()).cpu()
+        wav_cpu = voc_cpu(mel_cpu)
+        wav_err = (wav_gpu - wav_cpu).abs().max().item()
+    if not (mel_err <= 1e-3 and wav_err <= 1e-3):
+        raise AssertionError(f"card vs CPU: mel {mel_err}, wav {wav_err} > 1e-3")
+    log("card_vs_cpu", frames=budget, mel_max_abs_err=mel_err,
+        wav_max_abs_err=wav_err, tol=1e-3)
+
+
+def main() -> int:
+    smi = phase_device()
+    phase_build()
+    max_err = phase_k1()
+    launches, k1_ms, plain_ms = phase_mas_forward()
+    with tempfile.TemporaryDirectory(prefix="kantts_smoke_") as tmp:
+        am_ckpt, voc_ckpt = phase_text_to_wav(tmp)
+        phase_card_vs_cpu(am_ckpt, voc_ckpt)
+    import torch
+
+    print(json.dumps({"kernels": [{
+        "name": "K1 mas_width1 (MAS Viterbi)", "route": "cuda",
+        "source": "kantts_tpu_torch/csrc/mas.cu",
+        "replaces": "kantts_tpu/ops/mas_pallas.py:91",
+        "launches": launches, "max_abs_err": max_err,
+        "ms": k1_ms, "plain_ms": plain_ms}]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,117 @@
+"""K1, the MAS Viterbi as a hand-written CUDA kernel (``csrc/mas.cu``).
+
+The source is compiled at first use with ``nvcc`` into a shared library with
+a plain C interface under ``build/kantts_tpu_torch/`` (keyed by the source's
+hash), and bound with ``ctypes``. Nothing is built or loaded at import, so
+the module imports on a machine without CUDA.
+
+``b_mas_cuda`` takes CUDA tensors only; ``models/sambert/alignment.py``
+holds the plain PyTorch version and the dispatcher.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG_DIR, "csrc", "mas.cu")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kantts_tpu_torch")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def _find_nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: K1 is built from csrc/mas.cu with the "
+                       "CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+class MasKernel:
+    """Callable wrapper around the built library; ``launches`` counts each
+    kernel launch and nothing else."""
+
+    def __init__(self) -> None:
+        self.launches = 0
+        self.build_log = ""
+        self.build_seconds = 0.0
+        self._lib = None
+        self._lock = threading.Lock()
+
+    def build(self) -> ctypes.CDLL:
+        """Compile (once per source hash) and load the library."""
+        with self._lock:
+            if self._lib is not None:
+                return self._lib
+            with open(SOURCE, "rb") as f:
+                digest = hashlib.sha1(f.read()).hexdigest()[:12]
+            lib_path = os.path.join(BUILD_DIR, f"libkantts_mas_{digest}.so")
+            t0 = time.perf_counter()
+            if not os.path.exists(lib_path):
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                tmp = f"{lib_path}.{os.getpid()}.tmp"
+                proc = subprocess.run(
+                    [_find_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+                    capture_output=True, text=True)
+                self.build_log = proc.stdout + proc.stderr
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {SOURCE}:\n{self.build_log}")
+                os.replace(tmp, lib_path)
+            lib = ctypes.CDLL(lib_path)
+            lib.kantts_mas_width1.argtypes = [ctypes.c_void_p] * 5 + [
+                ctypes.c_int] * 3 + [ctypes.c_void_p]
+            lib.kantts_mas_width1.restype = ctypes.c_int
+            lib.kantts_mas_max_text_len.argtypes = []
+            lib.kantts_mas_max_text_len.restype = ctypes.c_int
+            self.build_seconds = time.perf_counter() - t0
+            self._lib = lib
+            return lib
+
+    def __call__(self, attn: torch.Tensor, in_lens: torch.Tensor,
+                 out_lens: torch.Tensor) -> torch.Tensor:
+        """attn (B, 1, T_mel, T_text) f32 contiguous CUDA; in_lens/out_lens
+        (B,) int32 on the same device -> hard 0/1 alignment, same shape."""
+        if attn.device.type != "cuda":
+            raise ValueError(f"K1 takes CUDA tensors, got {attn.device}")
+        if attn.dtype != torch.float32 or attn.dim() != 4 or attn.shape[1] != 1:
+            raise ValueError("K1 takes attn of shape (B, 1, T_mel, T_text) in "
+                             f"float32, got {tuple(attn.shape)} {attn.dtype}")
+        if not attn.is_contiguous():
+            raise ValueError("K1 takes a contiguous attn")
+        B, _, T_mel, T_text = attn.shape
+        for name, t in (("in_lens", in_lens), ("out_lens", out_lens)):
+            if (t.device != attn.device or t.dtype != torch.int32
+                    or t.shape != (B,) or not t.is_contiguous()):
+                raise ValueError(f"K1 takes {name} as contiguous int32 ({B},) "
+                                 f"on {attn.device}, got {tuple(t.shape)} "
+                                 f"{t.dtype} on {t.device}")
+        lib = self.build()
+        if T_text > lib.kantts_mas_max_text_len():
+            raise ValueError(f"K1 takes T_text <= {lib.kantts_mas_max_text_len()}"
+                             f", got {T_text}")
+        out = torch.zeros_like(attn)
+        take = torch.empty((B, T_mel, T_text), dtype=torch.uint8,
+                           device=attn.device)
+        with torch.cuda.device(attn.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.kantts_mas_width1(
+                attn.data_ptr(), in_lens.data_ptr(), out_lens.data_ptr(),
+                out.data_ptr(), take.data_ptr(), B, T_mel, T_text, stream)
+        if err != 0:
+            raise RuntimeError(f"K1 launch failed: cudaError {err}")
+        self.launches += 1
+        return out
+
+
+b_mas_cuda = MasKernel()
