@@ -11,19 +11,27 @@ hifigan_v1_16k, with weights made from a seed:
   2. K1 against its plain PyTorch version, exact, at the train shape
      (32 x 576 x 128) and the long bucket (2 x 4800 x 800);
   3. the teacher-forced MAS forward (B=8, T_in 96, T_mel 576) through K1;
-  4. text -> wav through ``python -m kantts_tpu_torch.bin.text_to_wav`` on
+  4. training through ``kantts_tpu_torch.bin.train_sambert`` on a synthetic
+     MAS corpus (72 utterances of 60-90 symbols and 400-570 frames, made
+     with numpy): 40 steps at B=32 with K1 in every step, an exact resume
+     from step 20 to step 24, and the CLI for 2 steps in a subprocess; then
+     one train step timed at B=32, T_in 96, T_mel 576, and a forward and
+     backward at B=4 held against the CPU's;
+  5. text -> wav through ``python -m kantts_tpu_torch.bin.text_to_wav`` on
      4 tone-numbered pinyin lines, then the same path timed in this
      process, and the card's acoustic model and vocoder held against the
-     CPU's on a short input.
+     CPU's on a short input;
+  6. text -> wav with the checkpoint of step 40 as the acoustic model.
 
-Each phase prints one line and raises on failure. Before the last line it
-prints a JSON object on the kernels; the last line is
+Each phase prints lines of its own and raises on failure. Before the last
+line it prints a JSON object on the kernels; the last line is
 {"ok": true, "device": {...}}. TF32 is off for matmuls and cuDNN, so every
-comparison runs in float32.
+comparison and every time is in float32.
 """
 
 from __future__ import annotations
 
+import collections
 import glob
 import json
 import os
@@ -31,6 +39,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -40,6 +49,12 @@ TEXTS = ["ni3 hao3 , huan1 ying2 lai2 dao4 bei3 jing1 .",
          "zhe4 shi4 yi2 ge4 yu3 yin1 he2 cheng2 de5 ce4 shi4 .",
          "qing3 zai4 shuo1 yi2 bian4 , xie4 xie5 ."]
 HOP = 200  # samples per mel frame of hifigan_v1_16k: prod(10, 5, 2, 2)
+# the keys of kantts_tpu/configs/sambert_16k_MAS.yaml that the train phase
+# shortens; every width and every other key is the published config's
+TRAIN_KEYS = dict(train_max_steps=40, save_interval_steps=20,
+                  eval_interval_steps=20, log_interval_steps=20)
+TRAIN_SHAPE = (32, 96, 576)  # B, T_in, T_mel of the timed train step
+EPOCH = 50  # card vs CPU: the binarization loss at half weight
 
 
 def log(phase: str, **fields) -> None:
@@ -167,12 +182,12 @@ def phase_mas_forward():
     import torch
 
     from kantts_tpu_torch.configs import get_config
-    from kantts_tpu_torch.models.builder import sambert_model_builder, sambert_params
+    from kantts_tpu_torch.models.builder import build_sambert, sambert_params
     from kantts_tpu_torch.models.sambert.alignment import b_mas_torch
     from kantts_tpu_torch.ops.mas import b_mas_cuda
 
     config = get_config("sambert_16k_MAS")
-    model = sambert_model_builder(config, seed=0).cuda()
+    model = build_sambert(config, seed=0).cuda()
     batch = mas_batch(sambert_params(config))
     b_mas_cuda.launches = 0
     torch.cuda.synchronize()
@@ -324,22 +339,303 @@ def phase_card_vs_cpu(am_ckpt: str, voc_ckpt: str):
         wav_max_abs_err=wav_err, tol=1e-3)
 
 
+def train_config(path: str, **keys) -> str:
+    """sambert_16k_MAS.yaml with ``keys`` replaced, written to ``path``."""
+    import yaml
+
+    with open(os.path.join(ROOT, "kantts_tpu", "configs", "sambert_16k_MAS.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(keys)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def ckpt_path(stage: str, steps: int) -> str:
+    return os.path.join(stage, "ckpt", f"checkpoint_{steps}.ckpt")
+
+
+def phase_train(tmp: str):
+    """Full-width MAS training through train_sambert's train(): 40 steps,
+    a resume from step 20 to 24, and 2 steps of the CLI in a subprocess.
+    -> (the 40-step trainer, K1 launches in its run)."""
+    import torch
+
+    from kantts_tpu_torch.bin.train_sambert import train
+    from kantts_tpu_torch.ops.mas import b_mas_cuda
+    from kantts_tpu_torch.utils.corpus import write_mas_corpus
+
+    data = os.path.join(tmp, "corpus")
+    write_mas_corpus(data, 72, (60, 90), (400, 570), seed=0)
+    stage = os.path.join(tmp, "train")
+    steps = TRAIN_KEYS["train_max_steps"]
+    b_mas_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer = train(train_config(os.path.join(stage, "model.yaml"), **TRAIN_KEYS),
+                    data, stage)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = b_mas_cuda.launches
+    if trainer.steps_taken != steps:
+        raise AssertionError(f"{trainer.steps_taken} train steps, expected {steps}")
+    if launches < steps:
+        raise AssertionError(f"K1 launched {launches} times in {steps} train steps")
+    for kind, at, means in trainer.history:
+        bad = {k: v for k, v in means.items() if not np.isfinite(v)}
+        if bad:
+            raise AssertionError(f"{kind} metrics at step {at} not finite: {bad}")
+    for at in (20, 40):
+        if not os.path.exists(ckpt_path(stage, at)):
+            raise AssertionError(f"no checkpoint at step {at}")
+    first, last = (torch.load(ckpt_path(stage, at), map_location="cpu",
+                              weights_only=True)["model"] for at in (20, 40))
+    moved = sum(not torch.equal(first[k], last[k]) for k in first)
+    if moved < 0.9 * len(first):
+        raise AssertionError(f"only {moved} of {len(first)} tensors moved "
+                             "between steps 20 and 40")
+    total = {f"{kind}@{at}": round(m[f"{kind}/TotalLoss"], 4)
+             for kind, at, m in trainer.history}
+    log("train", steps=steps, batch=trainer.config["batch_size"],
+        seconds=round(seconds, 3), k1_launches=launches,
+        steps_per_s_21_to_40=round(trainer.history[-1][2]["train/steps_per_sec"], 3),
+        total_loss=json.dumps(total).replace(" ", ""),
+        tensors_moved_20_to_40=f"{moved}/{len(first)}")
+
+    resumed = os.path.join(tmp, "train_resumed")
+    t0 = time.perf_counter()
+    again = train(train_config(os.path.join(resumed, "model.yaml"),
+                               **dict(TRAIN_KEYS, train_max_steps=24)),
+                  data, resumed, resume_path=ckpt_path(stage, 20))
+    if again.steps_taken != 4 or not os.path.exists(ckpt_path(resumed, 24)):
+        raise AssertionError(f"resume from 20 to 24 ran {again.steps_taken} steps")
+    if again.scheduler.last_epoch != 24:
+        raise AssertionError(f"resumed schedule at {again.scheduler.last_epoch}")
+    log("train_resume", from_step=20, to_step=24, steps_run=again.steps_taken,
+        seconds=round(time.perf_counter() - t0, 3))
+    del again
+
+    cli = os.path.join(tmp, "train_cli")
+    cfg = train_config(os.path.join(cli, "model.yaml"),
+                       **dict(TRAIN_KEYS, train_max_steps=2))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "kantts_tpu_torch.bin.train_sambert",
+         "--model_config", cfg, "--root_dir", data, "--stage_dir", cli],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0 or not os.path.exists(ckpt_path(cli, 2)):
+        raise RuntimeError(f"train_sambert exited {proc.returncode}:\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    log("train_cli", steps=2, seconds=round(time.perf_counter() - t0, 3))
+    return trainer, launches
+
+
+def longest_items(trainer, n: int):
+    """The n utterances of the training set with the most mel frames."""
+    ds = trainer.train_loader.dataset
+    return sorted((ds[i] for i in range(len(ds))), key=lambda it: -it[1].shape[0])[:n]
+
+
+def host_syncs(fn) -> list:
+    """Run ``fn`` once under ``torch.cuda.set_sync_debug_mode("warn")``.
+    -> one entry per host sync: the innermost line of the port on the Python
+    stack when it happened (a sync inside backward shows the line that
+    called backward)."""
+    import traceback
+
+    import torch
+
+    sites = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()
+                if f"{os.sep}kantts_tpu_torch{os.sep}" in f.filename]
+        sites.append(f"{os.path.relpath(ours[-1].filename, ROOT)}:{ours[-1].lineno}"
+                     if ours else f"{os.path.basename(filename)}:{lineno}")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sites
+
+
+def phase_train_step(trainer) -> float:
+    """One train step at B=32, T_in 96, T_mel 576, timed: 5 warmup steps,
+    then 20 steps each between two synchronizes. K1's time inside the step
+    comes from CUDA events around ``mas_align``; host syncs are what
+    ``torch.cuda.set_sync_debug_mode`` reports for one step. -> K1 ms."""
+    import torch
+
+    import kantts_tpu_torch.models.sambert.sambert as sambert_module
+    from kantts_tpu_torch.train.trainer import batch_to_device
+
+    ds = trainer.train_loader.dataset
+    batch = batch_to_device(ds.collate_fn(longest_items(trainer, TRAIN_SHAPE[0])),
+                            torch.device("cuda"))
+    shape = (*batch["input_lings"].shape[:2], batch["mel_targets"].shape[1])
+    if shape != TRAIN_SHAPE:
+        raise AssertionError(f"timing batch {shape}, expected {TRAIN_SHAPE}")
+    step = trainer.train_step_fn
+    for _ in range(5):
+        step(batch, 0)
+    torch.cuda.synchronize()
+
+    syncs = host_syncs(lambda: step(batch, 0))
+
+    events = []
+    mas_align = sambert_module.mas_align
+
+    def timed_mas_align(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = mas_align(*args)
+        end.record()
+        events.append((start, end))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    sambert_module.mas_align = timed_mas_align
+    try:
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(batch, 0)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    finally:
+        sambert_module.mas_align = mas_align
+    if not np.isfinite(metrics["TotalLoss"].item()):
+        raise AssertionError("timed train step: loss not finite")
+    ms = float(np.median(times)) * 1e3
+    k1_ms = float(np.median([s.elapsed_time(e) for s, e in events]))
+    B, _, T_mel = TRAIN_SHAPE
+    log("train_step", shape="B={}xT_in={}xT_mel={}".format(*TRAIN_SHAPE),
+        median_ms=round(ms, 3), min_ms=round(min(times) * 1e3, 3),
+        max_ms=round(max(times) * 1e3, 3),
+        train_step_mel_frames_per_s=round(B * T_mel / (ms / 1e3), 1),
+        k1_ms=round(k1_ms, 4), k1_share=round(k1_ms / ms, 5),
+        peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 3),
+        host_syncs=len(syncs), sync_sites=",".join(
+            f"{site}x{n}" for site, n in collections.Counter(syncs).items()))
+    return k1_ms
+
+
+def phase_train_card_vs_cpu(trainer):
+    """One forward and backward at full width, B=4, on the card and on the
+    CPU: the same seeded weights and batch, train() mode with every
+    dropout's p at 0, the binarization loss at epoch 50. The CPU side takes
+    the card's hard alignment, so that a rounding flip in the Viterbi cannot
+    fork the comparison; whether its own alignment agrees is printed.
+    Tolerance: total loss rtol 1e-4, global grad norm rtol 1e-3 (float32
+    with TF32 off on both; the order of sums differs, and CUDA's CTC
+    backward accumulates with atomics)."""
+    import copy
+
+    import torch
+    from torch import nn
+
+    import kantts_tpu_torch.models.sambert.sambert as sambert_module
+    from kantts_tpu_torch.losses import criterion_builder
+    from kantts_tpu_torch.models.builder import build_sambert
+    from kantts_tpu_torch.train.optim import global_grad_norm
+    from kantts_tpu_torch.train.steps import sambert_losses
+    from kantts_tpu_torch.train.trainer import batch_to_device
+
+    batch_np = trainer.train_loader.dataset.collate_fn(longest_items(trainer, 4))
+    criterion = criterion_builder(trainer.config)
+    cpu_model = build_sambert(trainer.config, seed=0)
+    card_model = copy.deepcopy(cpu_model).cuda()
+    mas_align = sambert_module.mas_align
+    hard = {}
+
+    def card_mas(*args):
+        hard["card"] = mas_align(*args)
+        return hard["card"]
+
+    def cpu_mas(*args):
+        hard["cpu"] = mas_align(*args)
+        return hard["card"].cpu()
+
+    out = {}
+    for name, model, device, align in (
+            ("card", card_model, torch.device("cuda"), card_mas),
+            ("cpu", cpu_model, torch.device("cpu"), cpu_mas)):
+        for m in model.modules():
+            if isinstance(m, nn.Dropout):
+                m.p = 0.0
+        model.train()
+        sambert_module.mas_align = align
+        try:
+            loss, _ = sambert_losses(model, criterion,
+                                     batch_to_device(batch_np, device), EPOCH, True)
+            loss.backward()
+        finally:
+            sambert_module.mas_align = mas_align
+        out[name] = (loss.item(), global_grad_norm(model.parameters()).item())
+    (loss_card, norm_card), (loss_cpu, norm_cpu) = out["card"], out["cpu"]
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    norm_rel = abs(norm_card - norm_cpu) / abs(norm_cpu)
+    log("train_card_vs_cpu", shape=f"B=4xT_in={batch_np['input_lings'].shape[1]}"
+                                   f"xT_mel={batch_np['mel_targets'].shape[1]}",
+        loss_card=loss_card, loss_cpu=loss_cpu, loss_rel_err=loss_rel,
+        grad_norm_card=norm_card, grad_norm_cpu=norm_cpu, grad_norm_rel_err=norm_rel,
+        cpu_alignment_equal=bool(torch.equal(hard["cpu"], hard["card"].cpu())),
+        tol="1e-4,1e-3")
+    if not (np.isfinite([loss_card, norm_card]).all() and loss_rel <= 1e-4
+            and norm_rel <= 1e-3):
+        raise AssertionError(f"train card vs CPU: loss {loss_card} vs {loss_cpu}, "
+                             f"grad norm {norm_card} vs {norm_cpu}")
+
+
+def phase_train_to_serve(tmp: str, am_ckpt: str, voc_ckpt: str):
+    """text_to_wav with the trained checkpoint as the acoustic model."""
+    import torch
+
+    from kantts_tpu_torch.bin.text_to_wav import text_to_wav
+
+    out = os.path.join(tmp, "from_trained")
+    stats = text_to_wav(out, am_ckpt, voc_ckpt, os.path.join(tmp, "text.txt"),
+                        am_batch=4, device=torch.device("cuda"))
+    log("train_to_serve", checkpoint=os.path.basename(am_ckpt),
+        sentences=check_wavs(out), am_frames=stats["am_frames"],
+        audio_s=round(stats["audio_seconds"], 3))
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
     max_err = phase_k1()
-    launches, k1_ms, plain_ms = phase_mas_forward()
+    fwd_launches, k1_ms, plain_ms = phase_mas_forward()
     with tempfile.TemporaryDirectory(prefix="kantts_smoke_") as tmp:
+        trainer, train_launches = phase_train(tmp)
+        k1_step_ms = phase_train_step(trainer)
+        phase_train_card_vs_cpu(trainer)
+        del trainer
         am_ckpt, voc_ckpt = phase_text_to_wav(tmp)
         phase_card_vs_cpu(am_ckpt, voc_ckpt)
+        phase_train_to_serve(tmp, ckpt_path(os.path.join(tmp, "train"), 40), voc_ckpt)
     import torch
 
     print(json.dumps({"kernels": [{
         "name": "K1 mas_width1 (MAS Viterbi)", "route": "cuda",
         "source": "kantts_tpu_torch/csrc/mas.cu",
         "replaces": "kantts_tpu/ops/mas_pallas.py:91",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": k1_ms, "plain_ms": plain_ms}]}))
+        "launches": fwd_launches + train_launches,
+        "launches_by_path": {"mas_forward": fwd_launches,
+                             "train_sambert": train_launches},
+        "max_abs_err": max_err, "ms": k1_ms, "plain_ms": plain_ms,
+        "ms_in_train_step": k1_step_ms}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,13 +2,16 @@
 port's checkpoint format (counterpart of the sambert and hifigan builders
 in ``kantts_tpu/models/builder.py``).
 
-A checkpoint is ``torch.save({"model": state_dict, "config": config})``: the
-config travels inside the file, so loading needs no YAML parser.
+A checkpoint is ``torch.save({"model": state_dict, "config": config, ...})``:
+the config travels inside the file, so loading needs no YAML parser. A
+training checkpoint adds ``optimizer``, ``scheduler`` (their state dicts)
+and ``steps``; ``load_checkpoint`` reads the model from either kind.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, Dict, Tuple
 
 import torch
@@ -19,6 +22,7 @@ from kantts_tpu_torch.models.hifigan.generator import Generator
 from kantts_tpu_torch.models.hifigan.layers import WeightNormParams
 from kantts_tpu_torch.models.sambert.adaptors import VarRnnARPredictor
 from kantts_tpu_torch.models.sambert.sambert import KanTtsSAMBERT
+from kantts_tpu_torch.train.optim import optimizer_builder
 
 
 def sambert_params(config: Dict[str, Any]) -> Dict[str, Any]:
@@ -70,11 +74,25 @@ def init_parameters(model: nn.Module, seed: int) -> None:
             m.fc.bias.fill_(m.fc_bias_init)
 
 
-def sambert_model_builder(config: Dict[str, Any], seed: int = 0
-                          ) -> KanTtsSAMBERT:
+def build_sambert(config: Dict[str, Any], seed: int = 0) -> KanTtsSAMBERT:
     model = KanTtsSAMBERT(sambert_params(config))
     init_parameters(model, seed)
     return model.eval()
+
+
+def sambert_model_builder(config: Dict[str, Any], seed: int = 0,
+                          device: torch.device = torch.device("cpu")
+                          ) -> Dict[str, Any]:
+    """The model on ``device`` in train mode, with the optimizer, scheduler
+    and gradient clip of ``config`` (``Model.KanTtsSAMBERT.optimizer`` and
+    ``.scheduler``, top-level ``grad_norm``)."""
+    model = build_sambert(config, seed).to(device).train()
+    section = config["Model"]["KanTtsSAMBERT"]
+    optimizer, scheduler, clip = optimizer_builder(
+        model.parameters(), section["optimizer"], section.get("scheduler"),
+        config.get("grad_norm"))
+    return {"model": model, "optimizer": optimizer, "scheduler": scheduler,
+            "clip": clip}
 
 
 def hifigan_model_builder(config: Dict[str, Any], seed: int = 0) -> Generator:
@@ -85,13 +103,20 @@ def hifigan_model_builder(config: Dict[str, Any], seed: int = 0) -> Generator:
 
 def model_builder(config: Dict[str, Any], seed: int = 0) -> nn.Module:
     """Dispatch on ``config["model_type"]``; the model is in eval mode."""
-    builders = {"sambert": sambert_model_builder,
-                "hifigan": hifigan_model_builder}
+    builders = {"sambert": build_sambert, "hifigan": hifigan_model_builder}
     return builders[config["model_type"]](config, seed)
 
 
-def save_checkpoint(path: str, model: nn.Module, config: Dict[str, Any]) -> None:
-    torch.save({"model": model.state_dict(), "config": config}, path)
+def save_checkpoint(path: str, model: nn.Module, config: Dict[str, Any],
+                    **training_state: Any) -> None:
+    """Write to a temporary file in the target directory, then rename it into
+    place, so that a crash mid-write never leaves a torn checkpoint."""
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.tmp"
+    torch.save({"model": model.state_dict(), "config": config, **training_state},
+               tmp)
+    os.replace(tmp, path)
 
 
 def load_checkpoint(path: str, device: torch.device

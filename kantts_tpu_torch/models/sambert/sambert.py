@@ -1,11 +1,11 @@
 """KanTtsSAMBERT acoustic model (counterpart of
 ``kantts_tpu/models/sambert/sambert.py``).
 
-The teacher-forced ``forward`` covers the MAS branch (ConvAttention, then
-the hard alignment from ``mas_align``, kernel K1 on the card); FP, SE, byte
-inputs and scheduled sampling are not ported yet. ``sambert_infer`` is the
-acoustic inference: the autoregressive duration loop and the PNCA decode are
-Python loops over steps.
+The teacher-forced ``forward`` is the training forward: the MAS branch
+(ConvAttention, then the hard alignment from ``mas_align``, kernel K1 on the
+card) and scheduled sampling; FP, SE and byte inputs are not ported yet.
+``sambert_infer`` is the acoustic inference: the autoregressive duration
+loop and the PNCA decode are Python loops over steps.
 
 Shape contract, as in the JAX package: the mel length is a multiple of r,
 and in the teacher-forced pass durations sum to the padded mel length.
@@ -248,8 +248,16 @@ class KanTtsSAMBERT(nn.Module):
     def forward(self, inputs_ling, inputs_emotion, inputs_speaker,
                 input_lengths, output_lengths, mel_targets,
                 duration_targets=None, pitch_targets=None, energy_targets=None,
-                attn_priors=None) -> Dict[str, Any]:
-        """Teacher-forced forward, as the training step runs it (no loss)."""
+                attn_priors=None, ss_prob: Optional[float] = None,
+                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+        """Teacher-forced forward, as the training step runs it (no loss).
+        Dropout follows the module's ``train()``/``eval()`` mode.
+
+        ``ss_prob`` turns on scheduled sampling: a first decoder pass without
+        gradient makes the model's own coarse frames, and the previous-frame
+        input of the second pass takes them in place of the targets on LFR
+        groups drawn Bernoulli(ss_prob) from ``generator`` (on the model's
+        device). Only the second pass takes gradient."""
         B, T_in = inputs_ling.shape[:2]
         T_mel = mel_targets.shape[1]
         r = self.r
@@ -287,8 +295,18 @@ class KanTtsSAMBERT(nn.Module):
         masked_dur = duration_targets.float().masked_fill(input_masks, 0.0)
         band_width = torch.floor(masked_dur.max() / r + 0.5).to(torch.int32)
         lfr_masks = get_mask_from_lengths((output_lengths + r - 1) // r, T_mel // r)
+        dec_in = mel_targets
+        if ss_prob is not None:
+            with torch.no_grad():
+                dec1, _, _ = self.mel_decoder(memory, band_width, band_width,
+                                              mel_targets, lfr_masks)
+            own = dec1.reshape(B, T_mel, self.d_mel).to(mel_targets.dtype)
+            take = torch.rand((B, T_mel // r), generator=generator,
+                              device=mel_targets.device) < ss_prob
+            take = take.repeat_interleave(r, dim=1)[..., None]
+            dec_in = torch.where(take, own, mel_targets)
         dec_outputs, pnca_x_attn, pnca_h_attn = self.mel_decoder(
-            memory, band_width, band_width, mel_targets, lfr_masks)
+            memory, band_width, band_width, dec_in, lfr_masks)
         dec, post = self.decode_postnet(dec_outputs, output_masks)
 
         res.update(

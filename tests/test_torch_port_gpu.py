@@ -4,12 +4,20 @@ no JAX, so it runs on a machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_port_gpu.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
+import yaml
 
+from kantts_tpu_torch.bin.train_sambert import train
+from kantts_tpu_torch.models.builder import load_checkpoint
 from kantts_tpu_torch.models.sambert.alignment import b_mas_torch, mas_align
 from kantts_tpu_torch.ops.mas import b_mas_cuda
+from kantts_tpu_torch.utils.corpus import write_mas_corpus
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 pytestmark = pytest.mark.gpu
 
@@ -54,3 +62,31 @@ def test_k1_refuses_what_it_does_not_take(cuda):
         b_mas_cuda(attn.transpose(2, 3).contiguous().transpose(2, 3), lens, lens)
     with pytest.raises(ValueError):
         b_mas_cuda(attn, lens.long(), lens)
+
+
+def test_train_steps_on_the_card_launch_k1(cuda, tmp_path):
+    """Three MAS train steps of a narrow sambert_16k_MAS through
+    train_sambert on the card: K1 runs in every step and the checkpoint
+    loads for serving."""
+    with open(os.path.join(ROOT, "kantts_tpu/configs/sambert_16k_MAS.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["Model"]["KanTtsSAMBERT"]["params"].update(
+        embedding_dim=64, encoder_num_layers=2, encoder_num_units=32,
+        encoder_ffn_inner_dim=64, decoder_num_layers=2, decoder_num_units=32,
+        decoder_ffn_inner_dim=64, postnet_fsmn_num_layers=1)
+    cfg.update(batch_size=4, num_workers=0, train_max_steps=3,
+               save_interval_steps=3, eval_interval_steps=100, log_interval_steps=3)
+    path = str(tmp_path / "model.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    data = str(tmp_path / "data")
+    write_mas_corpus(data, 12, (20, 30), (90, 150), seed=3)
+    before = b_mas_cuda.launches
+    trainer = train(path, data, str(tmp_path / "stage"))
+    assert trainer.steps_taken == 3
+    assert b_mas_cuda.launches - before >= 3
+    logged = trainer.history[-1][2]
+    assert all(np.isfinite(v) for v in logged.values()), logged
+    model, _ = load_checkpoint(str(tmp_path / "stage" / "ckpt" / "checkpoint_3.ckpt"),
+                               cuda)
+    assert next(model.parameters()).is_cuda

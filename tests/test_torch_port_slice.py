@@ -35,14 +35,16 @@ from kantts_tpu_torch.bin.infer_sambert import encode_symbol_inputs
 from kantts_tpu_torch.bin.text_to_wav import text_to_wav
 from kantts_tpu_torch.configs import get_config
 from kantts_tpu_torch.models.builder import (
+    build_sambert,
     hifigan_model_builder,
-    sambert_model_builder,
     sambert_params,
     save_checkpoint,
 )
 from kantts_tpu_torch.models.sambert.sambert import sambert_infer
+from kantts_tpu_torch.utils.corpus import write_mas_corpus
 from test_sambert import TINY
 from test_torch_port_hifigan import small_generator_cfg
+from test_torch_port_train import train_config
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TEXTS = ["ni3 hao3 , shi4 jie4 .", "wo3 men5 qu4 bei3 jing1 kan4 kan4 ."]
@@ -61,7 +63,7 @@ def slice_models(tmp_path_factory):
         TINY, num_mels=80, MAS=True, dur_pred_bias_init=2.2)
     voc_cfg = get_config("hifigan_v1_16k")
     voc_cfg["Model"]["Generator"]["params"] = small_generator_cfg()
-    am, voc = sambert_model_builder(am_cfg, seed=0), hifigan_model_builder(voc_cfg, seed=1)
+    am, voc = build_sambert(am_cfg, seed=0), hifigan_model_builder(voc_cfg, seed=1)
     params = sambert_params(am_cfg)
     ckpt_dir = tmp_path_factory.mktemp("ckpt")
     save_checkpoint(str(ckpt_dir / "am.pt"), am, am_cfg)
@@ -195,17 +197,26 @@ def test_text_to_wav_matches_jax(slice_models, tmp_path):
 
 
 def test_text_to_wav_runs_without_jax(slice_models, tmp_path):
-    """The CLI in a fresh process where importing jax or flax fails."""
+    """The CLIs in a fresh process where importing jax, flax or optax fails:
+    text_to_wav, then two train steps of train_sambert on the CPU."""
     text, (am_ckpt, voc_ckpt) = _write_texts(slice_models, str(tmp_path))
     out = str(tmp_path / "out")
+    data, stage = str(tmp_path / "data"), str(tmp_path / "stage")
+    write_mas_corpus(data, 6, (4, 6), (15, 24), seed=2)
+    train_cfg = train_config(stage, train_max_steps=2)
     code = (
         "import runpy, sys\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['flax'] = None\n"
+        "for name in ('jax', 'flax', 'optax'):\n"
+        "    sys.modules[name] = None\n"
         f"sys.argv = ['text_to_wav', '--txt', {text!r}, '--am_ckpt', {am_ckpt!r},"
         f" '--voc_ckpt', {voc_ckpt!r}, '--output_dir', {out!r}]\n"
         "runpy.run_module('kantts_tpu_torch.bin.text_to_wav', run_name='__main__')\n"
-        "assert sys.modules['jax'] is None and sys.modules['flax'] is None\n")
+        "import kantts_tpu_torch.losses, kantts_tpu_torch.train.optim\n"
+        "import kantts_tpu_torch.train.schedulers, kantts_tpu_torch.train.steps\n"
+        "from kantts_tpu_torch.bin.train_sambert import train\n"
+        f"trainer = train({train_cfg!r}, {data!r}, {stage!r}, device='cpu')\n"
+        "assert trainer.steps_taken == 2, trainer.steps_taken\n"
+        "assert all(sys.modules[n] is None for n in ('jax', 'flax', 'optax'))\n")
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -213,10 +224,11 @@ def test_text_to_wav_runs_without_jax(slice_models, tmp_path):
     stats = json.loads(proc.stdout.strip().splitlines()[-1])
     assert stats["device"] == "cpu" and stats["audio_seconds"] > 0
     assert len(glob.glob(os.path.join(out, "res_wavs", "*.wav"))) == len(TEXTS)
+    assert os.path.exists(os.path.join(stage, "ckpt", "checkpoint_2.ckpt"))
 
 
 def test_port_sources_import_no_jax():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax)\b", re.M)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax)\b", re.M)
     package = re.compile(r"^\s*(import|from)\s+kantts_tpu(\.|\s|$)", re.M)
     files = glob.glob(os.path.join(ROOT, "kantts_tpu_torch", "**", "*.py"),
                       recursive=True)
