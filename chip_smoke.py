@@ -17,11 +17,18 @@ hifigan_v1_16k, with weights made from a seed:
      from step 20 to step 24, and the CLI for 2 steps in a subprocess; then
      one train step timed at B=32, T_in 96, T_mel 576, and a forward and
      backward at B=4 held against the CPU's;
-  5. text -> wav through ``python -m kantts_tpu_torch.bin.text_to_wav`` on
+  5. vocoder GAN training through ``kantts_tpu_torch.bin.train_hifigan`` at
+     the full width of hifigan_v1_16k (MPD, MSD with the DWT and spectral
+     norm, B=16, 9600-sample crops) on a synthetic corpus of 48 harmonic
+     tones of 1.2-3 s: 40 steps, a resume of the full training state from
+     step 20 to 24, the CLI for 2 steps in a subprocess; then one GAN step
+     timed at 16 x 9600 with its host syncs and a profile, and a step at
+     B=2 held against the CPU's;
+  6. text -> wav through ``python -m kantts_tpu_torch.bin.text_to_wav`` on
      4 tone-numbered pinyin lines, then the same path timed in this
      process, and the card's acoustic model and vocoder held against the
      CPU's on a short input;
-  6. text -> wav with the checkpoint of step 40 as the acoustic model.
+  7. text -> wav with the checkpoints of step 40 of both trainings.
 
 Each phase prints lines of its own and raises on failure. Before the last
 line it prints a JSON object on the kernels; the last line is
@@ -55,6 +62,10 @@ TRAIN_KEYS = dict(train_max_steps=40, save_interval_steps=20,
                   eval_interval_steps=20, log_interval_steps=20)
 TRAIN_SHAPE = (32, 96, 576)  # B, T_in, T_mel of the timed train step
 EPOCH = 50  # card vs CPU: the binarization loss at half weight
+# the same for kantts_tpu/configs/hifigan_v1_16k.yaml
+GAN_KEYS = dict(train_max_steps=40, save_interval_steps=20,
+                eval_interval_steps=20, log_interval_steps=20)
+GAN_SHAPE = (16, 9600)  # B, samples of the timed GAN step: the published crop
 
 
 def log(phase: str, **fields) -> None:
@@ -339,11 +350,12 @@ def phase_card_vs_cpu(am_ckpt: str, voc_ckpt: str):
         wav_max_abs_err=wav_err, tol=1e-3)
 
 
-def train_config(path: str, **keys) -> str:
-    """sambert_16k_MAS.yaml with ``keys`` replaced, written to ``path``."""
+def train_config(path: str, name: str = "sambert_16k_MAS", **keys) -> str:
+    """kantts_tpu/configs/{name}.yaml with ``keys`` replaced, written to
+    ``path``."""
     import yaml
 
-    with open(os.path.join(ROOT, "kantts_tpu", "configs", "sambert_16k_MAS.yaml")) as f:
+    with open(os.path.join(ROOT, "kantts_tpu", "configs", f"{name}.yaml")) as f:
         cfg = yaml.safe_load(f)
     cfg.update(keys)
     os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -391,7 +403,7 @@ def phase_train(tmp: str):
             raise AssertionError(f"no checkpoint at step {at}")
     first, last = (torch.load(ckpt_path(stage, at), map_location="cpu",
                               weights_only=True)["model"] for at in (20, 40))
-    moved = sum(not torch.equal(first[k], last[k]) for k in first)
+    moved, _ = moved_share(first, last)
     if moved < 0.9 * len(first):
         raise AssertionError(f"only {moved} of {len(first)} tensors moved "
                              "between steps 20 and 40")
@@ -431,6 +443,238 @@ def phase_train(tmp: str):
     return trainer, launches
 
 
+def gan_config(path: str, **keys) -> str:
+    return train_config(path, "hifigan_v1_16k", **dict(GAN_KEYS, **keys))
+
+
+def moved_share(first: dict, last: dict) -> tuple:
+    """-> (tensors that differ, tensors) between two state dicts."""
+    import torch
+
+    return sum(not torch.equal(first[k], last[k]) for k in first), len(first)
+
+
+def phase_voc_train(tmp: str):
+    """Full-width GAN training through train_hifigan's train(): 40 steps, a
+    resume of the full training state from step 20 to 24, and 2 steps of
+    the CLI in a subprocess. -> the 40-step trainer."""
+    import torch
+
+    from kantts_tpu_torch.bin.train_hifigan import train
+    from kantts_tpu_torch.utils.corpus import write_voc_corpus
+
+    data = os.path.join(tmp, "voc_corpus")
+    t0 = time.perf_counter()
+    write_voc_corpus(data, 48, (1.2, 3.0), seed=0)
+    corpus_s = time.perf_counter() - t0
+    stage = os.path.join(tmp, "voc_train")
+    steps = GAN_KEYS["train_max_steps"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer = train(gan_config(os.path.join(stage, "model.yaml")), data, stage,
+                    device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if trainer.steps_taken != steps:
+        raise AssertionError(f"{trainer.steps_taken} GAN steps, expected {steps}")
+    for kind, at, means in trainer.history:
+        bad = {k: v for k, v in means.items() if not np.isfinite(v)}
+        if bad:
+            raise AssertionError(f"GAN {kind} metrics at step {at} not finite: {bad}")
+    for at in (20, 40):
+        if not os.path.exists(ckpt_path(stage, at)):
+            raise AssertionError(f"no GAN checkpoint at step {at}")
+    first, last = (torch.load(ckpt_path(stage, at), map_location="cpu",
+                              weights_only=True)["model"] for at in (20, 40))
+    moved = {"generator": moved_share(first["generator"], last["generator"])}
+    for name in first["discriminator"]:
+        moved[name] = moved_share(first["discriminator"][name],
+                                  last["discriminator"][name])
+        # a one-element u (a conv_post's) is +-1 after its first update
+        us = [k for k, v in first["discriminator"][name].items()
+              if k.endswith("weight_u") and v.numel() > 1]
+        stuck = [k for k in us if torch.equal(first["discriminator"][name][k],
+                                              last["discriminator"][name][k])]
+        if stuck:
+            raise AssertionError(f"{name}: spectral vectors did not move: {stuck}")
+    for name, (n, total) in moved.items():
+        if n < 0.9 * total:
+            raise AssertionError(f"{name}: only {n} of {total} tensors moved "
+                                 "between steps 20 and 40")
+    n_params = {name: sum(p.numel() for p in m.parameters()) for name, m in
+                [("generator", trainer.generator), *trainer.discriminators.items()]}
+    means = {f"{kind}@{at}": {k.split("/")[1]: round(v, 4) for k, v in m.items()
+                              if k.split("/")[1] in ("mel_loss", "generator_loss",
+                                                     "discriminator_loss")}
+             for kind, at, m in trainer.history}
+    log("voc_train", steps=steps, batch=trainer.config["batch_size"],
+        crop=trainer.config["batch_max_steps"], corpus_s=round(corpus_s, 3),
+        seconds=round(seconds, 3),
+        steps_per_s_21_to_40=round(trainer.history[-1][2]["train/steps_per_sec"], 3),
+        params=json.dumps(n_params).replace(" ", ""),
+        losses=json.dumps(means).replace(" ", ""),
+        tensors_moved_20_to_40=json.dumps(
+            {k: f"{n}/{t}" for k, (n, t) in moved.items()}).replace(" ", ""))
+
+    resumed = os.path.join(tmp, "voc_resumed")
+    t0 = time.perf_counter()
+    again = train(gan_config(os.path.join(resumed, "model.yaml"), train_max_steps=24),
+                  data, resumed, resume_path=ckpt_path(stage, 20),
+                  resume_training_state=True, device="cuda")
+    if again.steps_taken != 4 or not os.path.exists(ckpt_path(resumed, 24)):
+        raise AssertionError(f"GAN resume from 20 to 24 ran {again.steps_taken} steps")
+    schedules = [again.gen_scheduler.last_epoch] + [
+        s.last_epoch for s in again.disc_schedulers.values()]
+    if schedules != [24] * len(schedules):
+        raise AssertionError(f"resumed GAN schedules at {schedules}")
+    log("voc_train_resume", from_step=20, to_step=24, steps_run=again.steps_taken,
+        schedules=",".join(map(str, schedules)),
+        seconds=round(time.perf_counter() - t0, 3))
+    del again
+
+    cli = os.path.join(tmp, "voc_cli")
+    cfg = gan_config(os.path.join(cli, "model.yaml"), train_max_steps=2)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "kantts_tpu_torch.bin.train_hifigan",
+         "--model_config", cfg, "--root_dir", data, "--stage_dir", cli,
+         "--device", "cuda"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0 or not os.path.exists(ckpt_path(cli, 2)):
+        raise RuntimeError(f"train_hifigan exited {proc.returncode}:\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    log("voc_train_cli", steps=2, seconds=round(time.perf_counter() - t0, 3))
+    return trainer
+
+
+def gan_batch(trainer, batch: int, device):
+    """``batch`` crops of the longest training utterances, from a seeded
+    RandomState: (wav (B, 9600, 1), mel (B, 48, 80)) on ``device``."""
+    from kantts_tpu_torch.train.trainer import array_to_device
+
+    ds = trainer.train_loader.dataset
+    items = sorted((ds[i] for i in range(len(ds))), key=lambda it: -len(it[0]))
+    wav, mel = ds.collate_fn(items[:batch], np.random.RandomState(0))
+    return array_to_device(wav, device), array_to_device(mel, device)
+
+
+def profile_steps(step, n: int) -> dict:
+    """``torch.profiler`` over n calls of ``step`` between synchronizes.
+    -> wall ms, device busy ms (the union of kernel and copy intervals), and
+    the ten device operations with the most time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    busy_us, end = 0.0, -1.0
+    by_name = collections.Counter()
+    for start, stop, name in spans:
+        busy_us += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+        by_name[name] += stop - start
+    total = sum(by_name.values())
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3,
+            "device_ops": len(spans), "device_op_ms": total / 1e3,
+            "top": [(name[:60], round(us / 1e3, 3), round(us / total, 4))
+                    for name, us in by_name.most_common(10)] if total else []}
+
+
+def phase_gan_step(trainer):
+    """One GAN step (both gates open) at B=16 x 9600, timed: 5 warmup steps,
+    then 20 steps each between two synchronizes; host syncs of one step;
+    a profile of 3 warm steps."""
+    import torch
+
+    batch = gan_batch(trainer, GAN_SHAPE[0], torch.device("cuda"))
+    if tuple(batch[0].shape) != (*GAN_SHAPE, 1):
+        raise AssertionError(f"timing batch {tuple(batch[0].shape)}")
+    step = trainer.step_fn()
+    for _ in range(5):
+        step(*batch)
+    torch.cuda.synchronize()
+    syncs = host_syncs(lambda: step(*batch))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(*batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    bad = {k: v.item() for k, v in metrics.items() if not torch.isfinite(v)}
+    if bad:
+        raise AssertionError(f"timed GAN step: metrics not finite: {bad}")
+    ms = float(np.median(times)) * 1e3
+    B, T = GAN_SHAPE
+    log("gan_step", shape=f"B={B}xT={T}", median_ms=round(ms, 3),
+        min_ms=round(min(times) * 1e3, 3), max_ms=round(max(times) * 1e3, 3),
+        gan_train_step_audio_s_per_s=round(B * T / 16000 / (ms / 1e3), 3),
+        peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 3),
+        host_syncs=len(syncs), sync_sites=",".join(
+            f"{site}x{n}" for site, n in collections.Counter(syncs).items()))
+    prof = profile_steps(lambda: step(*batch), 3)
+    log("gan_step_profile", steps=3, wall_ms=round(prof["wall_ms"], 3),
+        device_busy_ms=round(prof["busy_ms"], 3),
+        device_busy_share=round(prof["busy_ms"] / prof["wall_ms"], 4),
+        device_ops_per_step=prof["device_ops"] // 3,
+        top=json.dumps(prof["top"]).replace(" ", ""))
+
+
+def phase_gan_card_vs_cpu(trainer):
+    """The GAN at full width, B=2, on the card and on the CPU from the same
+    seeded weights and batch: the generator loss and its backward (the
+    generator's gradient norm), the fake regenerated, the discriminator
+    loss and its backward (the discriminators' gradient norm). Tolerance:
+    losses rtol 1e-5, gradient norms rtol 1e-3 (float32 with TF32 off on
+    both; the order of sums differs)."""
+    import torch
+
+    from kantts_tpu_torch.losses import criterion_builder
+    from kantts_tpu_torch.models.builder import hifigan_gan_builder
+    from kantts_tpu_torch.train.optim import global_grad_norm
+    from kantts_tpu_torch.train.steps import discriminator_losses, generator_losses
+
+    criterion = criterion_builder(trainer.config)
+    out = {}
+    for device in (torch.device("cuda"), torch.device("cpu")):
+        built = hifigan_gan_builder(trainer.config, seed=0, device=device)
+        gen, discs = built["generator"], built["discriminators"]
+        wav, mel = gan_batch(trainer, 2, device)
+        gen_loss, _ = generator_losses(gen, discs, criterion, wav, mel, True)
+        gen_loss.backward()
+        g_norm = global_grad_norm(gen.parameters())
+        for d in discs.values():
+            d.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            y_fake = gen(mel).transpose(1, 2)
+        dis_loss, _ = discriminator_losses(discs, criterion, wav.transpose(1, 2),
+                                           y_fake)
+        dis_loss.backward()
+        d_norm = global_grad_norm([p for d in discs.values() for p in d.parameters()])
+        out[device.type] = [gen_loss.item(), dis_loss.item(), g_norm.item(),
+                            d_norm.item()]
+    card, cpu = np.array(out["cuda"]), np.array(out["cpu"])
+    rel = np.abs(card - cpu) / np.abs(cpu)
+    log("gan_card_vs_cpu", shape="B={}xT={}".format(*wav.shape[:2]),
+        gen_loss=card[0], gen_loss_cpu=cpu[0],
+        dis_loss=card[1], dis_loss_cpu=cpu[1], gen_grad_norm=card[2],
+        gen_grad_norm_cpu=cpu[2], dis_grad_norm=card[3], dis_grad_norm_cpu=cpu[3],
+        rel_errs=",".join(f"{r:.3g}" for r in rel), tol="1e-5,1e-5,1e-3,1e-3")
+    if not (np.isfinite(card).all() and (rel <= [1e-5, 1e-5, 1e-3, 1e-3]).all()):
+        raise AssertionError(f"GAN card vs CPU: card {card}, CPU {cpu}")
+
+
 def longest_items(trainer, n: int):
     """The n utterances of the training set with the most mel frames."""
     ds = trainer.train_loader.dataset
@@ -441,7 +685,8 @@ def host_syncs(fn) -> list:
     """Run ``fn`` once under ``torch.cuda.set_sync_debug_mode("warn")``.
     -> one entry per host sync: the innermost line of the port on the Python
     stack when it happened (a sync inside backward shows the line that
-    called backward)."""
+    called backward), or the three innermost frames when no line of the
+    port is on the stack."""
     import traceback
 
     import torch
@@ -451,10 +696,12 @@ def host_syncs(fn) -> list:
     def record(message, category, filename, lineno, file=None, line=None):
         if "synchroniz" not in str(message):
             return
-        ours = [f for f in traceback.extract_stack()
-                if f"{os.sep}kantts_tpu_torch{os.sep}" in f.filename]
+        stack = [f for f in traceback.extract_stack()[:-1]
+                 if not f.filename.endswith("warnings.py")]
+        ours = [f for f in stack if f"{os.sep}kantts_tpu_torch{os.sep}" in f.filename]
         sites.append(f"{os.path.relpath(ours[-1].filename, ROOT)}:{ours[-1].lineno}"
-                     if ours else f"{os.path.basename(filename)}:{lineno}")
+                     if ours else "<-".join(f"{os.path.basename(f.filename)}:{f.lineno}"
+                                            for f in stack[-3:][::-1]))
 
     with warnings.catch_warnings():
         warnings.simplefilter("always")
@@ -599,7 +846,8 @@ def phase_train_card_vs_cpu(trainer):
 
 
 def phase_train_to_serve(tmp: str, am_ckpt: str, voc_ckpt: str):
-    """text_to_wav with the trained checkpoint as the acoustic model."""
+    """text_to_wav with both trained checkpoints: the acoustic model and the
+    generator of the GAN checkpoint."""
     import torch
 
     from kantts_tpu_torch.bin.text_to_wav import text_to_wav
@@ -607,7 +855,8 @@ def phase_train_to_serve(tmp: str, am_ckpt: str, voc_ckpt: str):
     out = os.path.join(tmp, "from_trained")
     stats = text_to_wav(out, am_ckpt, voc_ckpt, os.path.join(tmp, "text.txt"),
                         am_batch=4, device=torch.device("cuda"))
-    log("train_to_serve", checkpoint=os.path.basename(am_ckpt),
+    log("train_to_serve", am_checkpoint=os.path.relpath(am_ckpt, tmp),
+        voc_checkpoint=os.path.relpath(voc_ckpt, tmp),
         sentences=check_wavs(out), am_frames=stats["am_frames"],
         audio_s=round(stats["audio_seconds"], 3))
 
@@ -622,9 +871,14 @@ def main() -> int:
         k1_step_ms = phase_train_step(trainer)
         phase_train_card_vs_cpu(trainer)
         del trainer
+        voc_trainer = phase_voc_train(tmp)
+        phase_gan_step(voc_trainer)
+        phase_gan_card_vs_cpu(voc_trainer)
+        del voc_trainer
         am_ckpt, voc_ckpt = phase_text_to_wav(tmp)
         phase_card_vs_cpu(am_ckpt, voc_ckpt)
-        phase_train_to_serve(tmp, ckpt_path(os.path.join(tmp, "train"), 40), voc_ckpt)
+        phase_train_to_serve(tmp, ckpt_path(os.path.join(tmp, "train"), 40),
+                             ckpt_path(os.path.join(tmp, "voc_train"), 40))
     import torch
 
     print(json.dumps({"kernels": [{

@@ -1,20 +1,26 @@
-"""SAM-BERT training criteria (counterpart of ``kantts_tpu/losses/losses.py``).
+"""Training criteria of SAM-BERT and HiFi-GAN (counterpart of
+``kantts_tpu/losses/losses.py``).
 
-Reductions divide by the number of valid elements under the padding masks,
-so bucketed padding cannot change a loss value. ``criterion_builder`` keeps
-the config contract (per-loss ``enable``/``params``/``weights``); the
-vocoder's criteria and the Textsy-BERT and FP losses are not ported yet and
-are refused by name when enabled.
+SAM-BERT's reductions divide by the number of valid elements under the
+padding masks, so bucketed padding cannot change a loss value.
+``criterion_builder`` keeps the config contract (per-loss
+``enable``/``params``/``weights``); the sub-band STFT loss (it needs PQMF)
+and the Textsy-BERT and FP losses are not ported yet and are refused by name
+when enabled.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 
+from kantts_tpu_torch.dsp.mel import LossMelSpectrogram
+from kantts_tpu_torch.dsp.stft import hann_window, stft_magnitude
 from kantts_tpu_torch.utils.mask import get_mask_from_lengths
+
+Scores = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 
 def _elementwise(loss_type: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -112,7 +118,172 @@ class AttentionCTCLoss:
         return (per_seq / in_lens.float()).mean()
 
 
+class GeneratorAdversarialLoss:
+    """mean((D(G(x)) - 1)^2) ("mse") or -mean(D(G(x))) ("hinge"), summed
+    over a list of discriminator outputs and averaged over them when
+    ``average_by_discriminators``."""
+
+    def __init__(self, average_by_discriminators: bool = True,
+                 loss_type: str = "mse"):
+        if loss_type not in ("mse", "hinge"):
+            raise ValueError(f"Unknown loss type: {loss_type}")
+        self.average_by_discriminators = average_by_discriminators
+        self.loss_type = loss_type
+        self.weights = 1.0
+
+    def _one(self, x):
+        if self.loss_type == "mse":
+            return ((x - 1.0) ** 2).mean()
+        return -x.mean()
+
+    def __call__(self, outputs: Scores):
+        if isinstance(outputs, (tuple, list)):
+            adv = sum(self._one(o) for o in outputs)
+            if self.average_by_discriminators:
+                adv = adv / len(outputs)
+            return adv
+        return self._one(outputs)
+
+
+class DiscriminatorAdversarialLoss:
+    """-> (real loss, fake loss): mean((D(y) - 1)^2) and mean(D(G(x))^2)
+    ("mse"), or the hinge pair; over a list of outputs, summed and averaged
+    over them when ``average_by_discriminators``. An output that is itself a
+    list counts by its last entry."""
+
+    def __init__(self, average_by_discriminators: bool = True,
+                 loss_type: str = "mse"):
+        if loss_type not in ("mse", "hinge"):
+            raise ValueError(f"Unknown loss type: {loss_type}")
+        self.average_by_discriminators = average_by_discriminators
+        self.loss_type = loss_type
+        self.weights = 1.0
+
+    def _real(self, x):
+        if self.loss_type == "mse":
+            return ((x - 1.0) ** 2).mean()
+        return -torch.clamp(x - 1.0, max=0.0).mean()
+
+    def _fake(self, x):
+        if self.loss_type == "mse":
+            return (x ** 2).mean()
+        return -torch.clamp(-x - 1.0, max=0.0).mean()
+
+    def __call__(self, outputs_hat: Scores, outputs: Scores):
+        if isinstance(outputs, (tuple, list)):
+            real = fake = 0.0
+            for o_hat, o in zip(outputs_hat, outputs):
+                if isinstance(o_hat, (tuple, list)):
+                    o_hat, o = o_hat[-1], o[-1]
+                real = real + self._real(o)
+                fake = fake + self._fake(o_hat)
+            if self.average_by_discriminators:
+                real = real / len(outputs)
+                fake = fake / len(outputs)
+            return real, fake
+        return self._real(outputs), self._fake(outputs_hat)
+
+
+class FeatureMatchLoss:
+    """L1 between the feature maps of the fake and of the real waveform, the
+    real ones detached: a mean per map, summed over maps (averaged over them
+    with ``average_by_layers``) and over discriminators (averaged with
+    ``average_by_discriminators``)."""
+
+    def __init__(self, average_by_layers: bool = True,
+                 average_by_discriminators: bool = True):
+        self.average_by_layers = average_by_layers
+        self.average_by_discriminators = average_by_discriminators
+        self.weights = 1.0
+
+    def __call__(self, feats_hat: List[List[torch.Tensor]],
+                 feats: List[List[torch.Tensor]]):
+        total = 0.0
+        for fmap_hat, fmap in zip(feats_hat, feats):
+            fm = 0.0
+            for f_hat, f in zip(fmap_hat, fmap):
+                fm = fm + (f_hat - f.detach()).abs().mean()
+            if self.average_by_layers:
+                fm = fm / len(fmap)
+            total = total + fm
+        if self.average_by_discriminators:
+            total = total / len(feats)
+        return total
+
+
+class MelSpectrogramLoss:
+    """L1 between the loss-flavour mels (``dsp.mel.LossMelSpectrogram``) of
+    the fake and the real waveform."""
+
+    def __init__(self, fs=22050, fft_size=1024, hop_size=256, win_length=None,
+                 window="hann", num_mels=80, fmin=80, fmax=7600, center=True,
+                 normalized=False, onesided=True, eps=1e-10, log_base=10.0):
+        del normalized, onesided
+        self.mel = LossMelSpectrogram(
+            fs=fs, fft_size=fft_size, hop_size=hop_size, win_length=win_length,
+            window=window, num_mels=num_mels, fmin=fmin, fmax=fmax,
+            center=center, eps=eps, log_base=log_base)
+        self.weights = 1.0
+
+    def __call__(self, y_hat, y):
+        return (self.mel(y_hat) - self.mel(y)).abs().mean()
+
+
+class STFTLoss:
+    """-> (spectral convergence, log-magnitude L1) at one resolution, on
+    reflect-padded magnitudes clamped at power 1e-7."""
+
+    def __init__(self, fft_size=1024, shift_size=120, win_length=600,
+                 window="hann_window"):
+        if window != "hann_window":
+            raise ValueError(f"{window} window is not implemented")
+        self.fft_size = fft_size
+        self.shift_size = shift_size
+        self.win_length = win_length
+        self.window = torch.from_numpy(hann_window(win_length))
+
+    def __call__(self, x, y):
+        x_mag = stft_magnitude(x, self.fft_size, self.shift_size,
+                               self.win_length, self.window)
+        y_mag = stft_magnitude(y, self.fft_size, self.shift_size,
+                               self.win_length, self.window)
+        sc = (torch.linalg.vector_norm(y_mag - x_mag)
+              / torch.linalg.vector_norm(y_mag))
+        mag = (torch.log(y_mag) - torch.log(x_mag)).abs().mean()
+        return sc, mag
+
+
+class MultiResolutionSTFTLoss:
+    """``STFTLoss`` averaged over resolutions; (B, 1, T) inputs are
+    flattened to (B, T)."""
+
+    def __init__(self, fft_sizes=(1024, 2048, 512), hop_sizes=(120, 240, 50),
+                 win_lengths=(600, 1200, 240), window="hann_window"):
+        if not len(fft_sizes) == len(hop_sizes) == len(win_lengths):
+            raise ValueError("one hop and window length per FFT size")
+        self.stft_losses = [STFTLoss(f, s, w, window)
+                            for f, s, w in zip(fft_sizes, hop_sizes, win_lengths)]
+        self.weights = 1.0
+
+    def __call__(self, x, y):
+        if x.ndim == 3:
+            x = x.reshape(-1, x.shape[-1])
+            y = y.reshape(-1, y.shape[-1])
+        sc_total = mag_total = 0.0
+        for f in self.stft_losses:
+            sc, mag = f(x, y)
+            sc_total = sc_total + sc
+            mag_total = mag_total + mag
+        n = len(self.stft_losses)
+        return sc_total / n, mag_total / n
+
+
 loss_dict = {
+    "generator_adv_loss": GeneratorAdversarialLoss,
+    "discriminator_adv_loss": DiscriminatorAdversarialLoss,
+    "stft_loss": MultiResolutionSTFTLoss,
+    "mel_loss": MelSpectrogramLoss,
+    "feat_match_loss": FeatureMatchLoss,
     "MelReconLoss": MelReconLoss,
     "ProsodyReconLoss": ProsodyReconLoss,
     "AttentionBinarizationLoss": AttentionBinarizationLoss,
@@ -120,9 +291,7 @@ loss_dict = {
 }
 
 # criteria of the JAX package that the port does not have yet
-NOT_PORTED = ("generator_adv_loss", "discriminator_adv_loss", "stft_loss",
-              "mel_loss", "subband_stft_loss", "feat_match_loss", "SeqCELoss",
-              "FpCELoss")
+NOT_PORTED = ("subband_stft_loss", "SeqCELoss", "FpCELoss")
 
 
 def criterion_builder(config: Dict[str, Any]) -> Dict[str, Any]:

@@ -47,6 +47,8 @@ class Generator(nn.Module):
         if nsf_params is not None or not use_weight_norm:
             raise NotImplementedError(
                 "not ported yet: NSF and generators without weight norm")
+        if out_channels != 1:
+            raise NotImplementedError("not ported yet: PQMF (out_channels > 1)")
         act_params = nonlinear_activation_params or {"negative_slope": 0.1}
         k = kernel_size
         self.n_res = len(resblock_kernel_sizes)

@@ -12,7 +12,7 @@ T*stride.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -30,20 +30,27 @@ def get_activation(name: str, params: Optional[dict]) -> nn.Module:
     raise ValueError(f"Unsupported activation: {name}")
 
 
-class WeightNormParams(nn.Module):
-    """``weight_v`` (d0, d1, k), ``weight_g`` (d0, 1, 1) and an optional
-    ``bias``: the parameters KAN-TTS keeps under ``.conv1d`` / ``.deconv``."""
+def weight_norm(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """g / sqrt(sum(v^2) + 1e-12) * v, the sum over every axis but dim 0."""
+    dims = tuple(range(1, v.ndim))
+    return (g / torch.sqrt((v * v).sum(dim=dims, keepdim=True) + 1e-12)) * v
 
-    def __init__(self, d0: int, d1: int, kernel_size: int, bias_size: int = 0):
+
+class WeightNormParams(nn.Module):
+    """``weight_v`` (d0, d1, *kernel_size), ``weight_g`` (d0, 1, ...) and an
+    optional ``bias``: the parameters KAN-TTS keeps under ``.conv1d`` /
+    ``.deconv``."""
+
+    def __init__(self, d0: int, d1: int, kernel_size: Union[int, Sequence[int]],
+                 bias_size: int = 0):
         super().__init__()
-        self.weight_v = nn.Parameter(torch.empty(d0, d1, kernel_size))
-        self.weight_g = nn.Parameter(torch.ones(d0, 1, 1))
+        ks = (kernel_size,) if isinstance(kernel_size, int) else tuple(kernel_size)
+        self.weight_v = nn.Parameter(torch.empty(d0, d1, *ks))
+        self.weight_g = nn.Parameter(torch.ones(d0, 1, *(1,) * len(ks)))
         self.bias = nn.Parameter(torch.zeros(bias_size)) if bias_size else None
 
     def weight(self) -> torch.Tensor:
-        v = self.weight_v
-        norm = torch.sqrt((v * v).sum(dim=(1, 2), keepdim=True) + 1e-12)
-        return (self.weight_g / norm) * v
+        return weight_norm(self.weight_v, self.weight_g)
 
 
 class WNConv1d(nn.Module):
@@ -120,6 +127,7 @@ def fold_weight_norm(module: nn.Module) -> nn.Module:
         if isinstance(m, WeightNormParams):
             w = m.weight()
             m.weight_v.copy_(w)
-            m.weight_g.copy_(torch.linalg.vector_norm(w, dim=(1, 2), keepdim=True))
+            m.weight_g.copy_(torch.linalg.vector_norm(
+                w, dim=tuple(range(1, w.ndim)), keepdim=True))
     return module
 

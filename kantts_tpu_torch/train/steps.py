@@ -1,16 +1,19 @@
-"""SAM-BERT train and eval steps (counterpart of ``make_sambert_step`` in
+"""Train and eval steps of SAM-BERT and of the HiFi-GAN GAN (counterparts
+of ``make_sambert_step``, ``make_gan_step`` and ``make_gan_eval_step`` in
 ``kantts_tpu/train/steps.py``).
 
-One optimizer; the total is mel(dec) + mel(postnet) + duration + pitch +
-energy, plus CTC and the binarization KL with MAS. Steps take a batch of
-device tensors with the dataset's keys and return their metrics as detached
-device scalars: nothing in a step reads a value back to the host, so the
-caller decides when to wait (the trainer does at log time).
+SAM-BERT: one optimizer; the total is mel(dec) + mel(postnet) + duration +
+pitch + energy, plus CTC and the binarization KL with MAS. The GAN step:
+generator losses and update, the fake regenerated by the updated generator,
+then the discriminator losses and one update per discriminator family.
+Steps take device tensors and return their metrics as detached device
+scalars: nothing in a step reads a value back to the host, so the caller
+decides when to wait (the trainer does at log time).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -112,3 +115,191 @@ def make_sambert_step(model: nn.Module, criterion: Dict[str, Any],
         return metrics
 
     return train_step
+
+
+# ------------------------------------------------------------------ GAN
+
+Discriminators = Dict[str, nn.Module]
+
+
+def run_discriminators(discriminators: Discriminators, y: torch.Tensor,
+                       update_stats: bool = False):
+    """y (B, 1, T) through every discriminator -> ({name: scores},
+    {name: feature maps})."""
+    outs, fmaps = {}, {}
+    for name, disc in discriminators.items():
+        outs[name], fmaps[name] = disc(y, update_stats)
+    return outs, fmaps
+
+
+def generator_losses(generator: nn.Module, discriminators: Discriminators,
+                     criterion: Dict[str, Any], wav: torch.Tensor,
+                     mel: torch.Tensor, include_adversarial: bool
+                     ) -> Tuple[torch.Tensor, Metrics]:
+    """wav (B, T, 1), mel (B, frames, C) -> (generator loss, metrics): the
+    weighted sum of the multi-resolution STFT loss, the mel loss and, with
+    ``include_adversarial``, the adversarial and feature-matching losses.
+    The discriminators run with their stored spectral vectors; the real
+    feature maps are taken without gradient."""
+    y_ = generator(mel)
+    yt, yt_ = wav[..., 0], y_[..., 0]
+    gen_loss = 0.0
+    metrics = {}
+    if "stft_loss" in criterion:
+        sc, mag = criterion["stft_loss"](yt_, yt)
+        gen_loss = gen_loss + (sc + mag) * criterion["stft_loss"].weights
+        metrics["spectral_convergence_loss"] = sc
+        metrics["log_stft_magnitude_loss"] = mag
+    if "mel_loss" in criterion:
+        mel_l = criterion["mel_loss"](yt_, yt)
+        gen_loss = gen_loss + mel_l * criterion["mel_loss"].weights
+        metrics["mel_loss"] = mel_l
+    if include_adversarial:
+        fake_outs, fake_fmaps = run_discriminators(discriminators,
+                                                   y_.transpose(1, 2))
+        adv = sum(criterion["generator_adv_loss"](fake_outs[n])
+                  for n in discriminators)
+        gen_loss = gen_loss + adv * criterion["generator_adv_loss"].weights
+        metrics["adversarial_loss"] = adv
+        if "feat_match_loss" in criterion:
+            with torch.no_grad():
+                _, real_fmaps = run_discriminators(discriminators,
+                                                   wav.transpose(1, 2))
+            fm = sum(criterion["feat_match_loss"](fake_fmaps[n], real_fmaps[n])
+                     for n in discriminators)
+            gen_loss = gen_loss + fm * criterion["feat_match_loss"].weights
+            metrics["feature_matching_loss"] = fm
+    metrics["generator_loss"] = gen_loss
+    return gen_loss, {k: v.detach() for k, v in metrics.items()}
+
+
+def discriminator_losses(discriminators: Discriminators,
+                         criterion: Dict[str, Any], wav: torch.Tensor,
+                         y_fake: torch.Tensor) -> Tuple[torch.Tensor, Metrics]:
+    """wav and y_fake (B, 1, T) -> (real + fake loss, metrics). The real pass
+    stores the new spectral vectors (``update_stats``); the fake pass runs
+    first, so that both read the same stored vectors, as in the JAX step,
+    where the fake pass reads the old ones."""
+    fake_outs, _ = run_discriminators(discriminators, y_fake)
+    real_outs, _ = run_discriminators(discriminators, wav, update_stats=True)
+    real_total = fake_total = 0.0
+    for name in discriminators:
+        real_l, fake_l = criterion["discriminator_adv_loss"](fake_outs[name],
+                                                              real_outs[name])
+        real_total = real_total + real_l
+        fake_total = fake_total + fake_l
+    dis_loss = real_total + fake_total
+    return dis_loss, {"real_loss": real_total.detach(),
+                      "fake_loss": fake_total.detach(),
+                      "discriminator_loss": dis_loss.detach()}
+
+
+def _set_requires_grad(params: Iterable[nn.Parameter], flag: bool) -> None:
+    for p in params:
+        p.requires_grad_(flag)
+
+
+def make_gan_step(generator: nn.Module, discriminators: Discriminators,
+                  criterion: Dict[str, Any],
+                  gen_optimizer: torch.optim.Optimizer,
+                  gen_scheduler: torch.optim.lr_scheduler.LRScheduler,
+                  disc_optimizers: Dict[str, torch.optim.Optimizer],
+                  disc_schedulers: Dict[str, torch.optim.lr_scheduler.LRScheduler],
+                  gen_clip: Optional[Callable[[], torch.Tensor]] = None,
+                  disc_clips: Optional[Dict[str, Optional[Callable]]] = None,
+                  train_generator: bool = True, include_adversarial: bool = True
+                  ) -> Callable[[torch.Tensor, torch.Tensor], Metrics]:
+    """-> step(wav (B, T, 1), mel (B, frames, C)) -> metrics.
+    ``train_generator`` and ``include_adversarial`` are the warm-up gates.
+
+    1. Generator losses with the discriminators frozen (the JAX step
+       differentiates the generator's parameters only), backward, clip,
+       update, schedule.
+    2. With ``include_adversarial``: the fake regenerated by the updated
+       generator without gradient, the discriminator losses, backward, and
+       per family clip, update, schedule."""
+    disc_params = [p for d in discriminators.values() for p in d.parameters()]
+    disc_clips = disc_clips or {}
+
+    def step(wav: torch.Tensor, mel: torch.Tensor) -> Metrics:
+        metrics = {}
+        if train_generator:
+            gen_optimizer.zero_grad(set_to_none=True)
+            _set_requires_grad(disc_params, False)
+            try:
+                gen_loss, gmetrics = generator_losses(
+                    generator, discriminators, criterion, wav, mel,
+                    include_adversarial)
+                gen_loss.backward()
+            finally:
+                _set_requires_grad(disc_params, True)
+            if gen_clip is not None:
+                gen_clip()
+            gen_optimizer.step()
+            gen_scheduler.step()
+            metrics.update(gmetrics)
+        if include_adversarial:
+            with torch.no_grad():
+                y_fake = generator(mel).transpose(1, 2)
+            for opt in disc_optimizers.values():
+                opt.zero_grad(set_to_none=True)
+            dis_loss, dmetrics = discriminator_losses(
+                discriminators, criterion, wav.transpose(1, 2), y_fake)
+            dis_loss.backward()
+            for name in discriminators:
+                if disc_clips.get(name) is not None:
+                    disc_clips[name]()
+                disc_optimizers[name].step()
+                disc_schedulers[name].step()
+            metrics.update(dmetrics)
+        return metrics
+
+    return step
+
+
+def make_gan_eval_step(generator: nn.Module, discriminators: Discriminators,
+                       criterion: Dict[str, Any]
+                       ) -> Callable[[torch.Tensor, torch.Tensor],
+                                     Tuple[Metrics, torch.Tensor]]:
+    """-> eval_step(wav, mel) -> (metrics, generated wav (B, T, 1)): the
+    criteria of the config without gradient and without updates; the
+    discriminators keep their spectral vectors."""
+
+    @torch.no_grad()
+    def eval_step(wav: torch.Tensor, mel: torch.Tensor):
+        y_ = generator(mel)
+        yt, yt_ = wav[..., 0], y_[..., 0]
+        metrics = {}
+        if "mel_loss" in criterion:
+            metrics["mel_loss"] = criterion["mel_loss"](yt_, yt)
+        if "stft_loss" in criterion:
+            sc, mag = criterion["stft_loss"](yt_, yt)
+            metrics["spectral_convergence_loss"] = sc
+            metrics["log_stft_magnitude_loss"] = mag
+        adv = fm = real_total = fake_total = 0.0
+        fake_outs, fake_fmaps = run_discriminators(discriminators,
+                                                   y_.transpose(1, 2))
+        real_outs, real_fmaps = run_discriminators(discriminators,
+                                                   wav.transpose(1, 2))
+        for name in discriminators:
+            if "generator_adv_loss" in criterion:
+                adv = adv + criterion["generator_adv_loss"](fake_outs[name])
+            if "feat_match_loss" in criterion:
+                fm = fm + criterion["feat_match_loss"](fake_fmaps[name],
+                                                       real_fmaps[name])
+            if "discriminator_adv_loss" in criterion:
+                real_l, fake_l = criterion["discriminator_adv_loss"](
+                    fake_outs[name], real_outs[name])
+                real_total = real_total + real_l
+                fake_total = fake_total + fake_l
+        if "generator_adv_loss" in criterion:
+            metrics["adversarial_loss"] = adv
+        if "feat_match_loss" in criterion:
+            metrics["feature_matching_loss"] = fm
+        if "discriminator_adv_loss" in criterion:
+            metrics["real_loss"] = real_total
+            metrics["fake_loss"] = fake_total
+            metrics["discriminator_loss"] = real_total + fake_total
+        return metrics, y_
+
+    return eval_step

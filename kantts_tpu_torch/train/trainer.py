@@ -1,5 +1,5 @@
-"""Training loop, checkpoints and eval artifacts (counterpart of ``Trainer``
-and ``SambertTrainer`` in ``kantts_tpu/train/trainer.py``).
+"""Training loop, checkpoints and eval artifacts (counterpart of ``Trainer``,
+``SambertTrainer`` and ``GanTrainer`` in ``kantts_tpu/train/trainer.py``).
 
 The loop is step-driven with eval, save and log intervals. ``steps`` is the
 next step to run, counting from 1, so ``train_max_steps: N`` runs exactly N
@@ -24,6 +24,7 @@ from typing import Any, Callable, Dict, List, Tuple
 import numpy as np
 import torch
 
+from kantts_tpu.utils.audio import save_wav
 from kantts_tpu_torch.models.builder import save_checkpoint
 from kantts_tpu_torch.train.steps import sambert_forward
 
@@ -45,24 +46,23 @@ def prune_checkpoints(ckpt_dir: str, keep_last: int) -> None:
         os.remove(os.path.join(ckpt_dir, name))
 
 
+def array_to_device(value: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A numpy array -> a tensor on ``device`` (integers as int64). To a CUDA
+    device the copy goes from pinned memory without blocking the host."""
+    t = torch.from_numpy(np.ascontiguousarray(value))
+    if not t.is_floating_point():
+        t = t.long()
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def batch_to_device(batch: Dict[str, Any], device: torch.device
                     ) -> Dict[str, torch.Tensor]:
-    """A collated numpy batch -> tensors on ``device`` (integers as int64).
-    To a CUDA device the copy goes from pinned memory without blocking the
-    host. Entries that are None are dropped."""
-    out = {}
-    for key, value in batch.items():
-        if value is None:
-            continue
-        t = torch.from_numpy(np.ascontiguousarray(value))
-        if not t.is_floating_point():
-            t = t.long()
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        else:
-            t = t.to(device)
-        out[key] = t
-    return out
+    """A collated numpy batch -> tensors on ``device``; entries that are
+    None are dropped."""
+    return {key: array_to_device(value, device)
+            for key, value in batch.items() if value is not None}
 
 
 class Trainer:
@@ -105,9 +105,13 @@ class Trainer:
             self.epoch += 1
             self.check_stop_training()
 
+    def to_device(self, batch):
+        """A collated batch from the loader -> what the steps take."""
+        return batch_to_device(batch, self.device)
+
     def train_epoch(self):
         for batch in self.train_loader:
-            self.train_step(batch_to_device(batch, self.device))
+            self.train_step(self.to_device(batch))
             self.steps_taken += 1
             self.check_eval_interval()
             self.check_save_interval()
@@ -168,7 +172,7 @@ class Trainer:
         num_batches = max(1, len(self.valid_loader))
         rand_idx = self.eval_rng.randint(0, num_batches)
         for idx, batch in enumerate(self.valid_loader):
-            batch = batch_to_device(batch, self.device)
+            batch = self.to_device(batch)
             self.eval_step(batch)
             if idx == rand_idx:
                 self.generate_and_save_intermediate_result(batch)
@@ -253,4 +257,97 @@ class SambertTrainer(Trainer):
         if restore_training_state:
             self.optimizer.load_state_dict(payload["optimizer"])
             self.scheduler.load_state_dict(payload["scheduler"])
+            self.steps = int(payload["steps"]) + 1
+
+
+class GanTrainer(Trainer):
+    """Two-player trainer: the generator and one optimizer per discriminator
+    family, with the warm-up gates ``generator_train_start_steps`` (the
+    generator trains from that step on) and
+    ``discriminator_train_start_steps`` (the adversarial losses and the
+    discriminators' updates start after it). ``make_step_fn(train_generator,
+    include_adversarial)`` makes the step for a pair of gates; each pair is
+    made once. Batches are (wav (B, T, 1), mel (B, frames, C)) tuples."""
+
+    def __init__(self, config, generator: torch.nn.Module,
+                 discriminators: Dict[str, torch.nn.Module],
+                 gen_optimizer: torch.optim.Optimizer, gen_scheduler,
+                 disc_optimizers: Dict[str, torch.optim.Optimizer],
+                 disc_schedulers: Dict[str, Any], make_step_fn: Callable,
+                 eval_step_fn: Callable, train_loader, valid_loader,
+                 save_dir: str, device: torch.device, sampling_rate: int = 16000,
+                 **kwargs):
+        super().__init__(config, train_loader, valid_loader, save_dir, device,
+                         **kwargs)
+        self.generator = generator
+        self.discriminators = discriminators
+        self.gen_optimizer = gen_optimizer
+        self.gen_scheduler = gen_scheduler
+        self.disc_optimizers = disc_optimizers
+        self.disc_schedulers = disc_schedulers
+        self.make_step_fn = make_step_fn
+        self.eval_step_fn = eval_step_fn
+        self.sampling_rate = sampling_rate
+        self.gen_start = config.get("generator_train_start_steps", 0)
+        self.disc_start = config.get("discriminator_train_start_steps", 0)
+        self._step_cache: Dict[Tuple[bool, bool], Callable] = {}
+
+    def step_fn(self) -> Callable:
+        key = (self.steps >= self.gen_start, self.steps > self.disc_start)
+        if key not in self._step_cache:
+            self._step_cache[key] = self.make_step_fn(*key)
+        return self._step_cache[key]
+
+    def to_device(self, batch):
+        return tuple(array_to_device(a, self.device) for a in batch)
+
+    def train_step(self, batch):
+        self.accumulate(self.total_train_loss, self.step_fn()(*batch), "train")
+
+    def eval_step(self, batch):
+        metrics, _ = self.eval_step_fn(*batch)
+        self.accumulate(self.total_eval_loss, metrics, "eval")
+
+    def generate_and_save_intermediate_result(self, batch):
+        """``{i}_ref.wav`` and ``{i}_gen.wav`` of the first few items."""
+        wav, mel = batch
+        _, y_gen = self.eval_step_fn(wav, mel)
+        out_dir = os.path.join(self.save_dir, f"intermediate_results_{self.steps}")
+        os.makedirs(out_dir, exist_ok=True)
+        n = min(self.config.get("num_save_intermediate_results", 4), wav.shape[0])
+        ref, gen = wav[:n, :, 0].cpu().numpy(), y_gen[:n, :, 0].cpu().numpy()
+        for i in range(n):
+            save_wav(ref[i], os.path.join(out_dir, f"{i}_ref.wav"), self.sampling_rate)
+            save_wav(gen[i], os.path.join(out_dir, f"{i}_gen.wav"), self.sampling_rate)
+
+    def save_checkpoint(self, path):
+        """The model is {"generator": state dict, "discriminator": {class
+        name: state dict}} (the spectral vectors are buffers of the
+        discriminators); optimizer and scheduler are nested the same way."""
+        def nested(gen, discs):
+            return {"generator": gen.state_dict(),
+                    "discriminator": {n: d.state_dict() for n, d in discs.items()}}
+
+        save_checkpoint(
+            path, nested(self.generator, self.discriminators), self.config,
+            optimizer=nested(self.gen_optimizer, self.disc_optimizers),
+            scheduler=nested(self.gen_scheduler, self.disc_schedulers),
+            steps=self.steps)
+
+    def load_checkpoint(self, path, restore_training_state=False):
+        """Load the generator and the discriminators (spectral vectors
+        included); with ``restore_training_state`` also every optimizer and
+        schedule, and resume at the step after the saved one. Without it the
+        load is a fine-tune start: fresh optimizers, step 1."""
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        self.generator.load_state_dict(payload["model"]["generator"], strict=True)
+        for name, disc in self.discriminators.items():
+            disc.load_state_dict(payload["model"]["discriminator"][name], strict=True)
+        if restore_training_state:
+            opt, sched = payload["optimizer"], payload["scheduler"]
+            self.gen_optimizer.load_state_dict(opt["generator"])
+            self.gen_scheduler.load_state_dict(sched["generator"])
+            for name in self.discriminators:
+                self.disc_optimizers[name].load_state_dict(opt["discriminator"][name])
+                self.disc_schedulers[name].load_state_dict(sched["discriminator"][name])
             self.steps = int(payload["steps"]) + 1

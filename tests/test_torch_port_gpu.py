@@ -11,11 +11,13 @@ import pytest
 import torch
 import yaml
 
+from kantts_tpu_torch.bin.train_hifigan import train as train_hifigan
 from kantts_tpu_torch.bin.train_sambert import train
 from kantts_tpu_torch.models.builder import load_checkpoint
+from kantts_tpu_torch.models.hifigan.generator import Generator
 from kantts_tpu_torch.models.sambert.alignment import b_mas_torch, mas_align
 from kantts_tpu_torch.ops.mas import b_mas_cuda
-from kantts_tpu_torch.utils.corpus import write_mas_corpus
+from kantts_tpu_torch.utils.corpus import write_mas_corpus, write_voc_corpus
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -90,3 +92,31 @@ def test_train_steps_on_the_card_launch_k1(cuda, tmp_path):
     model, _ = load_checkpoint(str(tmp_path / "stage" / "ckpt" / "checkpoint_3.ckpt"),
                                cuda)
     assert next(model.parameters()).is_cuda
+
+
+def test_gan_steps_on_the_card(cuda, tmp_path):
+    """Three GAN steps of a narrow hifigan_v1_16k (80 mels, hop 200, MPD and
+    MSD with spectral norm) through train_hifigan on the card; the
+    checkpoint's generator loads for serving."""
+    with open(os.path.join(ROOT, "kantts_tpu/configs/hifigan_v1_16k.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    model = cfg["Model"]
+    model["Generator"]["params"].update(channels=32)
+    model["MultiScaleDiscriminator"]["params"]["discriminator_params"].update(
+        channels=16, max_downsample_channels=64)
+    model["MultiPeriodDiscriminator"]["params"]["discriminator_params"].update(
+        channels=8, max_downsample_channels=64)
+    cfg.update(batch_size=4, batch_max_steps=2400, num_workers=0, train_max_steps=3,
+               save_interval_steps=3, eval_interval_steps=100, log_interval_steps=3)
+    path = str(tmp_path / "model.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    data = str(tmp_path / "data")
+    write_voc_corpus(data, 8, (0.5, 0.8), seed=3)
+    trainer = train_hifigan(path, data, str(tmp_path / "stage"))
+    assert trainer.steps_taken == 3
+    logged = trainer.history[-1][2]
+    assert all(np.isfinite(v) for v in logged.values()), logged
+    model, _ = load_checkpoint(str(tmp_path / "stage" / "ckpt" / "checkpoint_3.ckpt"),
+                               cuda)
+    assert isinstance(model, Generator) and next(model.parameters()).is_cuda
