@@ -1,6 +1,7 @@
 """Smoke run of kantts_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --k1-before OLD/mas.cu   # K1 before/after only
 
 Builds kernel K1 (the MAS Viterbi, kantts_tpu_torch/csrc/mas.cu) from the
 checkout and drives the port at the full width of sambert_16k_MAS and
@@ -8,9 +9,14 @@ hifigan_v1_16k, with weights made from a seed:
 
   0. device: the card's name and power limit; raises without a CUDA card;
   1. build K1;
-  2. K1 against its plain PyTorch version, exact, at the train shape
-     (32 x 576 x 128) and the long bucket (2 x 4800 x 800);
-  3. the teacher-forced MAS forward (B=8, T_in 96, T_mel 576) through K1;
+  2. K1 against its plain PyTorch version, exact, in both of its variants,
+     on maps with NaN, +-inf, zero and negative cells, ties, and lengths of
+     0, 1 and the full size, at widths 13, 97, 1000 and 1100; then timed
+     at the train shape (32 x 576 x 128) and the long bucket
+     (2 x 4800 x 800), and both variants side by side across widths (the
+     crossover);
+  3. the teacher-forced MAS forward (B=8, T_in 96, T_mel 576) through K1,
+     and K1 timed on its soft attention;
   4. training through ``kantts_tpu_torch.bin.train_sambert`` on a synthetic
      MAS corpus (72 utterances of 60-90 symbols and 400-570 frames, made
      with numpy): 40 steps at B=32 with K1 in every step, an exact resume
@@ -25,9 +31,11 @@ hifigan_v1_16k, with weights made from a seed:
      timed at 16 x 9600 with its host syncs and a profile, and a step at
      B=2 held against the CPU's;
   6. text -> wav through ``python -m kantts_tpu_torch.bin.text_to_wav`` on
-     4 tone-numbered pinyin lines, then the same path timed in this
-     process, and the card's acoustic model and vocoder held against the
-     CPU's on a short input;
+     4 tone-numbered pinyin lines, then ``infer_sambert`` and
+     ``infer_hifigan`` through their CLIs (all three with no ``--device``,
+     which means the card), then the path timed in this process, and the
+     card's acoustic model and vocoder held against the CPU's on a short
+     input;
   7. text -> wav with the checkpoints of step 40 of both trainings.
 
 Each phase prints lines of its own and raises on failure. Before the last
@@ -133,8 +141,78 @@ def ragged_map(rng, B, T_mel, T_text):
             torch.from_numpy(out_lens).cuda())
 
 
-def compare_k1(attn, in_lens, out_lens, n_time: int):
-    """-> (max_abs_err, k1 ms, plain ms); raises unless exactly equal."""
+def special_map(case: str, B: int, T_mel: int, T_text: int, seed: int = 7):
+    """NaN, +-inf, zero and negative cells; a map of few values (ties
+    everywhere); lengths of 0, 1 and the full size."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    attn = rng.rand(B, 1, T_mel, T_text).astype(np.float32)
+    attn /= attn.sum(-1, keepdims=True)
+    in_lens = rng.randint(1, T_text + 1, B).astype(np.int32)
+    out_lens = rng.randint(1, T_mel + 1, B).astype(np.int32)
+    in_lens[0], out_lens[0] = T_text, T_mel
+    if case == "nan":
+        attn[0, 0, 5:9, 2:5] = np.nan
+        attn[1, 0, 0, 0] = np.nan
+        attn[2, 0, T_mel // 3:, 1] = np.nan
+    elif case == "inf_zero_negative":
+        attn[0, 0, 3:6, :4] = 0.0
+        attn[1, 0, 7, 3] = np.inf
+        attn[2, 0, 9:11, 2:6] = -0.5
+        attn[3, 0, 4, :] = -np.inf
+    elif case == "ties":
+        attn = np.round(attn * T_text / 2) / (T_text / 2)
+    elif case == "edge_lengths":
+        in_lens[:5] = [0, 1, T_text, 1, T_text]
+        out_lens[:5] = [T_mel, T_mel, 0, 1, 1]
+    return tuple(torch.from_numpy(a).cuda()
+                 for a in (attn.astype(np.float32), in_lens, out_lens))
+
+
+def k1_bound(B: int, T_mel: int, T_text: int):
+    """-> (least ms on an H100 SXM, what bounds it): the map read once and
+    the output written once at 3.35 TB/s, or one log, one add and one
+    compare per cell at 67 TFLOP/s in float32."""
+    cells = B * T_mel * T_text
+    bytes_ms = (2 * cells * 4 + 2 * B * 4) / 3.35e12 * 1e3
+    ops_ms = 3 * cells / 67e12 * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def kernel_ms(fn, names, n: int) -> float:
+    """Device milliseconds of one call of ``fn``, over n calls under
+    torch.profiler: the sum, over the kernels whose names contain one of
+    ``names``, of each one's mean duration (the kernels alone, without the
+    host's cost of the call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    durs = collections.defaultdict(list)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and any(k in e.name for k in names):
+            durs[e.name].append(e.time_range.end - e.time_range.start)
+    # the profiler can drop a kernel at the edge of its window
+    if not durs or any(not n - 1 <= len(d) <= n for d in durs.values()):
+        raise AssertionError(f"profiler saw {[(k[:40], len(d)) for k, d in durs.items()]}"
+                             f" launches of {names} in {n} calls")
+    return sum(sum(d) / len(d) for d in durs.values()) / 1e3
+
+
+K1_KERNELS = ("mas_score_kernel", "mas_warp_kernel", "mas_block_kernel")
+
+
+def compare_k1(attn, in_lens, out_lens, n_time: int) -> dict:
+    """K1 against b_mas_torch, exactly; raises unless equal. -> the max
+    |diff|, K1's device ms per launch (profiler), the wrapper's ms per call
+    and b_mas_torch's (CUDA events), and the variant the library chose."""
     import torch
 
     from kantts_tpu_torch.models.sambert.alignment import b_mas_torch
@@ -148,20 +226,61 @@ def compare_k1(attn, in_lens, out_lens, n_time: int):
         raise AssertionError(f"K1 differs from b_mas_torch: max |diff| {err}")
     if not torch.equal(hard.sum(dim=(1, 2, 3)), out_lens.float()):
         raise AssertionError("K1: one aligned column per valid mel frame expected")
-    k1_ms = cuda_ms(lambda: b_mas_cuda(attn, in_lens, out_lens), n_time)
-    plain_ms = cuda_ms(lambda: b_mas_torch(attn, in_lens, out_lens), n_time)
-    return err, k1_ms, plain_ms
+    B, _, T_mel, T_text = attn.shape
+    return {"max_abs_err": err,
+            "ms": kernel_ms(lambda: b_mas_cuda(attn, in_lens, out_lens),
+                            K1_KERNELS, 2 * n_time),
+            "call_ms": cuda_ms(lambda: b_mas_cuda(attn, in_lens, out_lens), n_time),
+            "plain_ms": cuda_ms(lambda: b_mas_torch(attn, in_lens, out_lens), n_time),
+            "variant": b_mas_cuda.variant(T_mel, T_text)}
 
 
-def phase_k1():
+def phase_k1() -> dict:
+    """K1 bit-equal to b_mas_torch on maps with NaN, +-inf, zero and
+    negative cells, ties and edge lengths, at odd widths and batches, in
+    both variants; then timed at the train shape and the long bucket, and
+    both variants side by side across widths. -> results by shape name."""
+    import torch
+
+    from kantts_tpu_torch.models.sambert.alignment import b_mas_torch
+    from kantts_tpu_torch.ops.mas import b_mas_cuda
+
+    checked = 0
+    for case in ("nan", "inf_zero_negative", "ties", "edge_lengths"):
+        for shape in ((5, 40, 13), (9, 70, 97), (6, 33, 1000), (5, 30, 1100)):
+            for variant in (0, 1, 2) if shape[2] <= 1024 else (0,):
+                attn, in_lens, out_lens = special_map(case, *shape)
+                hard = b_mas_cuda(attn, in_lens, out_lens, variant=variant)
+                if not torch.equal(hard, b_mas_torch(attn, in_lens, out_lens)):
+                    raise AssertionError(f"K1 ({case}, {shape}, variant {variant}) "
+                                         "differs from b_mas_torch")
+                checked += 1
+    log("k1_special_maps", maps=checked, equal=True)
+
     rng = np.random.RandomState(0)
-    errs = []
-    for B, T_mel, T_text, n in ((32, 576, 128, 5), (2, 4800, 800, 2)):
-        err, k1_ms, plain_ms = compare_k1(*ragged_map(rng, B, T_mel, T_text), n)
-        errs.append(err)
-        log("k1", shape=f"{B}x{T_mel}x{T_text}", equal=True, k1_ms=round(k1_ms, 4),
-            plain_ms=round(plain_ms, 4))
-    return max(errs)
+    out = {}
+    for name, (B, T_mel, T_text), n in (("train", (32, 576, 128), 10),
+                                        ("long_bucket", (2, 4800, 800), 2)):
+        res = compare_k1(*ragged_map(rng, B, T_mel, T_text), n)
+        res["bound_ms"], res["bound_by"] = k1_bound(B, T_mel, T_text)
+        out[name] = res
+        log("k1", shape=f"{B}x{T_mel}x{T_text}", equal=True, variant=res["variant"],
+            ms=round(res["ms"], 5), call_ms=round(res["call_ms"], 5),
+            plain_ms=round(res["plain_ms"], 4), bound_ms=round(res["bound_ms"], 5),
+            bound_by=res["bound_by"])
+
+    # the crossover: both variants at B=8, T_mel 576, and at the long bucket
+    for B, T_mel, widths in ((8, 576, (96, 128, 256, 512, 800, 1024)),
+                             (2, 4800, (800,))):
+        for T_text in widths:
+            args = ragged_map(rng, B, T_mel, T_text)
+            times = {v: kernel_ms(lambda: b_mas_cuda(*args, variant=i), K1_KERNELS, 10)
+                     for i, v in ((1, "warp"), (2, "block"))}
+            log("k1_variants", shape=f"{B}x{T_mel}x{T_text}",
+                warp_ms=round(times["warp"], 5), block_ms=round(times["block"], 5),
+                faster=min(times, key=times.get),
+                library_takes=b_mas_cuda.variant(T_mel, T_text))
+    return out
 
 
 def mas_batch(cfg, B=8, T_in=96, T_mel=576, seed=0):
@@ -189,7 +308,8 @@ def mas_batch(cfg, B=8, T_in=96, T_mel=576, seed=0):
 
 
 def phase_mas_forward():
-    """-> (K1 launches in the forward, K1 ms and plain ms at its shape)."""
+    """-> (K1 launches in the forward, compare_k1's results at its shape on
+    the forward's own soft attention)."""
     import torch
 
     from kantts_tpu_torch.configs import get_config
@@ -225,13 +345,14 @@ def phase_mas_forward():
     B, T_mel = batch["mel_targets"].shape[:2]
     if res["postnet_outputs"].shape != (B, T_mel, 80):
         raise AssertionError(f"MAS forward: mel {tuple(res['postnet_outputs'].shape)}")
-    _, k1_ms, plain_ms = compare_k1(res["attn_soft"].contiguous(),
-                                    batch["input_lengths"].int(),
-                                    batch["output_lengths"].int(), 5)
+    k1 = compare_k1(res["attn_soft"].contiguous(), batch["input_lengths"].int(),
+                    batch["output_lengths"].int(), 10)
+    k1["bound_ms"], k1["bound_by"] = k1_bound(B, T_mel, hard.shape[-1])
     log("mas_forward", shape=f"B={B} T_in={hard.shape[-1]} T_mel={T_mel}",
-        k1_launches=launches, forward_s=round(seconds, 4),
-        k1_ms=round(k1_ms, 4), plain_ms=round(plain_ms, 4))
-    return launches, k1_ms, plain_ms
+        k1_launches=launches, forward_s=round(seconds, 4), variant=k1["variant"],
+        k1_ms=round(k1["ms"], 5), k1_call_ms=round(k1["call_ms"], 5),
+        plain_ms=round(k1["plain_ms"], 4), bound_ms=round(k1["bound_ms"], 5))
+    return launches, k1
 
 
 def check_wavs(out_dir: str) -> int:
@@ -292,6 +413,27 @@ def phase_text_to_wav(tmp: str):
     log("text_to_wav_cli", sentences=n_sent, am_frames=cold["am_frames"],
         audio_s=round(cold["audio_seconds"], 3),
         first_call_total_s=round(cold["total_seconds"], 3))
+
+    # the two stages' own CLIs, also with no --device: the card
+    am_out, voc_out = os.path.join(tmp, "am_cli"), os.path.join(tmp, "voc_cli_wavs")
+    for module, args in (
+            ("infer_sambert", ["--sentence", os.path.join(out_cli, "symbols.lst"),
+                               "--ckpt", am_ckpt, "--output_dir", am_out,
+                               "--batch", "4"]),
+            ("infer_hifigan", ["--ckpt", voc_ckpt, "--input_mel",
+                               os.path.join(out_cli, "feat"), "--output_dir", voc_out])):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"kantts_tpu_torch.bin.{module}",
+                               *args], cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{module} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+        log(f"{module}_cli", seconds=round(time.perf_counter() - t0, 3))
+    mels = glob.glob(os.path.join(am_out, "feat", "*_mel.npy"))
+    wavs = glob.glob(os.path.join(voc_out, "*.wav"))
+    if not len(mels) == len(wavs) == n_sent:
+        raise AssertionError(f"stage CLIs: {len(mels)} mels, {len(wavs)} wavs for "
+                             f"{n_sent} sentences")
 
     device = torch.device("cuda")
     warm = text_to_wav(os.path.join(tmp, "warm"), am_ckpt, voc_ckpt, text,
@@ -861,11 +1003,84 @@ def phase_train_to_serve(tmp: str, am_ckpt: str, voc_ckpt: str):
         audio_s=round(stats["audio_seconds"], 3))
 
 
-def main() -> int:
+def old_k1(src: str):
+    """Build an earlier K1 source with the same nvcc flags; it has the first
+    K1's C interface (the caller zeroes the output and passes a uint8
+    backpointer scratch). -> a callable with that wrapper's work around the
+    launch: a zeroed output, a scratch, the launch."""
+    import ctypes
+
+    import torch
+
+    from kantts_tpu_torch.ops.mas import BUILD_DIR, NVCC_FLAGS, _find_nvcc
+
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    lib_path = os.path.join(BUILD_DIR, "libkantts_mas_before.so")
+    subprocess.run([_find_nvcc(), *NVCC_FLAGS, "-o", lib_path, src], check=True,
+                   capture_output=True, text=True)
+    lib = ctypes.CDLL(lib_path)
+    lib.kantts_mas_width1.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    lib.kantts_mas_width1.restype = ctypes.c_int
+
+    def call(attn, in_lens, out_lens):
+        B, _, T_mel, T_text = attn.shape
+        out = torch.zeros_like(attn)
+        take = torch.empty((B, T_mel, T_text), dtype=torch.uint8, device=attn.device)
+        err = lib.kantts_mas_width1(attn.data_ptr(), in_lens.data_ptr(),
+                                    out_lens.data_ptr(), out.data_ptr(), take.data_ptr(),
+                                    B, T_mel, T_text,
+                                    torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"earlier K1 launch failed: cudaError {err}")
+        return out
+
+    return call
+
+
+def phase_k1_before(src: str) -> list:
+    """The earlier K1 (``src``) and this one on the same maps, in the order
+    earlier, this, this, earlier: device ms per launch (profiler) and ms per
+    wrapper call (CUDA events), at the three shapes of the main path."""
+    import torch
+
+    from kantts_tpu_torch.ops.mas import b_mas_cuda
+
+    before = old_k1(src)
+    rng = np.random.RandomState(0)
+    rows = []
+    for B, T_mel, T_text in ((32, 576, 128), (2, 4800, 800), (8, 576, 96)):
+        args = ragged_map(rng, B, T_mel, T_text)
+        if not torch.equal(before(*args), b_mas_cuda(*args)):
+            raise AssertionError("the earlier K1 and this one differ")
+        n = 2 if T_mel > 1000 else 10
+        runs = {"before": [], "after": []}
+        for who in ("before", "after", "after", "before"):
+            fn = before if who == "before" else b_mas_cuda
+            names = ("mas_width1_kernel",) if who == "before" else K1_KERNELS
+            runs[who].append((kernel_ms(lambda: fn(*args), names, n),
+                              cuda_ms(lambda: fn(*args), n)))
+        row = {"shape": f"{B}x{T_mel}x{T_text}",
+               "variant": b_mas_cuda.variant(T_mel, T_text),
+               "bound_ms": k1_bound(B, T_mel, T_text)[0]}
+        for who, vals in runs.items():
+            row[f"{who}_ms"] = [v[0] for v in vals]
+            row[f"{who}_call_ms"] = [v[1] for v in vals]
+        log("k1_before_after", **{k: (json.dumps(v) if isinstance(v, list) else v)
+                                  for k, v in row.items()})
+        rows.append(row)
+    return rows
+
+
+def main(argv) -> int:
     smi = phase_device()
     phase_build()
-    max_err = phase_k1()
-    fwd_launches, k1_ms, plain_ms = phase_mas_forward()
+    if argv[:1] == ["--k1-before"]:
+        print(json.dumps({"k1_before_after": phase_k1_before(argv[1])}))
+        print(smi)
+        return 0
+    k1 = phase_k1()
+    fwd_launches, k1["mas_forward"] = phase_mas_forward()
     with tempfile.TemporaryDirectory(prefix="kantts_smoke_") as tmp:
         trainer, train_launches = phase_train(tmp)
         k1_step_ms = phase_train_step(trainer)
@@ -881,6 +1096,7 @@ def main() -> int:
                              ckpt_path(os.path.join(tmp, "voc_train"), 40))
     import torch
 
+    train = k1["train"]
     print(json.dumps({"kernels": [{
         "name": "K1 mas_width1 (MAS Viterbi)", "route": "cuda",
         "source": "kantts_tpu_torch/csrc/mas.cu",
@@ -888,8 +1104,14 @@ def main() -> int:
         "launches": fwd_launches + train_launches,
         "launches_by_path": {"mas_forward": fwd_launches,
                              "train_sambert": train_launches},
-        "max_abs_err": max_err, "ms": k1_ms, "plain_ms": plain_ms,
-        "ms_in_train_step": k1_step_ms}]}))
+        "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
+        "ms": train["ms"], "plain_ms": train["plain_ms"],
+        "bound_ms": train["bound_ms"], "bound_by": train["bound_by"],
+        "library_ms": None, "variant": train["variant"],
+        "ms_in_train_step": k1_step_ms,
+        "shapes": {name: {k: r[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
+                                            "bound_by", "variant")}
+                   for name, r in k1.items()}}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -898,4 +1120,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -6,7 +6,7 @@ Weight norm is folded on load. Each mel runs alone (B=1) at its own length:
 the generator is causal, so no padding is needed.
 
     python -m kantts_tpu_torch.bin.infer_hifigan --ckpt VOC.pt \
-        --input_mel MELS --output_dir OUT
+        --input_mel MELS --output_dir OUT [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -16,23 +16,24 @@ import glob
 import logging
 import os
 import time
-from typing import Optional
+from typing import Union
 
 import numpy as np
 import torch
 
-from kantts_tpu.utils.audio import save_wav
-from kantts_tpu_torch.bin.infer_sambert import default_device, synchronize
 from kantts_tpu_torch.models.builder import load_checkpoint
 from kantts_tpu_torch.models.hifigan.layers import fold_weight_norm
+from kantts_tpu_torch.utils.audio import save_wav
+from kantts_tpu_torch.utils.device import resolve_device, synchronize
 
 
 def hifigan_infer(input_mel: str, ckpt: str, output_dir: str,
-                  device: Optional[torch.device] = None) -> dict:
-    """``input_mel`` is a directory of ``*.npy`` mels or a list file.
-    Returns {"audio_seconds", "seconds"} over the generator calls (the
-    clock read after a device sync)."""
-    device = device or default_device()
+                  device: Union[str, torch.device] = "cuda") -> dict:
+    """``input_mel`` is a directory of ``*.npy`` mels or a list file;
+    ``device`` is "cuda" (the default, which raises without a card) or
+    "cpu". Returns {"audio_seconds", "seconds"} over the generator calls
+    (the clock read after a device sync)."""
+    device = resolve_device(device)
     model, config = load_checkpoint(ckpt, device)
     fold_weight_norm(model)
     sampling_rate = config["audio_config"]["sampling_rate"]
@@ -71,8 +72,10 @@ def main(argv=None):
     parser.add_argument("--input_mel", type=str, required=True,
                         help="directory of mel npys or a list file")
     parser.add_argument("--output_dir", type=str, required=True)
+    parser.add_argument("--device", type=str, default="cuda",
+                        choices=("cuda", "cpu"))
     args = parser.parse_args(argv)
-    hifigan_infer(args.input_mel, args.ckpt, args.output_dir)
+    hifigan_infer(args.input_mel, args.ckpt, args.output_dir, device=args.device)
 
 
 if __name__ == "__main__":

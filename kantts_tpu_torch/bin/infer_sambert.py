@@ -8,7 +8,7 @@ Utterances of a group pad to a common symbol bucket (a multiple of
 symbol, as in the JAX package; ``--batch`` groups utterances per forward.
 
     python -m kantts_tpu_torch.bin.infer_sambert --sentence S --ckpt AM.pt \
-        --output_dir OUT [--batch B]
+        --output_dir OUT [--batch B] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -17,23 +17,15 @@ import argparse
 import logging
 import os
 import time
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import numpy as np
 import torch
 
-from kantts_tpu.text.ling_unit import KanTtsLinguisticUnit
 from kantts_tpu_torch.models.builder import load_checkpoint
 from kantts_tpu_torch.models.sambert.sambert import KanTtsSAMBERT, sambert_infer
-
-
-def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-
-
-def synchronize(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+from kantts_tpu_torch.text.ling_unit import KanTtsLinguisticUnit
+from kantts_tpu_torch.utils.device import resolve_device, synchronize
 
 
 def encode_symbol_inputs(ling_unit, symbol_seq: str, max_input_len: int,
@@ -100,10 +92,11 @@ def load_am(ckpt: str, device: torch.device):
 
 
 def am_infer(sentence: str, ckpt: str, output_dir: str, batch: int = 1,
-             device: Optional[torch.device] = None) -> dict:
-    """Synthesize every line of ``sentence``; returns {"frames", "seconds"}
+             device: Union[str, torch.device] = "cuda") -> dict:
+    """Synthesize every line of ``sentence`` on ``device`` ("cuda", the
+    default, raises without a card; or "cpu"); returns {"frames", "seconds"}
     over the acoustic forwards (the clock read after a device sync)."""
-    device = device or default_device()
+    device = resolve_device(device)
     model, ling_unit = load_am(ckpt, device)
     results_dir = os.path.join(output_dir, "feat")
     os.makedirs(results_dir, exist_ok=True)
@@ -144,8 +137,11 @@ def main(argv=None):
     parser.add_argument("--ckpt", type=str, required=True)
     parser.add_argument("--batch", type=int, default=1,
                         help="utterances per acoustic forward")
+    parser.add_argument("--device", type=str, default="cuda",
+                        choices=("cuda", "cpu"))
     args = parser.parse_args(argv)
-    am_infer(args.sentence, args.ckpt, args.output_dir, batch=args.batch)
+    am_infer(args.sentence, args.ckpt, args.output_dir, batch=args.batch,
+             device=args.device)
 
 
 if __name__ == "__main__":

@@ -3,7 +3,7 @@ one wav per text line, its sentences joined with 0.28 s of silence and a
 0.05 s tail (counterpart of ``kantts_tpu/bin/text_to_wav.py``).
 
     python -m kantts_tpu_torch.bin.text_to_wav --txt TEXT --am_ckpt AM.pt \
-        --voc_ckpt VOC.pt --output_dir OUT [--am_batch B]
+        --voc_ckpt VOC.pt --output_dir OUT [--am_batch B] [--device cuda|cpu]
 
 The checkpoints are the port's own (``models/builder.py``). The last line
 of standard output is a JSON object with the run's counts and times.
@@ -18,14 +18,15 @@ import json
 import logging
 import os
 import time
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
-from kantts_tpu.utils.audio import read_wav, save_wav
 from kantts_tpu_torch.bin.infer_hifigan import hifigan_infer
-from kantts_tpu_torch.bin.infer_sambert import am_infer, default_device, synchronize
+from kantts_tpu_torch.bin.infer_sambert import am_infer
+from kantts_tpu_torch.utils.audio import read_wav, save_wav
+from kantts_tpu_torch.utils.device import resolve_device, synchronize
 
 
 def resolve_frontend(frontend: Optional[str]):
@@ -34,15 +35,15 @@ def resolve_frontend(frontend: Optional[str]):
     with a user lexicon; "pinyin" -> the bare pinyin front-end; otherwise a
     module path exposing ``text_to_symbols(texts, speaker, lang)``."""
     if frontend is None or frontend == "lexicon":
-        from kantts_tpu.text.lexicon_frontend import make_frontend
+        from kantts_tpu_torch.text.lexicon_frontend import make_frontend
 
         return make_frontend()
     if frontend == "pinyin":
-        from kantts_tpu.text import pinyin_frontend
+        from kantts_tpu_torch.text import pinyin_frontend
 
         return pinyin_frontend
     if frontend.startswith("lexicon:"):
-        from kantts_tpu.text.lexicon_frontend import make_frontend
+        from kantts_tpu_torch.text.lexicon_frontend import make_frontend
 
         return make_frontend(frontend[len("lexicon:"):])
     return importlib.import_module(frontend)
@@ -80,11 +81,12 @@ def text_to_wav(output_dir: str, am_ckpt: str, voc_ckpt: str,
                 symbols_file: Optional[str] = None,
                 frontend: Optional[str] = None, speaker: str = "F7",
                 lang: str = "PinYin", am_batch: int = 1,
-                device: Optional[torch.device] = None) -> dict:
-    """Returns the run's counts and times: mel frames and seconds of the
-    acoustic model, audio and seconds of the vocoder, and the wall time of
-    the whole path."""
-    device = device or default_device()
+                device: Union[str, torch.device] = "cuda") -> dict:
+    """Runs on ``device``: "cuda" (the default, which raises without a card)
+    or "cpu". Returns the run's counts and times: mel frames and seconds of
+    the acoustic model, audio and seconds of the vocoder, and the wall time
+    of the whole path."""
+    device = resolve_device(device)
     os.makedirs(output_dir, exist_ok=True)
     synchronize(device)
     t0 = time.perf_counter()
@@ -131,12 +133,14 @@ def main(argv=None):
     parser.add_argument("--lang", type=str, default="PinYin")
     parser.add_argument("--am_batch", type=int, default=1, metavar="B",
                         help="utterances per acoustic forward")
+    parser.add_argument("--device", type=str, default="cuda",
+                        choices=("cuda", "cpu"))
     args = parser.parse_args(argv)
     if (args.txt is None) == (args.symbols_file is None):
         parser.error("give exactly one of --txt and --symbols_file")
     stats = text_to_wav(args.output_dir, args.am_ckpt, args.voc_ckpt, args.txt,
                         args.symbols_file, args.frontend, args.speaker,
-                        args.lang, am_batch=args.am_batch)
+                        args.lang, am_batch=args.am_batch, device=args.device)
     print(json.dumps(stats))
 
 

@@ -28,13 +28,14 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from kantts_tpu.data import DataLoader, DistributedSampler, get_voc_datasets
-from kantts_tpu.utils.config import load_merged_config, stamp_and_dump
-from kantts_tpu_torch.bin.train_sambert import log_to_file
+from kantts_tpu_torch.data.dataset import DataLoader, DistributedSampler, get_voc_datasets
 from kantts_tpu_torch.losses import criterion_builder
 from kantts_tpu_torch.models.builder import check_vocoder_ported, hifigan_gan_builder
 from kantts_tpu_torch.train.steps import make_gan_eval_step, make_gan_step
 from kantts_tpu_torch.train.trainer import GanTrainer
+from kantts_tpu_torch.utils.config import load_merged_config, stamp_and_dump
+from kantts_tpu_torch.utils.device import resolve_device
+from kantts_tpu_torch.utils.log import log_to_file
 
 
 class VocLoader(DataLoader):
@@ -55,9 +56,7 @@ def train(model_config: str, root_dir: Union[str, Sequence[str]], stage_dir: str
           device: str = "cuda") -> GanTrainer:
     """Train until ``train_max_steps``; returns the trainer. ``device`` is
     "cuda" (the default, which raises without a card) or "cpu"."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device; pass --device cpu to train on the CPU")
+    device = resolve_device(device)
     roots = [root_dir] if isinstance(root_dir, str) else list(root_dir)
     for root in roots:
         if not os.path.exists(root):

@@ -16,35 +16,20 @@ from one at the step after it, with its optimizer and schedule.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import logging
 import os
-from typing import Iterator, Optional, Sequence, Union
+from typing import Optional, Sequence, Union
 
 import torch
 
-from kantts_tpu.data import DataLoader, DistributedSampler, get_am_datasets
-from kantts_tpu.utils.config import load_merged_config, stamp_and_dump
-from kantts_tpu.utils.log import logging_to_file
+from kantts_tpu_torch.data.dataset import DataLoader, DistributedSampler, get_am_datasets
 from kantts_tpu_torch.losses import criterion_builder
 from kantts_tpu_torch.models.builder import sambert_model_builder
 from kantts_tpu_torch.train.steps import make_sambert_step
 from kantts_tpu_torch.train.trainer import SambertTrainer
-
-
-@contextlib.contextmanager
-def log_to_file(path: str) -> Iterator[None]:
-    """Copy the root logger's records into ``path`` while the block runs."""
-    root = logging.getLogger()
-    before = list(root.handlers)
-    logging_to_file(path)
-    added = [h for h in root.handlers if h not in before]
-    try:
-        yield
-    finally:
-        for handler in added:
-            root.removeHandler(handler)
-            handler.close()
+from kantts_tpu_torch.utils.config import load_merged_config, stamp_and_dump
+from kantts_tpu_torch.utils.device import resolve_device
+from kantts_tpu_torch.utils.log import log_to_file
 
 
 def train(model_config: str, root_dir: Union[str, Sequence[str]], stage_dir: str,
@@ -56,9 +41,7 @@ def train(model_config: str, root_dir: Union[str, Sequence[str]], stage_dir: str
     if resume_bert_path is not None:
         raise NotImplementedError("--resume_bert_path: Textsy-BERT is not "
                                   "ported to kantts_tpu_torch yet")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device; pass --device cpu to train on the CPU")
+    device = resolve_device(device)
     roots = [root_dir] if isinstance(root_dir, str) else list(root_dir)
     for root in roots:
         if not os.path.exists(root):
@@ -73,7 +56,7 @@ def _train(model_config, roots, stage_dir, resume_path, device) -> SambertTraine
     params = config["Model"]["KanTtsSAMBERT"]["params"]
     train_dataset, valid_dataset = get_am_datasets(
         [os.path.join(d, "raw_metafile.txt") for d in roots], roots, config,
-        config.get("allow_cache", False), se_enable=params.get("SE", False),
+        config.get("allow_cache", False),
         input_bucket=int(config.get("input_bucket", 16)),
         frame_bucket=int(config.get("frame_bucket", 96)))
     logging.info("train + valid: %d + %d", len(train_dataset), len(valid_dataset))

@@ -19,7 +19,6 @@ from typing import Any, Dict, Mapping, Tuple, Union
 import torch
 from torch import nn
 
-from kantts_tpu.text.ling_unit import KanTtsLinguisticUnit
 from kantts_tpu_torch.models.hifigan.discriminators import (
     DISCRIMINATOR_CLASSES,
     NormConv,
@@ -28,6 +27,7 @@ from kantts_tpu_torch.models.hifigan.generator import Generator
 from kantts_tpu_torch.models.hifigan.layers import WeightNormParams
 from kantts_tpu_torch.models.sambert.adaptors import VarRnnARPredictor
 from kantts_tpu_torch.models.sambert.sambert import KanTtsSAMBERT
+from kantts_tpu_torch.text.ling_unit import KanTtsLinguisticUnit
 from kantts_tpu_torch.train.optim import optimizer_builder
 
 

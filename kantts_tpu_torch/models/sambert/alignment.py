@@ -24,7 +24,8 @@ def b_mas_torch(attn: torch.Tensor, in_lens: torch.Tensor,
     """attn (B, 1, T_mel, T_text) soft attention -> same-shape hard 0/1
     alignment. A tie takes column j-1; row 0 is pinned to column 0; rows >=
     out_len and columns >= in_len are zero. Lengths are clamped to the map's
-    shape, as in K1."""
+    shape, as in K1. A NaN cell scores NaN (``clamp`` keeps it), and a
+    comparison with NaN takes "stay", as the JAX package's ``b_mas`` does."""
     B, _, T_mel, T_text = attn.shape
     a = attn[:, 0].float()
     dev = a.device

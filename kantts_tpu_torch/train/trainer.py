@@ -24,9 +24,9 @@ from typing import Any, Callable, Dict, List, Tuple
 import numpy as np
 import torch
 
-from kantts_tpu.utils.audio import save_wav
 from kantts_tpu_torch.models.builder import save_checkpoint
 from kantts_tpu_torch.train.steps import sambert_forward
+from kantts_tpu_torch.utils.audio import save_wav
 
 History = List[Tuple[str, int, Dict[str, float]]]
 

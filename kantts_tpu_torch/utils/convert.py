@@ -1,7 +1,7 @@
 """Weight bridge from the JAX package: JAX param trees -> state dicts of the
 port.
 
-``kantts_tpu/utils/torch_convert.py`` maps a KAN-TTS state dict onto JAX
+``utils/torch_convert.py`` (a copy of the JAX package's) maps a KAN-TTS state dict onto JAX
 params, moving every number by a transpose or a reshape. Its inverse is
 derived here from the converter itself, so the two cannot disagree: a probe
 state dict whose entries are their own flat indices (unique over the whole
@@ -22,18 +22,18 @@ from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from kantts_tpu.utils.torch_convert import (
-    convert_hifigan_generator,
-    convert_mpd,
-    convert_msd,
-    convert_sambert,
-)
 from kantts_tpu_torch.models.hifigan.discriminators import (
     MultiPeriodDiscriminator,
     MultiScaleDiscriminator,
 )
 from kantts_tpu_torch.models.hifigan.generator import Generator
 from kantts_tpu_torch.models.sambert.sambert import KanTtsSAMBERT
+from kantts_tpu_torch.utils.torch_convert import (
+    convert_hifigan_generator,
+    convert_mpd,
+    convert_msd,
+    convert_sambert,
+)
 
 
 def _leaves(tree: Mapping, prefix: str = "") -> Iterator[Tuple[str, Any]]:

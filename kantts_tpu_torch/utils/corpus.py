@@ -2,7 +2,7 @@
 holds no recorded corpus: these let training run end to end without one.
 
 ``write_mas_corpus``: a SAM-BERT MAS corpus in the layout that
-``kantts_tpu.data.AMDataset`` reads: ``raw_metafile.txt`` of symbol
+``data.dataset.AMDataset`` reads: ``raw_metafile.txt`` of symbol
 sequences, and per utterance ``mel/``, frame-level ``f0/`` and ``energy/``
 arrays; no ``duration/`` directory, so the dataset runs in MAS mode. Each
 phone has its own random mel template, held over a random number of frames
@@ -10,7 +10,7 @@ with a little noise, so that the text-to-mel alignment is there to be
 learnt; pitch and energy are constant over each phone.
 
 ``write_voc_corpus``: a vocoder corpus in the layout that
-``kantts_tpu.data.VocDataset`` reads: ``wav/*.wav`` of harmonic tones and
+``data.dataset.VocDataset`` reads: ``wav/*.wav`` of harmonic tones and
 their ``mel/*.npy``, made by the port's ``MelSpectrogramExtractor`` at the
 values of ``kantts_tpu/configs/audio_config_16k.yaml``.
 """
@@ -23,8 +23,8 @@ from typing import Tuple
 import numpy as np
 import yaml
 
-from kantts_tpu.utils.audio import save_wav
 from kantts_tpu_torch.dsp.mel import MelSpectrogramExtractor
+from kantts_tpu_torch.utils.audio import save_wav
 
 PHONES = ("n_c", "i_c", "h_c", "ao_c", "sh_c", "in_c", "j_c", "ie_c", "b_c",
           "a_c", "d_c", "e_c", "g_c", "ai_c", "m_c", "en_c")

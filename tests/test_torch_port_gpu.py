@@ -31,7 +31,8 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("shape", [(5, 24, 16), (3, 130, 1100), (32, 576, 128)])
+@pytest.mark.parametrize("shape", [(5, 24, 16), (3, 130, 1100), (32, 576, 128),
+                                   (3, 70, 97), (2, 300, 800), (9, 50, 257)])
 def test_k1_equals_plain_version(cuda, shape):
     B, T_mel, T_text = shape
     rng = np.random.RandomState(0)
@@ -45,6 +46,47 @@ def test_k1_equals_plain_version(cuda, shape):
     hard = mas_align(attn, in_lens, out_lens)
     torch.cuda.synchronize()
     assert b_mas_cuda.launches == before + 1
+    assert torch.equal(hard, b_mas_torch(attn, in_lens, out_lens))
+
+
+def _special(case, B, T_mel, T_text, seed=7):
+    """NaN, +-inf, zero and negative cells, a map of few values (ties
+    everywhere), and lengths of 0, 1 and the full size."""
+    rng = np.random.RandomState(seed)
+    attn = rng.rand(B, 1, T_mel, T_text).astype(np.float32)
+    attn /= attn.sum(-1, keepdims=True)
+    in_lens = rng.randint(1, T_text + 1, B).astype(np.int32)
+    out_lens = rng.randint(1, T_mel + 1, B).astype(np.int32)
+    in_lens[0], out_lens[0] = T_text, T_mel
+    if case == "nan":
+        attn[0, 0, 5:9, 2:5] = np.nan
+        attn[1, 0, 0, 0] = np.nan
+        attn[2, 0, T_mel // 3:, 1] = np.nan
+    elif case == "inf_zero_negative":
+        attn[0, 0, 3:6, :4] = 0.0
+        attn[1, 0, 7, 3] = np.inf
+        attn[2, 0, 9:11, 2:6] = -0.5
+        attn[3, 0, 4, :] = -np.inf
+    elif case == "ties":
+        attn = np.round(attn * T_text / 2) / (T_text / 2)
+    elif case == "edge_lengths":
+        in_lens[:5] = [0, 1, T_text, 1, T_text]
+        out_lens[:5] = [T_mel, T_mel, 0, 1, 1]
+    return attn.astype(np.float32), in_lens, out_lens
+
+
+@pytest.mark.parametrize("shape,variant", [
+    (shape, variant) for shape in ((5, 40, 13), (9, 70, 97), (6, 33, 1000))
+    for variant in (0, 1, 2)] + [((5, 30, 1100), 0)])
+@pytest.mark.parametrize("case", ["nan", "inf_zero_negative", "ties", "edge_lengths"])
+def test_k1_special_maps(cuda, case, shape, variant):
+    """Both variants (0: the library's choice, 1: warp, 2: block) bit-equal
+    to b_mas_torch on NaN, +-inf, zero, negative, tie and edge-length maps,
+    at widths that are not multiples of 32 and odd batches."""
+    attn, in_lens, out_lens = (torch.from_numpy(a).to(cuda)
+                               for a in _special(case, *shape))
+    hard = b_mas_cuda(attn, in_lens, out_lens, variant=variant)
+    torch.cuda.synchronize()
     assert torch.equal(hard, b_mas_torch(attn, in_lens, out_lens))
 
 

@@ -76,3 +76,52 @@ def test_k1_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         b_mas_cuda(attn, in_lens, out_lens)
     assert b_mas_cuda.launches == 0
+
+
+def _special(case, seed=7, B=5, T_mel=40, T_text=13):
+    """Maps with the cells a diverged soft attention can hold, ties, and
+    lengths at their edges."""
+    rng = np.random.RandomState(seed)
+    attn = rng.rand(B, 1, T_mel, T_text).astype(np.float32)
+    attn /= attn.sum(-1, keepdims=True)
+    in_lens = rng.randint(2, T_text + 1, B).astype(np.int32)
+    out_lens = rng.randint(2, T_mel + 1, B).astype(np.int32)
+    in_lens[0], out_lens[0] = T_text, T_mel
+    if case == "nan":
+        attn[0, 0, 5:9, 2:5] = np.nan
+        attn[1, 0, 0, 0] = np.nan  # the pinned start cell
+        attn[2, 0, 12:, 1] = np.nan
+    elif case == "inf_zero_negative":
+        attn[0, 0, 3:6, :4] = 0.0
+        attn[1, 0, 7, 3] = np.inf
+        attn[2, 0, 9:11, 2:6] = -0.5
+        attn[3, 0, 4, :] = -np.inf
+        attn[4, 0, :, 5] = 0.0
+    elif case == "ties":
+        attn = np.round(attn * 8) / 8  # few values: ties and zeros everywhere
+    elif case == "edge_lengths":
+        in_lens[:] = [0, 1, T_text, 1, T_text][:B]
+        out_lens[:] = [T_mel, T_mel, 0, 1, 1][:B]
+    return attn.astype(np.float32), in_lens, out_lens
+
+
+@pytest.mark.parametrize("case", ["nan", "inf_zero_negative", "ties", "edge_lengths"])
+def test_b_mas_torch_equals_jax_on_special_maps(case):
+    """Exact against the JAX package's b_mas, NaN included: a NaN score
+    loses every comparison, so the DP takes "stay" as b_mas's where() does."""
+    attn, in_lens, out_lens = _special(case)
+    args = (jnp.asarray(attn), jnp.asarray(in_lens), jnp.asarray(out_lens))
+    np.testing.assert_array_equal(_port(attn, in_lens, out_lens),
+                                  np.asarray(b_mas(*args)))
+
+
+@pytest.mark.parametrize("case", ["inf_zero_negative", "ties", "edge_lengths"])
+def test_b_mas_torch_equals_pallas_without_nan(case):
+    """The Pallas kernel (interpret mode) agrees wherever there is no NaN;
+    its jnp.maximum spreads a NaN that b_mas drops, so NaN maps are held to
+    b_mas only."""
+    attn, in_lens, out_lens = _special(case)
+    args = (jnp.asarray(attn), jnp.asarray(in_lens), jnp.asarray(out_lens))
+    np.testing.assert_array_equal(
+        _port(attn, in_lens, out_lens),
+        np.asarray(b_mas_pallas(*args, group=2, interpret=True)))

@@ -197,8 +197,9 @@ def test_text_to_wav_matches_jax(slice_models, tmp_path):
 
 
 def test_text_to_wav_runs_without_jax(slice_models, tmp_path):
-    """The CLIs in a fresh process where importing jax, flax or optax fails:
-    text_to_wav, then two train steps of train_sambert on the CPU."""
+    """The CLIs in a fresh process where importing jax, flax, optax or the
+    JAX package fails: text_to_wav, then two train steps of train_sambert,
+    both on the CPU because they are asked to be."""
     text, (am_ckpt, voc_ckpt) = _write_texts(slice_models, str(tmp_path))
     out = str(tmp_path / "out")
     data, stage = str(tmp_path / "data"), str(tmp_path / "stage")
@@ -206,17 +207,18 @@ def test_text_to_wav_runs_without_jax(slice_models, tmp_path):
     train_cfg = train_config(stage, train_max_steps=2)
     code = (
         "import runpy, sys\n"
-        "for name in ('jax', 'flax', 'optax'):\n"
+        "for name in ('jax', 'flax', 'optax', 'kantts_tpu'):\n"
         "    sys.modules[name] = None\n"
         f"sys.argv = ['text_to_wav', '--txt', {text!r}, '--am_ckpt', {am_ckpt!r},"
-        f" '--voc_ckpt', {voc_ckpt!r}, '--output_dir', {out!r}]\n"
+        f" '--voc_ckpt', {voc_ckpt!r}, '--output_dir', {out!r}, '--device', 'cpu']\n"
         "runpy.run_module('kantts_tpu_torch.bin.text_to_wav', run_name='__main__')\n"
         "import kantts_tpu_torch.losses, kantts_tpu_torch.train.optim\n"
         "import kantts_tpu_torch.train.schedulers, kantts_tpu_torch.train.steps\n"
         "from kantts_tpu_torch.bin.train_sambert import train\n"
         f"trainer = train({train_cfg!r}, {data!r}, {stage!r}, device='cpu')\n"
         "assert trainer.steps_taken == 2, trainer.steps_taken\n"
-        "assert all(sys.modules[n] is None for n in ('jax', 'flax', 'optax'))\n")
+        "assert all(sys.modules[n] is None\n"
+        "           for n in ('jax', 'flax', 'optax', 'kantts_tpu'))\n")
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -228,6 +230,8 @@ def test_text_to_wav_runs_without_jax(slice_models, tmp_path):
 
 
 def test_port_sources_import_no_jax():
+    """No file of the port, and not chip_smoke.py, imports JAX, Flax, optax
+    or anything of the JAX package."""
     pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax)\b", re.M)
     package = re.compile(r"^\s*(import|from)\s+kantts_tpu(\.|\s|$)", re.M)
     files = glob.glob(os.path.join(ROOT, "kantts_tpu_torch", "**", "*.py"),
@@ -237,6 +241,36 @@ def test_port_sources_import_no_jax():
         with open(path, encoding="utf-8") as f:
             src = f.read()
         assert not pattern.search(src), path
-        assert "kantts_tpu.infer" not in src and "kantts_tpu.serve" not in src, path
-    with open(os.path.join(ROOT, "chip_smoke.py"), encoding="utf-8") as f:
-        assert not package.search(f.read())
+        assert not package.search(src), path
+
+
+def _serving_calls(tmp_path):
+    from kantts_tpu_torch.bin import infer_hifigan, infer_sambert
+    from kantts_tpu_torch.bin import text_to_wav as t2w
+
+    out, ckpt, text = str(tmp_path / "out"), str(tmp_path / "none.pt"), str(
+        tmp_path / "none.txt")
+    return {
+        "am_infer": lambda: infer_sambert.am_infer(text, ckpt, out),
+        "hifigan_infer": lambda: infer_hifigan.hifigan_infer(text, ckpt, out),
+        "text_to_wav": lambda: t2w.text_to_wav(out, ckpt, ckpt, text),
+        "infer_sambert_cli": lambda: infer_sambert.main(
+            ["--sentence", text, "--ckpt", ckpt, "--output_dir", out]),
+        "infer_hifigan_cli": lambda: infer_hifigan.main(
+            ["--ckpt", ckpt, "--input_mel", text, "--output_dir", out]),
+        "text_to_wav_cli": lambda: t2w.main(
+            ["--txt", text, "--am_ckpt", ckpt, "--voc_ckpt", ckpt,
+             "--output_dir", out]),
+    }
+
+
+@pytest.mark.parametrize("entry", ["am_infer", "hifigan_infer", "text_to_wav",
+                                   "infer_sambert_cli", "infer_hifigan_cli",
+                                   "text_to_wav_cli"])
+def test_serving_without_a_device_needs_the_card(entry, tmp_path, monkeypatch):
+    """Given no device, each serving entry point runs on the card: without
+    one it raises, as the trainers do, before it reads or writes a file."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device; pass --device cpu"):
+        _serving_calls(tmp_path)[entry]()
+    assert not os.path.exists(tmp_path / "out")
