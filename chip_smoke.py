@@ -36,7 +36,17 @@ hifigan_v1_16k, with weights made from a seed:
      which means the card), then the path timed in this process, and the
      card's acoustic model and vocoder held against the CPU's on a short
      input;
-  7. text -> wav with the checkpoints of step 40 of both trainings.
+  7. text -> wav with the checkpoints of step 40 of both trainings;
+  8. serve: ``TTSService`` (max_batch 8, 20 ms window) behind the HTTP
+     server on the seeded checkpoints of phase 6: 16 concurrent ``/tts``
+     requests from 8 threads, each within 1 PCM16 step of ``text_to_wav``'s
+     output for its text, in fewer batches than utterances; 2 ``/tts/stream``
+     requests within 1 step of ``/tts``; first-chunk latency; the
+     ``serve_tts`` CLI in a subprocess, drained by SIGTERM with exit code 0;
+     ``stream_tts`` and ``infer_hifigan --chunked 8`` / ``--batch 4`` through
+     their CLIs; the vocoder at B=1 on 5 s, plain vs chunked-8; and
+     hifigan_noncausal_v1_16k through the bucketed ``hifigan_infer``, card vs
+     CPU. K1 must not launch on this path.
 
 Each phase prints lines of its own and raises on failure. Before the last
 line it prints a JSON object on the kernels; the last line is
@@ -64,13 +74,14 @@ TEXTS = ["ni3 hao3 , huan1 ying2 lai2 dao4 bei3 jing1 .",
          "zhe4 shi4 yi2 ge4 yu3 yin1 he2 cheng2 de5 ce4 shi4 .",
          "qing3 zai4 shuo1 yi2 bian4 , xie4 xie5 ."]
 HOP = 200  # samples per mel frame of hifigan_v1_16k: prod(10, 5, 2, 2)
-# the keys of kantts_tpu/configs/sambert_16k_MAS.yaml that the train phase
-# shortens; every width and every other key is the published config's
+CONFIGS = os.path.join(ROOT, "kantts_tpu_torch", "resources", "configs")
+# the keys of sambert_16k_MAS.yaml that the train phase shortens; every
+# width and every other key is the published config's
 TRAIN_KEYS = dict(train_max_steps=40, save_interval_steps=20,
                   eval_interval_steps=20, log_interval_steps=20)
 TRAIN_SHAPE = (32, 96, 576)  # B, T_in, T_mel of the timed train step
 EPOCH = 50  # card vs CPU: the binarization loss at half weight
-# the same for kantts_tpu/configs/hifigan_v1_16k.yaml
+# the same for hifigan_v1_16k.yaml
 GAN_KEYS = dict(train_max_steps=40, save_interval_steps=20,
                 eval_interval_steps=20, log_interval_steps=20)
 GAN_SHAPE = (16, 9600)  # B, samples of the timed GAN step: the published crop
@@ -458,10 +469,10 @@ def phase_card_vs_cpu(am_ckpt: str, voc_ckpt: str):
     import torch
 
     from kantts_tpu_torch.bin.infer_sambert import encode_symbol_inputs, load_am
-    from kantts_tpu_torch.bin.text_to_wav import resolve_frontend
     from kantts_tpu_torch.models.builder import load_checkpoint
     from kantts_tpu_torch.models.hifigan.layers import fold_weight_norm
     from kantts_tpu_torch.models.sambert.sambert import sambert_infer
+    from kantts_tpu_torch.serve.service import resolve_frontend
 
     am_gpu, ling_unit = load_am(am_ckpt, torch.device("cuda"))
     am_cpu, _ = load_am(am_ckpt, torch.device("cpu"))
@@ -493,11 +504,11 @@ def phase_card_vs_cpu(am_ckpt: str, voc_ckpt: str):
 
 
 def train_config(path: str, name: str = "sambert_16k_MAS", **keys) -> str:
-    """kantts_tpu/configs/{name}.yaml with ``keys`` replaced, written to
+    """The port's copy of {name}.yaml with ``keys`` replaced, written to
     ``path``."""
     import yaml
 
-    with open(os.path.join(ROOT, "kantts_tpu", "configs", f"{name}.yaml")) as f:
+    with open(os.path.join(CONFIGS, f"{name}.yaml")) as f:
         cfg = yaml.safe_load(f)
     cfg.update(keys)
     os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -1003,6 +1014,316 @@ def phase_train_to_serve(tmp: str, am_ckpt: str, voc_ckpt: str):
         audio_s=round(stats["audio_seconds"], 3))
 
 
+def pcm_steps(a: np.ndarray, b: np.ndarray) -> int:
+    """Max difference, in PCM16 steps, of two int16 waveforms of one length."""
+    if a.shape != b.shape:
+        raise AssertionError(f"waveforms of {a.shape} and {b.shape} samples")
+    return int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
+
+
+def joined_chunks(out_dir: str, line: int) -> np.ndarray:
+    """The int16 sentence wavs that text_to_wav wrote for text line ``line``
+    (``wav_chunks/{line}_{j}_mel.wav``), joined as the service joins them:
+    0.28 s of zeros between sentences, 0.05 s after the last."""
+    from scipy.io import wavfile
+
+    paths = sorted(glob.glob(os.path.join(out_dir, "wav_chunks", f"{line}_*_mel.wav")),
+                   key=lambda p: int(os.path.basename(p).split("_")[1]))
+    pieces = []
+    for i, path in enumerate(paths):
+        pieces.append(wavfile.read(path)[1])
+        pieces.append(np.zeros(int((0.28 if i != len(paths) - 1 else 0.05) * 16000),
+                               dtype=np.int16))
+    return np.concatenate(pieces)
+
+
+def post(port: int, path: str, text: str):
+    """-> (wall seconds, response body) of one POST with a JSON text body."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps({"text": text}).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        body = resp.read()
+    return time.perf_counter() - t0, body
+
+
+def serve_subprocess(am_ckpt: str, voc_ckpt: str, expect: np.ndarray) -> dict:
+    """``python -m kantts_tpu_torch.bin.serve_tts`` with no --device: warm up,
+    bind port 0, answer one /tts request (held to ``expect``, the in-process
+    service's PCM of TEXTS[3] requested alone, so at the same shapes), drain
+    and exit 0 on SIGTERM. The child runs with NVIDIA_TF32_OVERRIDE=0, the
+    float32 this process set up in phase_device: PyTorch's default lets
+    cuDNN use TF32, which moves this comparison past one PCM16 step."""
+    import signal
+    import threading
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kantts_tpu_torch.bin.serve_tts", "--am_ckpt", am_ckpt,
+         "--voc_ckpt", voc_ckpt, "--port", "0", "--warmup_text", TEXTS[3]],
+        cwd=ROOT, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, NVIDIA_TF32_OVERRIDE="0"))
+    lines = []
+    try:
+        port = None
+        for line in proc.stderr:
+            lines.append(line)
+            if "serving on http://" in line:
+                port = int(line.split("serving on http://")[1].split(" ")[0]
+                           .rsplit(":", 1)[1])
+                break
+        if port is None:
+            raise RuntimeError(f"serve_tts did not start (exit {proc.wait(60)}):\n"
+                               + "".join(lines[-40:]))
+        drain = threading.Thread(target=lambda: lines.extend(proc.stderr), daemon=True)
+        drain.start()
+        up_s = time.perf_counter() - t0
+        seconds, body = post(port, "/tts", TEXTS[3])
+        steps = pcm_steps(np.frombuffer(body[44:], dtype="<i2"), expect)
+        if steps > 1:
+            raise AssertionError(f"serve_tts: {steps} PCM steps from the service")
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=120)
+        drain.join(timeout=30)
+        if code != 0 or not any("drained and stopped" in ln for ln in lines):
+            raise RuntimeError(f"serve_tts exited {code} on SIGTERM:\n"
+                               + "".join(lines[-40:]))
+        if not any("on cuda" in ln for ln in lines):
+            raise AssertionError("serve_tts did not serve on the card")
+        return {"start_to_serving_s": up_s, "request_s": seconds, "pcm_steps": steps,
+                "exit_code": code}
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stderr.close()
+
+
+def vocoder_b1_times(voc_ckpt: str) -> dict:
+    """The generator at B=1 on 400 mel frames (5 s), plain and chunked into
+    8 windows, by CUDA events, in turns plain, chunked, chunked, plain; and
+    both chunked and streamed (0.3 s chunks) held to plain at 1e-5."""
+    import torch
+
+    from kantts_tpu_torch.bin.infer_hifigan import load_vocoder
+    from kantts_tpu_torch.infer.chunked import chunked_apply
+    from kantts_tpu_torch.infer.streaming import stream_synthesis
+
+    gen, _ = load_vocoder(voc_ckpt, torch.device("cuda"))
+    mel = torch.from_numpy(np.random.RandomState(5).randn(1, 400, 80)
+                           .astype(np.float32)).cuda()
+    runs = {"plain": lambda: gen(mel), "chunked8": lambda: chunked_apply(gen, mel, 8)}
+    times = collections.defaultdict(list)
+    with torch.inference_mode():
+        plain = runs["plain"]()
+        err = (plain - runs["chunked8"]()).abs().max().item()
+        streamed = np.concatenate(list(stream_synthesis(gen, mel[0].cpu().numpy(),
+                                                        chunk_frames=24)))
+        stream_err = float(np.abs(streamed - plain[0].cpu().numpy()).max())
+        for name in ("plain", "chunked8", "chunked8", "plain"):
+            times[name].append(cuda_ms(runs[name], 10))
+    if not (err <= 1e-5 and stream_err <= 1e-5):
+        raise AssertionError(f"vocoder vs plain: chunked-8 {err}, streamed {stream_err}")
+    return {f"{k}_ms": float(np.mean(v)) for k, v in times.items()} | {
+        "chunked8_max_abs_err": err, "stream_max_abs_err": stream_err}
+
+
+def noncausal_card_vs_cpu(tmp: str) -> dict:
+    """F1's path: hifigan_noncausal_v1_16k at full width from a seed through
+    the bucketed hifigan_infer, on the card and on the CPU, on a 250-frame
+    mel (padded to the 300-frame bucket). -> the PCM steps between them, and
+    how far the unpadded forward's last frames are from the bucketed ones
+    (what F1 was)."""
+    import torch
+    from scipy.io import wavfile
+
+    from kantts_tpu_torch.bin.infer_hifigan import hifigan_infer, load_vocoder
+    from kantts_tpu_torch.models.builder import hifigan_model_builder, save_checkpoint
+    from kantts_tpu_torch.utils.config import load_yaml
+
+    cfg = load_yaml(os.path.join(CONFIGS, "hifigan_noncausal_v1_16k.yaml"))
+    cfg["audio_config"] = {"sampling_rate": 16000}
+    ckpt = os.path.join(tmp, "noncausal", "voc.pt")
+    save_checkpoint(ckpt, hifigan_model_builder(cfg, seed=3), cfg)
+    mel_dir = os.path.join(tmp, "noncausal", "mels")
+    os.makedirs(mel_dir)
+    mel = np.random.RandomState(6).randn(250, 80).astype(np.float32)
+    np.save(os.path.join(mel_dir, "utt.npy"), mel)
+    pcm = {}
+    for device in ("cuda", "cpu"):
+        out = os.path.join(tmp, "noncausal", device)
+        hifigan_infer(mel_dir, ckpt, out, device=device)
+        pcm[device] = wavfile.read(os.path.join(out, "utt.wav"))[1]
+    gen, _ = load_vocoder(ckpt, torch.device("cuda"))
+    with torch.inference_mode():
+        unpadded = gen(torch.from_numpy(mel[None]).cuda())[0, :, 0].cpu().numpy()
+    tail = np.abs(unpadded * 32767.0 - pcm["cuda"].astype(np.float64))
+    steps = pcm_steps(pcm["cuda"], pcm["cpu"])
+    if steps > 1 or pcm["cuda"].shape != (250 * HOP,):
+        raise AssertionError(f"noncausal vocoder: card vs CPU {steps} PCM steps, "
+                             f"{pcm['cuda'].shape} samples")
+    return {"card_vs_cpu_pcm_steps": steps,
+            "unpadded_vs_bucketed_max_abs": float(tail.max() / 32767.0),
+            "unpadded_differing_samples": int((tail > 2).sum())}
+
+
+def phase_serve(tmp: str, am_ckpt: str, voc_ckpt: str) -> dict:
+    """The online serving path on the card at full width: TTSService
+    (max_batch 8, window 20 ms) behind make_http_server; 16 concurrent
+    /tts requests from 8 threads, each held to text_to_wav's output for its
+    text; 2 /tts/stream requests held to /tts; first-chunk latency; the
+    serve_tts CLI drained by SIGTERM; stream_tts and infer_hifigan
+    --chunked 8 / --batch 4 through their CLIs; the vocoder at B=1 plain vs
+    chunked-8; F1's non-causal path card vs CPU. K1 must not launch."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from kantts_tpu_torch.bin import infer_hifigan, stream_tts
+    from kantts_tpu_torch.bin.text_to_wav import text_to_wav
+    from kantts_tpu_torch.ops.mas import b_mas_cuda
+    from kantts_tpu_torch.serve import TTSService, make_http_server
+
+    if torch.backends.cudnn.benchmark:
+        raise AssertionError("cudnn.benchmark is on: results would vary by run")
+    t_phase = time.perf_counter()
+    b_mas_cuda.launches = 0
+    text = os.path.join(tmp, "text.txt")
+    offline = os.path.join(tmp, "serve_offline")
+    text_to_wav(offline, am_ckpt, voc_ckpt, text, am_batch=8)
+    want = [joined_chunks(offline, i) for i in range(len(TEXTS))]
+
+    t0 = time.perf_counter()
+    service = TTSService.from_checkpoints(am_ckpt, voc_ckpt, max_batch=8,
+                                          max_wait_ms=20)
+    load_s = time.perf_counter() - t0
+    httpd = None
+    try:
+        warmup_s = service.warmup(TEXTS[0])
+        httpd = make_http_server(service, "127.0.0.1", 0)
+        port = httpd.server_address[1]
+        server = threading.Thread(target=httpd.serve_forever, daemon=True)
+        server.start()
+
+        order = [i % len(TEXTS) for i in range(16)]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            replies = list(pool.map(lambda i: post(port, "/tts", TEXTS[i]), order))
+        wall = time.perf_counter() - t0
+        pcm = {}
+        steps = []
+        for i, (_, body) in zip(order, replies):
+            got = np.frombuffer(body[44:], dtype="<i2")
+            steps.append(pcm_steps(got, want[i]))
+            pcm[i] = got
+        if max(steps) > 1:
+            raise AssertionError(f"/tts vs text_to_wav: PCM steps {steps}")
+        health = json.loads(urllib_get(port, "/healthz"))
+        if not health["batches"] < health["utterances"]:
+            raise AssertionError(f"no batching: {health}")
+        lat = np.array([s for s, _ in replies])
+        audio_s = sum(len(pcm[i]) for i in order) / 16000
+
+        stream_steps = []
+        for i in (1, 3):
+            _, body = post(port, "/tts/stream", TEXTS[i])
+            stream_steps.append(pcm_steps(np.frombuffer(body, dtype="<i2"), pcm[i]))
+        if max(stream_steps) > 1:
+            raise AssertionError(f"/tts/stream vs /tts: PCM steps {stream_steps}")
+
+        first_chunk = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            chunks = service.stream(TEXTS[3])
+            next(chunks)
+            first_chunk.append(time.perf_counter() - t0)
+            for _ in chunks:
+                pass
+        _, body = post(port, "/tts", TEXTS[3])  # alone: the CLI's shapes
+        expect = np.frombuffer(body[44:], dtype="<i2")
+        log("serve", requests=16, threads=8, max_batch=8, max_wait_ms=20,
+            batches=health["batches"], utterances=health["utterances"],
+            pcm_steps_vs_text_to_wav=max(steps), stream_pcm_steps_vs_tts=max(stream_steps),
+            latency_p50_s=round(float(np.percentile(lat, 50)), 4),
+            latency_p95_s=round(float(np.percentile(lat, 95)), 4),
+            service_p50_ms=health.get("latency_p50_ms"),
+            service_p95_ms=health.get("latency_p95_ms"),
+            audio_s=round(audio_s, 3), wall_s=round(wall, 3),
+            served_audio_s_per_s=round(audio_s / wall, 3),
+            first_chunk_latency_s=",".join(f"{s:.4f}" for s in first_chunk),
+            chunk_s=0.3, load_s=round(load_s, 3), warmup_s=round(warmup_s, 3),
+            alone_vs_batched_pcm_steps=pcm_steps(expect, pcm[3]))
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        service.close()
+
+    cli = serve_subprocess(am_ckpt, voc_ckpt, expect)
+    log("serve_tts_cli", **{k: round(v, 3) if isinstance(v, float) else v
+                            for k, v in cli.items()})
+
+    # stream_tts (on the last line: each sentence runs at B=1, ~5 s on the
+    # host) and infer_hifigan through their CLIs, with no --device
+    stream_out = os.path.join(tmp, "stream_tts")
+    last_line = os.path.join(tmp, "last_line.txt")
+    with open(last_line, "w", encoding="utf-8") as f:
+        f.write(TEXTS[3] + "\n")
+    stream_tts.main(["--txt", last_line, "--am_ckpt", am_ckpt, "--voc_ckpt", voc_ckpt,
+                     "--output_dir", stream_out])
+    with open(os.path.join(stream_out, "streaming_report.json")) as f:
+        report = json.load(f)
+    from scipy.io import wavfile
+
+    stream_cli_steps = [pcm_steps(
+        wavfile.read(os.path.join(stream_out, f"{r['utt']}.wav"))[1],
+        wavfile.read(os.path.join(offline, "wav_chunks", "3_0_mel.wav"))[1])
+        for r in report]
+    if [r["utt"] for r in report] != ["0_0"] or report[0]["device"] != "cuda" \
+            or max(stream_cli_steps) > 1:
+        raise AssertionError(f"stream_tts: {report}, PCM steps {stream_cli_steps}")
+    log("stream_tts_cli", sentences=len(report),
+        first_chunk_latency_s=",".join(f"{r['first_chunk_latency_s']:.4f}"
+                                       for r in report),
+        rtf=",".join(f"{r['rtf']:.4f}" for r in report),
+        pcm_steps_vs_text_to_wav=max(stream_cli_steps))
+
+    voc_steps = {}
+    for name, flag in (("chunked8", ["--chunked", "8"]), ("batch4", ["--batch", "4"])):
+        out = os.path.join(tmp, f"voc_{name}")
+        infer_hifigan.main(["--ckpt", voc_ckpt, "--input_mel",
+                            os.path.join(offline, "feat"), "--output_dir", out, *flag])
+        voc_steps[name] = max(pcm_steps(
+            wavfile.read(path)[1],
+            wavfile.read(os.path.join(offline, "wav_chunks", os.path.basename(path)))[1])
+            for path in glob.glob(os.path.join(out, "*.wav")))
+        if len(glob.glob(os.path.join(out, "*.wav"))) != len(want) or voc_steps[name] > 1:
+            raise AssertionError(f"infer_hifigan {flag}: {voc_steps[name]} PCM steps")
+    times = vocoder_b1_times(voc_ckpt)
+    f1 = noncausal_card_vs_cpu(tmp)
+    if b_mas_cuda.launches != 0:
+        raise AssertionError(f"the serving path launched K1 {b_mas_cuda.launches} times")
+    log("serve_vocoder", infer_hifigan_pcm_steps=json.dumps(voc_steps).replace(" ", ""),
+        b1_5s_plain_ms=round(times["plain_ms"], 4),
+        b1_5s_chunked8_ms=round(times["chunked8_ms"], 4),
+        chunked8_max_abs_err=times["chunked8_max_abs_err"],
+        stream_max_abs_err=times["stream_max_abs_err"],
+        noncausal=json.dumps(f1).replace(" ", ""), k1_launches=b_mas_cuda.launches,
+        phase_s=round(time.perf_counter() - t_phase, 3))
+    return {"k1_launches": b_mas_cuda.launches}
+
+
+def urllib_get(port: int, path: str) -> bytes:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as resp:
+        return resp.read()
+
+
 def old_k1(src: str):
     """Build an earlier K1 source with the same nvcc flags; it has the first
     K1's C interface (the caller zeroes the output and passes a uint8
@@ -1094,6 +1415,7 @@ def main(argv) -> int:
         phase_card_vs_cpu(am_ckpt, voc_ckpt)
         phase_train_to_serve(tmp, ckpt_path(os.path.join(tmp, "train"), 40),
                              ckpt_path(os.path.join(tmp, "voc_train"), 40))
+        serve = phase_serve(tmp, am_ckpt, voc_ckpt)
     import torch
 
     train = k1["train"]
@@ -1103,7 +1425,8 @@ def main(argv) -> int:
         "replaces": "kantts_tpu/ops/mas_pallas.py:91",
         "launches": fwd_launches + train_launches,
         "launches_by_path": {"mas_forward": fwd_launches,
-                             "train_sambert": train_launches},
+                             "train_sambert": train_launches,
+                             "serve": serve["k1_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
         "ms": train["ms"], "plain_ms": train["plain_ms"],
         "bound_ms": train["bound_ms"], "bound_by": train["bound_by"],

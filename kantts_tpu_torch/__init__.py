@@ -2,7 +2,8 @@
 Hopper.
 
 Ported so far: the serving path (text -> SAM-BERT -> HiFi-GAN -> wav),
-SAM-BERT training with MAS, whose Viterbi runs in the hand-written CUDA
+offline and online (``serve/``: dynamic micro-batching behind an HTTP
+server; ``infer/``: exact streaming and chunked vocoding), SAM-BERT training with MAS, whose Viterbi runs in the hand-written CUDA
 kernel K1 (``csrc/mas.cu``), and HiFi-GAN GAN training. The package stands
 alone: it imports torch and never JAX, Flax, optax or anything of
 ``kantts_tpu``. The host-side modules it needs (``text/``,

@@ -1,12 +1,20 @@
-"""HiFi-GAN vocoder inference, plain path: mel npy files -> PCM16 wavs
-(counterpart of ``kantts_tpu/bin/infer_hifigan.py`` without its chunked,
-batched and int8 paths).
+"""HiFi-GAN vocoder inference: mel npy files -> PCM16 wavs (counterpart of
+``kantts_tpu/bin/infer_hifigan.py``).
 
-Weight norm is folded on load. Each mel runs alone (B=1) at its own length:
-the generator is causal, so no padding is needed.
+Weight norm is folded on load. Each mel is zero-padded to a multiple of
+``frame_bucket`` frames, synthesized, and cut to ``frames * hop`` samples,
+as the JAX package does: a non-causal generator sees the padded frames near
+the end, so the padding is part of its output. Three paths:
+
+- plain: one mel per generator call (B=1);
+- ``--chunked N``: each mel split into N causal-context windows run as one
+  batch (``infer/chunked.py``; causal generators only);
+- ``--batch B``: B mels per call, longest first, each group padded to its
+  bucket and the batch padded with zero mels.
 
     python -m kantts_tpu_torch.bin.infer_hifigan --ckpt VOC.pt \
-        --input_mel MELS --output_dir OUT [--device cuda|cpu]
+        --input_mel MELS --output_dir OUT [--chunked N | --batch B] \
+        [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -21,21 +29,51 @@ from typing import Union
 import numpy as np
 import torch
 
+from kantts_tpu_torch.infer.chunked import chunked_apply
 from kantts_tpu_torch.models.builder import load_checkpoint
 from kantts_tpu_torch.models.hifigan.layers import fold_weight_norm
 from kantts_tpu_torch.utils.audio import save_wav
 from kantts_tpu_torch.utils.device import resolve_device, synchronize
 
+INT8_NOT_PORTED = ("int8 W8A8 vocoding is not ported to kantts_tpu_torch yet "
+                   "(ROADMAP.md queue 1, item 11)")
+
+
+def load_vocoder(ckpt: str, device: torch.device):
+    """-> (generator with weight norm folded, in eval mode on ``device``,
+    its config)."""
+    model, config = load_checkpoint(ckpt, device)
+    return fold_weight_norm(model), config
+
+
+def bucket_pad(mels, frame_bucket: int, batch: int) -> np.ndarray:
+    """(T_i, C) mels -> (batch, L, C) float32, L the longest T_i rounded up
+    to a multiple of ``frame_bucket``; each mel zero-padded at its end, the
+    batch filled with zero mels."""
+    L = int(np.ceil(max(m.shape[0] for m in mels) / frame_bucket) * frame_bucket)
+    n_mels = mels[0].shape[1]
+    return np.stack(
+        [np.pad(m, [(0, L - m.shape[0]), (0, 0)]).astype(np.float32) for m in mels]
+        + [np.zeros((L, n_mels), dtype=np.float32)] * (batch - len(mels)))
+
 
 def hifigan_infer(input_mel: str, ckpt: str, output_dir: str,
-                  device: Union[str, torch.device] = "cuda") -> dict:
+                  device: Union[str, torch.device] = "cuda",
+                  frame_bucket: int = 100, chunked: int = 0, batch: int = 1,
+                  int8: bool = False) -> dict:
     """``input_mel`` is a directory of ``*.npy`` mels or a list file;
     ``device`` is "cuda" (the default, which raises without a card) or
     "cpu". Returns {"audio_seconds", "seconds"} over the generator calls
     (the clock read after a device sync)."""
     device = resolve_device(device)
-    model, config = load_checkpoint(ckpt, device)
-    fold_weight_norm(model)
+    if int8:
+        raise NotImplementedError(INT8_NOT_PORTED)
+    if batch > 1 and chunked:
+        raise SystemExit("--chunked (single-utterance latency) and --batch "
+                         "(cross-utterance throughput) are mutually exclusive")
+    model, config = load_vocoder(ckpt, device)
+    if chunked and not model.causal:
+        raise SystemExit("--chunked requires a causal, fullband generator")
     sampling_rate = config["audio_config"]["sampling_rate"]
     os.makedirs(output_dir, exist_ok=True)
     if os.path.isdir(input_mel):
@@ -44,23 +82,38 @@ def hifigan_infer(input_mel: str, ckpt: str, output_dir: str,
         with open(input_mel) as f:
             mel_files = [line.strip() for line in f if line.strip()]
 
-    audio_seconds, seconds = 0.0, 0.0
+    items = []
     for mel_file in mel_files:
         utt_id = os.path.splitext(os.path.basename(mel_file))[0]
         mel = np.load(mel_file)
         if mel.shape[0] == 0:
             logging.warning("%s: empty mel, skipping", utt_id)
             continue
+        items.append((utt_id, mel))
+    if batch > 1:
+        # longest first, so that a group shares its bucket
+        items.sort(key=lambda it: -it[1].shape[0])
+    batch = max(batch, 1)
+
+    audio_seconds, seconds = 0.0, 0.0
+    for g0 in range(0, len(items), batch):
+        group = items[g0:g0 + batch]
+        mel_in = torch.from_numpy(bucket_pad([m for _, m in group], frame_bucket,
+                                             batch)).to(device)
         synchronize(device)
         t0 = time.perf_counter()
-        with torch.no_grad():
-            wav = model(torch.from_numpy(mel.astype(np.float32))[None].to(device))
-        wav = wav[0, :, 0].cpu().numpy()
+        with torch.inference_mode():
+            y = chunked_apply(model, mel_in, chunked) if chunked else model(mel_in)
+            y = y.cpu().numpy()
         elapsed = time.perf_counter() - t0
-        save_wav(wav, os.path.join(output_dir, f"{utt_id}.wav"), sampling_rate)
-        secs = wav.shape[0] / sampling_rate
-        logging.info("%s: %.2fs audio in %.3fs (RTF %.4f)", utt_id, secs,
-                     elapsed, elapsed / secs)
+        hop = y.shape[1] // mel_in.shape[1]
+        secs = 0.0
+        for (utt_id, mel), wav in zip(group, y):
+            wav = wav[:mel.shape[0] * hop, 0]
+            save_wav(wav, os.path.join(output_dir, f"{utt_id}.wav"), sampling_rate)
+            secs += wav.shape[0] / sampling_rate
+        logging.info("%s: %.2fs audio in %.3fs (RTF %.4f)",
+                     ",".join(u for u, _ in group), secs, elapsed, elapsed / secs)
         audio_seconds += secs
         seconds += elapsed
     return {"audio_seconds": audio_seconds, "seconds": seconds}
@@ -72,10 +125,20 @@ def main(argv=None):
     parser.add_argument("--input_mel", type=str, required=True,
                         help="directory of mel npys or a list file")
     parser.add_argument("--output_dir", type=str, required=True)
+    parser.add_argument("--chunked", type=int, default=0, metavar="N",
+                        help="split each utterance into N causal-context "
+                             "windows synthesized as one batch (causal "
+                             "fullband generators only)")
+    parser.add_argument("--batch", type=int, default=1, metavar="B",
+                        help="cross-utterance batched synthesis: utterances "
+                             "per generator call")
+    parser.add_argument("--int8", action="store_true",
+                        help="int8 W8A8 vocoding (not ported yet: raises)")
     parser.add_argument("--device", type=str, default="cuda",
                         choices=("cuda", "cpu"))
     args = parser.parse_args(argv)
-    hifigan_infer(args.input_mel, args.ckpt, args.output_dir, device=args.device)
+    hifigan_infer(args.input_mel, args.ckpt, args.output_dir, device=args.device,
+                  chunked=args.chunked, batch=args.batch, int8=args.int8)
 
 
 if __name__ == "__main__":

@@ -85,6 +85,14 @@ def am_synthesis_batch(symbol_seqs: List[str], model: KanTtsSAMBERT,
     return outs
 
 
+def am_synthesis(symbol_seq: str, model: KanTtsSAMBERT, ling_unit,
+                 input_bucket: int = 32, frames_per_symbol: int = 24):
+    """One utterance (B=1) through ``am_synthesis_batch``."""
+    return am_synthesis_batch([symbol_seq], model, ling_unit,
+                              input_bucket=input_bucket,
+                              frames_per_symbol=frames_per_symbol)[0]
+
+
 def load_am(ckpt: str, device: torch.device):
     """-> (KanTtsSAMBERT in eval mode on ``device``, its linguistic unit)."""
     model, config = load_checkpoint(ckpt, device)

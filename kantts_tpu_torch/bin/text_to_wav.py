@@ -3,7 +3,8 @@ one wav per text line, its sentences joined with 0.28 s of silence and a
 0.05 s tail (counterpart of ``kantts_tpu/bin/text_to_wav.py``).
 
     python -m kantts_tpu_torch.bin.text_to_wav --txt TEXT --am_ckpt AM.pt \
-        --voc_ckpt VOC.pt --output_dir OUT [--am_batch B] [--device cuda|cpu]
+        --voc_ckpt VOC.pt --output_dir OUT [--am_batch B] \
+        [--chunked N | --voc_batch B] [--device cuda|cpu]
 
 The checkpoints are the port's own (``models/builder.py``). The last line
 of standard output is a JSON object with the run's counts and times.
@@ -13,7 +14,6 @@ from __future__ import annotations
 
 import argparse
 import glob
-import importlib
 import json
 import logging
 import os
@@ -25,28 +25,9 @@ import torch
 
 from kantts_tpu_torch.bin.infer_hifigan import hifigan_infer
 from kantts_tpu_torch.bin.infer_sambert import am_infer
+from kantts_tpu_torch.serve.service import resolve_frontend
 from kantts_tpu_torch.utils.audio import read_wav, save_wav
 from kantts_tpu_torch.utils.device import resolve_device, synchronize
-
-
-def resolve_frontend(frontend: Optional[str]):
-    """None or "lexicon" -> the in-tree hanzi+pinyin front-end (tone-numbered
-    pinyin passes through unchanged); "lexicon:PATH" -> the same, overlaid
-    with a user lexicon; "pinyin" -> the bare pinyin front-end; otherwise a
-    module path exposing ``text_to_symbols(texts, speaker, lang)``."""
-    if frontend is None or frontend == "lexicon":
-        from kantts_tpu_torch.text.lexicon_frontend import make_frontend
-
-        return make_frontend()
-    if frontend == "pinyin":
-        from kantts_tpu_torch.text import pinyin_frontend
-
-        return pinyin_frontend
-    if frontend.startswith("lexicon:"):
-        from kantts_tpu_torch.text.lexicon_frontend import make_frontend
-
-        return make_frontend(frontend[len("lexicon:"):])
-    return importlib.import_module(frontend)
 
 
 def concat_process(chunk_wav_dir: str, output_dir: str,
@@ -80,7 +61,8 @@ def text_to_wav(output_dir: str, am_ckpt: str, voc_ckpt: str,
                 text_file: Optional[str] = None,
                 symbols_file: Optional[str] = None,
                 frontend: Optional[str] = None, speaker: str = "F7",
-                lang: str = "PinYin", am_batch: int = 1,
+                lang: str = "PinYin", am_batch: int = 1, chunked: int = 0,
+                voc_batch: int = 1,
                 device: Union[str, torch.device] = "cuda") -> dict:
     """Runs on ``device``: "cuda" (the default, which raises without a card)
     or "cpu". Returns the run's counts and times: mel frames and seconds of
@@ -108,7 +90,8 @@ def text_to_wav(output_dir: str, am_ckpt: str, voc_ckpt: str,
         for mel in sorted(glob.glob(os.path.join(output_dir, "feat", "*_mel.npy"))):
             f.write(mel + "\n")
     chunk_dir = os.path.join(output_dir, "wav_chunks")
-    voc = hifigan_infer(mel_list, voc_ckpt, chunk_dir, device=device)
+    voc = hifigan_infer(mel_list, voc_ckpt, chunk_dir, device=device,
+                        chunked=chunked, batch=voc_batch)
     concat_process(chunk_dir, os.path.join(output_dir, "res_wavs"))
     synchronize(device)
     total = time.perf_counter() - t0
@@ -133,6 +116,12 @@ def main(argv=None):
     parser.add_argument("--lang", type=str, default="PinYin")
     parser.add_argument("--am_batch", type=int, default=1, metavar="B",
                         help="utterances per acoustic forward")
+    parser.add_argument("--chunked", type=int, default=0, metavar="N",
+                        help="chunked-batch vocoder synthesis (see "
+                             "infer_hifigan --chunked)")
+    parser.add_argument("--voc_batch", type=int, default=1, metavar="B",
+                        help="cross-utterance batched vocoder synthesis "
+                             "(see infer_hifigan --batch)")
     parser.add_argument("--device", type=str, default="cuda",
                         choices=("cuda", "cpu"))
     args = parser.parse_args(argv)
@@ -140,7 +129,8 @@ def main(argv=None):
         parser.error("give exactly one of --txt and --symbols_file")
     stats = text_to_wav(args.output_dir, args.am_ckpt, args.voc_ckpt, args.txt,
                         args.symbols_file, args.frontend, args.speaker,
-                        args.lang, am_batch=args.am_batch, device=args.device)
+                        args.lang, am_batch=args.am_batch, chunked=args.chunked,
+                        voc_batch=args.voc_batch, device=args.device)
     print(json.dumps(stats))
 
 

@@ -51,6 +51,11 @@ class Generator(nn.Module):
             raise NotImplementedError("not ported yet: PQMF (out_channels > 1)")
         act_params = nonlinear_activation_params or {"negative_slope": 0.1}
         k = kernel_size
+        # what streaming and chunked inference read (infer/streaming.py)
+        self.causal, self.kernel_size = causal, kernel_size
+        self.upsample_scales = tuple(upsample_scales)
+        self.resblock_kernel_sizes = tuple(resblock_kernel_sizes)
+        self.resblock_dilations = tuple(tuple(d) for d in resblock_dilations)
         self.n_res = len(resblock_kernel_sizes)
         self.conv_pre = WNConv1d(in_channels, channels, k,
                                  padding=(k - 1) // 2, bias=bias, causal=causal)

@@ -1,8 +1,9 @@
 """The port's own copies of the JAX package's host-side modules against the
 originals, on the CPU: the front-ends and the linguistic unit (symbol
 strings and ids), the AM and vocoder loaders (every array of every batch for
-one seed), the config loader, the beta-binomial prior and the weight
-converters. Everything here is exact: the copies must behave identically.
+one seed), the config loader and the YAML configs, the beta-binomial prior
+and the weight converters. Everything here is exact: the copies must behave
+identically.
 """
 
 import os
@@ -87,6 +88,15 @@ def test_load_merged_config(name, tmp_path):
     path = os.path.join(CONFIGS, f"{name}.yaml")
     assert (tconfig.load_merged_config(str(tmp_path), path)
             == jconfig.load_merged_config(str(tmp_path), path))
+
+
+@pytest.mark.parametrize("name", ["sambert_16k_MAS", "hifigan_v1_16k",
+                                  "hifigan_noncausal_v1_16k"])
+def test_config_copies_equal_the_originals(name):
+    """The port's copies of the YAML configs that chip_smoke.py reads."""
+    copy = os.path.join(ROOT, "kantts_tpu_torch", "resources", "configs", f"{name}.yaml")
+    with open(copy, "rb") as f, open(os.path.join(CONFIGS, f"{name}.yaml"), "rb") as g:
+        assert f.read() == g.read()
 
 
 def test_beta_binomial_prior():
