@@ -47,6 +47,26 @@ hifigan_v1_16k, with weights made from a seed:
      their CLIs; the vocoder at B=1 on 5 s, plain vs chunked-8; and
      hifigan_noncausal_v1_16k through the bucketed ``hifigan_infer``, card vs
      CPU. K1 must not launch on this path.
+  9. nsf: the NSF voice at the published widths of sambert_nsf_24k and
+     hifigan_v1_nsf_24k, seeded, with a (2, 1) ``mvn.npy`` that the run
+     writes: (a) ``text_to_wav`` with no ``--device``, 24 kHz wavs of
+     frames * 240 samples; (b) the generator card vs CPU on 250 frames with
+     one excitation injected into both, and the ``SourceModule`` card vs CPU
+     on 5 s with its draws injected, against a tolerance derived from f32
+     rounding; (c) ``infer_hifigan --chunked 8`` against plain, in-process
+     within 1e-5 and through the CLI within 1 PCM16 step; (d) ``TTSService``
+     answering 4 ``/tts`` requests, the vocoder's input mels denormalised,
+     and ``stream`` refusing NSF; (e) 10 GAN steps of hifigan_v1_nsf_24k
+     at B=16 x 9600 through ``train_hifigan`` on 24 kHz tones with exact
+     f0 and uv, a timed step with its host syncs, and a step at B=2 card vs
+     CPU with the excitation injected; (f) a multi-band GAN in a layout
+     of this script's own (hifigan_v1_16k with 4 PQMF sub-bands, upsampling
+     5, 5, 2, the MultiSpecDiscriminator at its defaults, the published
+     sub-band STFT loss): 5 steps and a step card vs CPU; (g) 5 steps of
+     sambert_nsf_24k through ``train_sambert`` on a duration corpus with
+     frame f0 and uv; (h) the NSF vocoder at B=1 on 5 s, plain and
+     chunked-8, by CUDA events, and the ``SourceModule``'s share of the
+     plain call from ``torch.profiler``. K1 must not launch on this path.
 
 Each phase prints lines of its own and raises on failure. Before the last
 line it prints a JSON object on the kernels; the last line is
@@ -85,6 +105,14 @@ EPOCH = 50  # card vs CPU: the binarization loss at half weight
 GAN_KEYS = dict(train_max_steps=40, save_interval_steps=20,
                 eval_interval_steps=20, log_interval_steps=20)
 GAN_SHAPE = (16, 9600)  # B, samples of the timed GAN step: the published crop
+NSF_SR, NSF_HOP = 24000, 240  # hifigan_v1_nsf_24k: prod(8, 5, 3, 2) samples a frame
+# the keys of hifigan_v1_nsf_24k.yaml, of the multi-band variant of
+# hifigan_v1_16k.yaml and of sambert_nsf_24k.yaml that phase 9 shortens
+NSF_GAN_KEYS = dict(train_max_steps=10, save_interval_steps=10,
+                    eval_interval_steps=10, log_interval_steps=5)
+SHORT_KEYS = dict(train_max_steps=5, save_interval_steps=5, eval_interval_steps=5,
+                  log_interval_steps=5)
+MVN = [[170.0], [40.0]]  # the f0 mean and std of the NSF acoustic model's mvn.npy
 
 
 def log(phase: str, **fields) -> None:
@@ -366,9 +394,10 @@ def phase_mas_forward():
     return launches, k1
 
 
-def check_wavs(out_dir: str) -> int:
-    """Every sentence wav is finite, non-empty, in [-1, 1] and HOP samples
-    per mel frame; one joined wav per text line. -> number of sentences."""
+def check_wavs(out_dir: str, sr_want: int = 16000, hop: int = HOP) -> int:
+    """Every sentence wav is at ``sr_want``, finite, non-empty, in [-1, 1]
+    and ``hop`` samples per mel frame; one joined wav per text line. ->
+    number of sentences."""
     from scipy.io import wavfile
 
     chunks = sorted(glob.glob(os.path.join(out_dir, "wav_chunks", "*.wav")))
@@ -379,8 +408,8 @@ def check_wavs(out_dir: str) -> int:
         wav = pcm.astype(np.float32) / 32768.0
         stem = os.path.splitext(os.path.basename(path))[0]
         frames = np.load(os.path.join(out_dir, "feat", f"{stem}.npy")).shape[0]
-        if not (sr == 16000 and wav.size > 0 and np.isfinite(wav).all()
-                and np.abs(wav).max() <= 1.0 and wav.size == HOP * frames):
+        if not (sr == sr_want and wav.size > 0 and np.isfinite(wav).all()
+                and np.abs(wav).max() <= 1.0 and wav.size == hop * frames):
             raise AssertionError(f"{path}: sr {sr}, {wav.size} samples for "
                                  f"{frames} frames")
     joined = glob.glob(os.path.join(out_dir, "res_wavs", "*.wav"))
@@ -702,7 +731,8 @@ def phase_voc_train(tmp: str):
 
 def gan_batch(trainer, batch: int, device):
     """``batch`` crops of the longest training utterances, from a seeded
-    RandomState: (wav (B, 9600, 1), mel (B, 48, 80)) on ``device``."""
+    RandomState: (wav (B, 9600, 1), mel (B, frames, channels)) on
+    ``device``."""
     from kantts_tpu_torch.train.trainer import array_to_device
 
     ds = trainer.train_loader.dataset
@@ -742,10 +772,11 @@ def profile_steps(step, n: int) -> dict:
                     for name, us in by_name.most_common(10)] if total else []}
 
 
-def phase_gan_step(trainer):
+def phase_gan_step(trainer, name: str = "gan_step", n_timed: int = 20,
+                   profile: bool = True):
     """One GAN step (both gates open) at B=16 x 9600, timed: 5 warmup steps,
-    then 20 steps each between two synchronizes; host syncs of one step;
-    a profile of 3 warm steps."""
+    then ``n_timed`` steps each between two synchronizes; host syncs of one
+    step; with ``profile``, a profile of 3 warm steps."""
     import torch
 
     batch = gan_batch(trainer, GAN_SHAPE[0], torch.device("cuda"))
@@ -759,7 +790,7 @@ def phase_gan_step(trainer):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for _ in range(20):
+    for _ in range(n_timed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         metrics = step(*batch)
@@ -770,12 +801,15 @@ def phase_gan_step(trainer):
         raise AssertionError(f"timed GAN step: metrics not finite: {bad}")
     ms = float(np.median(times)) * 1e3
     B, T = GAN_SHAPE
-    log("gan_step", shape=f"B={B}xT={T}", median_ms=round(ms, 3),
+    sr = trainer.config["audio_config"]["sampling_rate"]
+    log(name, shape=f"B={B}xT={T}", sampling_rate=sr, median_ms=round(ms, 3),
         min_ms=round(min(times) * 1e3, 3), max_ms=round(max(times) * 1e3, 3),
-        gan_train_step_audio_s_per_s=round(B * T / 16000 / (ms / 1e3), 3),
+        gan_train_step_audio_s_per_s=round(B * T / sr / (ms / 1e3), 3),
         peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 3),
         host_syncs=len(syncs), sync_sites=",".join(
             f"{site}x{n}" for site, n in collections.Counter(syncs).items()))
+    if not profile:
+        return
     prof = profile_steps(lambda: step(*batch), 3)
     log("gan_step_profile", steps=3, wall_ms=round(prof["wall_ms"], 3),
         device_busy_ms=round(prof["busy_ms"], 3),
@@ -784,13 +818,16 @@ def phase_gan_step(trainer):
         top=json.dumps(prof["top"]).replace(" ", ""))
 
 
-def phase_gan_card_vs_cpu(trainer):
-    """The GAN at full width, B=2, on the card and on the CPU from the same
-    seeded weights and batch: the generator loss and its backward (the
-    generator's gradient norm), the fake regenerated, the discriminator
-    loss and its backward (the discriminators' gradient norm). Tolerance:
-    losses rtol 1e-5, gradient norms rtol 1e-3 (float32 with TF32 off on
-    both; the order of sums differs)."""
+def phase_gan_card_vs_cpu(trainer, name: str = "gan_card_vs_cpu"):
+    """The GAN of ``trainer.config`` at full width, B=2, on the card and on
+    the CPU from the same seeded weights and batch: the generator loss and
+    its backward (the generator's gradient norm), the fake regenerated, the
+    discriminator loss and its backward (the discriminators' gradient
+    norm). An NSF generator's noise cannot match across devices, so one
+    excitation, drawn on the CPU, is injected into both; a multi-band
+    generator's sub-bands go through its PQMF. Tolerance: losses rtol 1e-5,
+    gradient norms rtol 1e-3 (float32 with TF32 off on both; the order of
+    sums differs)."""
     import torch
 
     from kantts_tpu_torch.losses import criterion_builder
@@ -798,19 +835,35 @@ def phase_gan_card_vs_cpu(trainer):
     from kantts_tpu_torch.train.optim import global_grad_norm
     from kantts_tpu_torch.train.steps import discriminator_losses, generator_losses
 
+    class Injected(torch.nn.Module):
+        def __init__(self, gen, excitation):
+            super().__init__()
+            self.gen, self.excitation = gen, excitation
+
+        def forward(self, mel, generator=None):
+            return self.gen(mel, excitation=self.excitation)
+
     criterion = criterion_builder(trainer.config)
-    out = {}
-    for device in (torch.device("cuda"), torch.device("cpu")):
+    out, excitation = {}, None
+    for device in (torch.device("cpu"), torch.device("cuda")):
         built = hifigan_gan_builder(trainer.config, seed=0, device=device)
-        gen, discs = built["generator"], built["discriminators"]
+        gen, discs, pqmf = built["generator"], built["discriminators"], built["pqmf"]
         wav, mel = gan_batch(trainer, 2, device)
-        gen_loss, _ = generator_losses(gen, discs, criterion, wav, mel, True)
+        gen_in = gen
+        if gen.nsf_params is not None:
+            if excitation is None:
+                with torch.no_grad():
+                    excitation = gen(mel, excitation_only=True,
+                                     generator=torch.Generator().manual_seed(0))
+            gen_in = Injected(gen, excitation.to(device))
+        gen_loss, _ = generator_losses(gen_in, discs, criterion, wav, mel, True, pqmf)
         gen_loss.backward()
         g_norm = global_grad_norm(gen.parameters())
         for d in discs.values():
             d.zero_grad(set_to_none=True)
         with torch.no_grad():
-            y_fake = gen(mel).transpose(1, 2)
+            y_fake = gen_in(mel)
+            y_fake = (pqmf.synthesis(y_fake) if pqmf is not None else y_fake).transpose(1, 2)
         dis_loss, _ = discriminator_losses(discs, criterion, wav.transpose(1, 2),
                                            y_fake)
         dis_loss.backward()
@@ -819,13 +872,14 @@ def phase_gan_card_vs_cpu(trainer):
                             d_norm.item()]
     card, cpu = np.array(out["cuda"]), np.array(out["cpu"])
     rel = np.abs(card - cpu) / np.abs(cpu)
-    log("gan_card_vs_cpu", shape="B={}xT={}".format(*wav.shape[:2]),
+    log(name, shape="B={}xT={}".format(*wav.shape[:2]),
         gen_loss=card[0], gen_loss_cpu=cpu[0],
         dis_loss=card[1], dis_loss_cpu=cpu[1], gen_grad_norm=card[2],
         gen_grad_norm_cpu=cpu[2], dis_grad_norm=card[3], dis_grad_norm_cpu=cpu[3],
-        rel_errs=",".join(f"{r:.3g}" for r in rel), tol="1e-5,1e-5,1e-3,1e-3")
+        rel_errs=",".join(f"{r:.3g}" for r in rel), tol="1e-5,1e-5,1e-3,1e-3",
+        excitation_injected=excitation is not None, pqmf=pqmf is not None)
     if not (np.isfinite(card).all() and (rel <= [1e-5, 1e-5, 1e-3, 1e-3]).all()):
-        raise AssertionError(f"GAN card vs CPU: card {card}, CPU {cpu}")
+        raise AssertionError(f"{name}: card {card}, CPU {cpu}")
 
 
 def longest_items(trainer, n: int):
@@ -1324,6 +1378,438 @@ def urllib_get(port: int, path: str) -> bytes:
         return resp.read()
 
 
+def nsf_mel(rng, frames: int) -> np.ndarray:
+    """(1, frames, 82): a random mel, f0 of 80-300 Hz, uv 0/1 (30% unvoiced)."""
+    mel = rng.randn(1, frames, 82).astype(np.float32)
+    mel[..., -2] = rng.uniform(80.0, 300.0, (1, frames))
+    mel[..., -1] = (rng.rand(1, frames) > 0.3).astype(np.float32)
+    return mel
+
+
+def nsf_checkpoints(tmp: str):
+    """Seeded full-width sambert_nsf_24k (duration bias 2.2, as phase 6) and
+    hifigan_v1_nsf_24k, with the acoustic model's ``mvn.npy`` two
+    directories above its checkpoint. -> (AM checkpoint, vocoder's)."""
+    from kantts_tpu_torch.models.builder import model_builder, save_checkpoint
+    from kantts_tpu_torch.utils.config import load_yaml
+
+    am_cfg = load_yaml(os.path.join(CONFIGS, "sambert_nsf_24k.yaml"))
+    am_cfg["Model"]["KanTtsSAMBERT"]["params"]["dur_pred_bias_init"] = 2.2
+    voc_cfg = load_yaml(os.path.join(CONFIGS, "hifigan_v1_nsf_24k.yaml"))
+    voc_cfg.update(load_yaml(os.path.join(CONFIGS, "audio_config_24k.yaml")))
+    stage = os.path.join(tmp, "nsf", "am")
+    am_ckpt = os.path.join(stage, "ckpt", "am.pt")
+    save_checkpoint(am_ckpt, model_builder(am_cfg, seed=1), am_cfg)
+    np.save(os.path.join(stage, "mvn.npy"), np.array(MVN, dtype=np.float32))
+    voc_ckpt = os.path.join(tmp, "nsf", "voc.pt")
+    save_checkpoint(voc_ckpt, model_builder(voc_cfg, seed=2), voc_cfg)
+    return am_ckpt, voc_ckpt
+
+
+def check_nsf_mels(mels) -> None:
+    """The mels an NSF vocoder gets: 82 channels, f0 >= 30 Hz, uv 0 or 1."""
+    for mel in mels:
+        if not (mel.shape[1] == 82 and (mel[:, -2] >= 30).all()
+                and set(np.unique(mel[:, -1])) <= {0.0, 1.0}):
+            raise AssertionError(f"NSF vocoder input: {mel.shape}, f0 min "
+                                 f"{mel[:, -2].min()}, uv {np.unique(mel[:, -1])}")
+
+
+def nsf_text_to_wav(tmp: str, am_ckpt: str, voc_ckpt: str) -> str:
+    """(a) The 4-line text_to_wav CLI, with no --device. -> its output dir."""
+    text = os.path.join(tmp, "nsf", "text.txt")
+    with open(text, "w", encoding="utf-8") as f:
+        f.write("\n".join(TEXTS) + "\n")
+    out = os.path.join(tmp, "nsf", "cli")
+    proc = subprocess.run(
+        [sys.executable, "-m", "kantts_tpu_torch.bin.text_to_wav", "--txt", text,
+         "--am_ckpt", am_ckpt, "--voc_ckpt", voc_ckpt, "--output_dir", out,
+         "--am_batch", "4"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"NSF text_to_wav exited {proc.returncode}:\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    stats = json.loads(proc.stdout.strip().splitlines()[-1])
+    if stats["device"] != "cuda":
+        raise AssertionError(f"NSF text_to_wav ran on {stats['device']}")
+    n_sent = check_wavs(out, NSF_SR, NSF_HOP)
+    check_nsf_mels(np.load(p) for p in glob.glob(os.path.join(out, "feat", "*_mel.npy")))
+    log("nsf_text_to_wav_cli", sentences=n_sent, sampling_rate=NSF_SR,
+        am_frames=stats["am_frames"], audio_s=round(stats["audio_seconds"], 3),
+        first_call_total_s=round(stats["total_seconds"], 3))
+    return out
+
+
+def source_tolerance(src, pitch) -> float:
+    """The card-vs-CPU bound of the NSF source on these inputs, from f32
+    rounding (PERF.md §6): the phase of harmonic h is the fractional
+    part of a float32 running sum (``SourceModule.phase_cycles``: the
+    frames' advances mod 1, so at most T); CUDA's scan and the CPU's sum
+    round differently, and the bound allows 64 roundings of 2^-24 S_h,max
+    each, S_h,max that sum's largest value (the card's scan reaches a
+    prefix through a few dozen partial sums). A phase error e moves
+    alpha sin(.) by at most alpha 2 pi e, and the ffn mixes the harmonics
+    with weights w_h, tanh adding nothing: tol = alpha 2 pi sum_h |w_h| 64
+    2^-24 S_h,max."""
+    import torch
+
+    harmonics = torch.arange(1, src.n_harmonics + 1, dtype=torch.float64)
+    step = pitch.double() * harmonics / src.sampling_rate
+    s_max = torch.cumsum(torch.remainder(step * src.upsample_ratio, 1.0),
+                         dim=1).amax(dim=(0, 1))
+    w = src.ffn[0].weight().detach()[0, :, 0].abs().double().cpu()
+    return float(src.alpha * 2 * np.pi * (w * 64 * 2.0 ** -24 * s_max).sum())
+
+
+def cycle_gap(a, b) -> float:
+    """The largest distance between two phases in cycles, modulo 1."""
+    import torch
+
+    d = (a.double() - b.double()).abs()
+    return torch.minimum(d, 1 - d).max().item()
+
+
+def nsf_card_vs_cpu(voc_ckpt: str) -> dict:
+    """(b) The full-width NSF generator on 250 frames, card vs CPU, one
+    excitation (drawn on the CPU) injected into both, tolerance 1e-3 as
+    phase 6's vocoder; then the SourceModule alone on 5 s (500 frames,
+    120,000 samples), card vs CPU with its phase and noise injected, held
+    to ``source_tolerance``. Printed beside it: the phase gap card vs CPU,
+    each device's phase against a float64 sum, and, for the record, what a
+    sample-by-sample float32 cumsum on the card is off by."""
+    import torch
+
+    from kantts_tpu_torch.bin.infer_hifigan import load_vocoder
+
+    gen = {d: load_vocoder(voc_ckpt, torch.device(d))[0] for d in ("cuda", "cpu")}
+    rng = np.random.RandomState(9)
+    mel = torch.from_numpy(nsf_mel(rng, 250))
+    with torch.inference_mode():
+        exc = gen["cpu"](mel, excitation_only=True,
+                         generator=torch.Generator().manual_seed(0))
+        wav_cpu = gen["cpu"](mel, excitation=exc)
+        wav_gpu = gen["cuda"](mel.cuda(), excitation=exc.cuda()).cpu()
+    wav_err = (wav_gpu - wav_cpu).abs().max().item()
+
+    five = torch.from_numpy(nsf_mel(rng, 500))
+    pitch, uv = five[..., -2:-1], five[..., -1:]
+    src = gen["cpu"].source_module
+    H, sr = src.n_harmonics, src.sampling_rate
+    g = torch.Generator().manual_seed(1)
+    phase = (torch.rand((1, 1, H), generator=g) * 2 - 1) * np.pi
+    noise = torch.randn((1, 500 * NSF_HOP, H), generator=g)
+    with torch.inference_mode():
+        out_cpu = src(pitch, uv, phase=phase, noise=noise)
+        out_gpu = gen["cuda"].source_module(pitch.cuda(), uv.cuda(), phase=phase.cuda(),
+                                            noise=noise.cuda()).cpu()
+        cycles = {d: gen[d].source_module.phase_cycles(pitch.to(d)).cpu()
+                  for d in ("cuda", "cpu")}
+        f64 = (pitch.double().repeat_interleave(NSF_HOP, dim=1)
+               * torch.arange(1, H + 1, dtype=torch.float64) / sr)
+        exact = torch.remainder(torch.cumsum(f64, dim=1), 1.0)
+        naive = torch.remainder(torch.cumsum(f64.float().cuda(), dim=1), 1.0).cpu()
+    src_err = (out_gpu - out_cpu).abs().max().item()
+    tol = source_tolerance(src, pitch)
+    gaps = {"phase_gap_cycles": cycle_gap(cycles["cuda"], cycles["cpu"]),
+            "card_phase_vs_f64_cycles": cycle_gap(cycles["cuda"], exact),
+            "cpu_phase_vs_f64_cycles": cycle_gap(cycles["cpu"], exact),
+            "card_sample_scan_vs_f64_cycles": cycle_gap(naive, exact)}
+    log("nsf_card_vs_cpu", generator_frames=250, generator_max_abs_err=wav_err,
+        generator_tol=1e-3, source_samples=500 * NSF_HOP, source_max_abs_err=src_err,
+        source_tol=tol, **gaps)
+    if not (wav_err <= 1e-3 and src_err <= tol):
+        raise AssertionError(f"NSF card vs CPU: generator {wav_err} (tol 1e-3), "
+                             f"source {src_err} (tol {tol})")
+    return {"generator_max_abs_err": wav_err, "source_max_abs_err": src_err,
+            "source_tol": tol, **gaps}
+
+
+def nsf_chunked_and_times(tmp: str, voc_ckpt: str, feat_dir: str) -> dict:
+    """(c) ``infer_hifigan --chunked 8`` against plain: in-process on 5 s
+    within 1e-5 (both draw from the key 0 on the same shapes), and through
+    the CLI within 1 PCM16 step; (h) the vocoder at B=1 on 5 s, plain and
+    chunked-8, by CUDA events in turns plain, chunked, chunked, plain, and
+    the SourceModule's share of a plain call's device time from
+    torch.profiler."""
+    import torch
+    from scipy.io import wavfile
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from kantts_tpu_torch.bin import infer_hifigan
+    from kantts_tpu_torch.bin.infer_hifigan import load_vocoder, vocode
+
+    gen, _ = load_vocoder(voc_ckpt, torch.device("cuda"))
+    mel = torch.from_numpy(nsf_mel(np.random.RandomState(10), 500)).cuda()
+    runs = {"plain": lambda: vocode(gen, None, mel),
+            "chunked8": lambda: vocode(gen, None, mel, 8)}
+    times = collections.defaultdict(list)
+    with torch.inference_mode():
+        err = (runs["plain"]() - runs["chunked8"]()).abs().max().item()
+        for name in ("plain", "chunked8", "chunked8", "plain"):
+            times[name].append(cuda_ms(runs[name], 10))
+        source = gen.source_module.forward
+
+        def labelled(*args, **kwargs):
+            with record_function("nsf_source_module"):
+                return source(*args, **kwargs)
+
+        gen.source_module.forward = labelled
+        try:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    runs["plain"]()
+                torch.cuda.synchronize()
+        finally:
+            del gen.source_module.forward
+    events = prof.events()
+    total_us = sum(e.time_range.end - e.time_range.start for e in events
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    source_us = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+                    for e in events if e.name == "nsf_source_module"
+                    and e.device_type == DeviceType.CPU)
+    with torch.inference_mode():  # the same share from CUDA events
+        source_ms = cuda_ms(lambda: gen.source_module(
+            mel[..., -2:-1], mel[..., -1:],
+            generator=torch.Generator(device=mel.device).manual_seed(0)), 10)
+    if err > 1e-5:
+        raise AssertionError(f"NSF chunked-8 vs plain: {err} > 1e-5")
+
+    outs = {}
+    for name, flag in (("plain", []), ("chunked8", ["--chunked", "8"])):
+        outs[name] = os.path.join(tmp, "nsf", f"voc_{name}")
+        infer_hifigan.main(["--ckpt", voc_ckpt, "--input_mel", feat_dir,
+                            "--output_dir", outs[name], *flag])
+    paths = sorted(glob.glob(os.path.join(outs["plain"], "*.wav")))
+    if not paths:
+        raise AssertionError("NSF infer_hifigan wrote no wav")
+    steps = max(pcm_steps(wavfile.read(p)[1], wavfile.read(
+        os.path.join(outs["chunked8"], os.path.basename(p)))[1]) for p in paths)
+    if steps > 1:
+        raise AssertionError(f"NSF infer_hifigan --chunked 8: {steps} PCM steps")
+    result = {f"{k}_ms": float(np.mean(v)) for k, v in times.items()}
+    result.update(chunked8_max_abs_err=err, cli_pcm_steps=steps,
+                  source_share=source_us / total_us if total_us else None,
+                  source_ms=source_us / 3e3, device_ms=total_us / 3e3,
+                  source_event_share=source_ms / result["plain_ms"])
+    log("nsf_vocoder", b1_5s_plain_ms=round(result["plain_ms"], 4),
+        b1_5s_chunked8_ms=round(result["chunked8_ms"], 4), chunked8_max_abs_err=err,
+        chunked8_tol=1e-5, cli_files=len(paths), cli_pcm_steps=steps,
+        profiled_device_ms_per_call=round(result["device_ms"], 4),
+        source_module_device_ms=round(result["source_ms"], 4),
+        source_module_share=(round(result["source_share"], 5)
+                             if result["source_share"] is not None else "not measured"),
+        source_module_event_ms=round(source_ms, 4),
+        source_module_event_share=round(result["source_event_share"], 5))
+    return result
+
+
+def nsf_serve(am_ckpt: str, voc_ckpt: str) -> dict:
+    """(d) TTSService on the NSF pair behind the HTTP server: 4 concurrent
+    /tts requests at 24 kHz, each finite, in [-1, 1] and as long as its
+    sentences' frames plus the gaps; the vocoder's input mels denormalised
+    (f0 >= 30, uv 0/1); ``stream`` refuses NSF. The noise depends on the
+    batch's shape, so no response is held to another run's."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from kantts_tpu_torch.serve import TTSService, make_http_server
+    from kantts_tpu_torch.serve.server import parse_wav_bytes
+
+    service = TTSService.from_checkpoints(am_ckpt, voc_ckpt, max_batch=8,
+                                          max_wait_ms=20)
+    httpd = None
+    try:
+        seen = []
+        vocode_batch = service._vocode_batch
+
+        def spy(mels):
+            seen.extend(mels)
+            return vocode_batch(mels)
+
+        service._vocode_batch = spy
+        httpd = make_http_server(service, "127.0.0.1", 0)
+        port = httpd.server_address[1]
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(4) as pool:
+            replies = list(pool.map(lambda i: post(port, "/tts", TEXTS[i]), range(4)))
+        wall = time.perf_counter() - t0
+        check_nsf_mels(seen)
+        sentence_samples = 0
+        for i, (_, body) in enumerate(replies):
+            sr, wav = parse_wav_bytes(body)
+            n_sent = len(service._text_to_seqs(TEXTS[i], None, None))
+            pad = int(0.28 * sr) * (n_sent - 1) + int(0.05 * sr)
+            if not (sr == NSF_SR and np.isfinite(wav).all() and np.abs(wav).max() <= 1.0
+                    and (len(wav) - pad) % NSF_HOP == 0 and len(wav) > pad):
+                raise AssertionError(f"NSF /tts {i}: sr {sr}, {len(wav)} samples")
+            sentence_samples += len(wav) - pad
+        if sentence_samples != NSF_HOP * sum(m.shape[0] for m in seen):
+            raise AssertionError(f"NSF /tts: {sentence_samples} samples for "
+                                 f"{sum(m.shape[0] for m in seen)} frames")
+        try:
+            service.stream(TEXTS[0])
+        except ValueError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("TTSService.stream accepted an NSF voice")
+        health = service.stats_snapshot()
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        service.close()
+    log("nsf_serve", requests=4, batches=health["batches"],
+        utterances=health["utterances"], sampling_rate=NSF_SR,
+        audio_s=round(sentence_samples / NSF_SR, 3), wall_s=round(wall, 3),
+        f0_min=round(float(min(m[:, -2].min() for m in seen)), 3),
+        stream_refused=json.dumps(refused[:40]))
+    return {"batches": health["batches"]}
+
+
+def nsf_gan_train(tmp: str) -> None:
+    """(e) hifigan_v1_nsf_24k as published, 10 steps at B=16 x 9600 through
+    train_hifigan on 24 kHz tones whose frame f0 and uv are exact; then the
+    timed step and the step at B=2 card vs CPU (excitation injected)."""
+    import torch
+
+    from kantts_tpu_torch.bin.train_hifigan import train
+    from kantts_tpu_torch.utils.corpus import write_voc_corpus
+
+    data = os.path.join(tmp, "nsf", "voc_corpus")
+    t0 = time.perf_counter()
+    write_voc_corpus(data, 24, (0.8, 1.6), seed=0, sampling_rate=NSF_SR, nsf=True)
+    corpus_s = time.perf_counter() - t0
+    stage = os.path.join(tmp, "nsf", "voc_train")
+    t0 = time.perf_counter()
+    trainer = train(train_config(os.path.join(stage, "model.yaml"), "hifigan_v1_nsf_24k",
+                                 **NSF_GAN_KEYS), data, stage, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check_gan_run(trainer, stage, NSF_GAN_KEYS["train_max_steps"])
+    if trainer.generator.nsf_params is None or trainer.config["batch_size"] != GAN_SHAPE[0]:
+        raise AssertionError("phase 9 did not train the published NSF vocoder")
+    log("nsf_voc_train", steps=trainer.steps_taken, batch=trainer.config["batch_size"],
+        crop=trainer.config["batch_max_steps"], corpus_s=round(corpus_s, 3),
+        seconds=round(seconds, 3),
+        generator_params=sum(p.numel() for p in trainer.generator.parameters()),
+        losses=gan_losses(trainer))
+    phase_gan_step(trainer, "nsf_gan_step", n_timed=10, profile=False)
+    phase_gan_card_vs_cpu(trainer, "nsf_gan_card_vs_cpu")
+
+
+def check_gan_run(trainer, stage: str, steps: int) -> None:
+    """The run took ``steps`` steps with finite metrics and saved there."""
+    if trainer.steps_taken != steps or not os.path.exists(ckpt_path(stage, steps)):
+        raise AssertionError(f"{trainer.steps_taken} GAN steps, expected {steps}")
+    for kind, at, means in trainer.history:
+        bad = {k: v for k, v in means.items() if not np.isfinite(v)}
+        if bad:
+            raise AssertionError(f"GAN {kind} metrics at step {at} not finite: {bad}")
+
+
+def gan_losses(trainer) -> str:
+    return json.dumps({f"{kind}@{at}": {k.split("/")[1]: round(v, 4)
+                                        for k, v in m.items() if "loss" in k}
+                       for kind, at, m in trainer.history}).replace(" ", "")
+
+
+def mb_gan_train(tmp: str) -> None:
+    """(f) The multi-band layout, this script's own (no shipped config has
+    one): hifigan_v1_16k.yaml with 4 PQMF sub-bands and upsampling 5, 5, 2
+    (hop 50 a band), the MultiSpecDiscriminator at its defaults beside MSD
+    and MPD, and the sub-band STFT loss with the published parameters; 5
+    steps on phase 5's corpus, then a step card vs CPU."""
+    import yaml
+
+    from kantts_tpu_torch.bin.train_hifigan import train
+
+    stage = os.path.join(tmp, "mb_train")
+    path = gan_config(os.path.join(stage, "model.yaml"), **SHORT_KEYS)
+    with open(path) as f:
+        cfg = yaml.safe_load(f)
+    model = cfg["Model"]
+    model["Generator"]["params"].update(out_channels=4, upsample_scales=[5, 5, 2],
+                                        upsample_kernal_sizes=[10, 10, 4])
+    model["MultiSpecDiscriminator"] = {
+        "params": {}, "optimizer": model["Generator"]["optimizer"],
+        "scheduler": model["Generator"]["scheduler"]}
+    cfg["Loss"]["subband_stft_loss"]["enable"] = True
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    t0 = time.perf_counter()
+    trainer = train(path, os.path.join(tmp, "voc_corpus"), stage, device="cuda")
+    seconds = time.perf_counter() - t0
+    check_gan_run(trainer, stage, SHORT_KEYS["train_max_steps"])
+    means = trainer.history[-1][2]
+    if "train/sub_spectral_convergence_loss" not in means or \
+            "MultiSpecDiscriminator" not in trainer.discriminators:
+        raise AssertionError(f"multi-band run: {sorted(means)}")
+    log("mb_voc_train", layout="this script's own: hifigan_v1_16k, out_channels 4, "
+        "upsample 5x5x2, MultiSpecDiscriminator defaults, published subband_stft_loss",
+        steps=trainer.steps_taken, batch=trainer.config["batch_size"],
+        seconds=round(seconds, 3), losses=gan_losses(trainer))
+    phase_gan_card_vs_cpu(trainer, "mb_gan_card_vs_cpu")
+
+
+def nsf_am_train(tmp: str) -> None:
+    """(g) sambert_nsf_24k as published, 5 steps at B=32 through
+    train_sambert on a duration corpus with frame f0 and uv (82 mel
+    channels)."""
+    import torch
+
+    from kantts_tpu_torch.bin.train_sambert import train
+    from kantts_tpu_torch.utils.corpus import write_am_corpus
+
+    data = os.path.join(tmp, "nsf", "am_corpus")
+    write_am_corpus(data, 40, (60, 90), (400, 570), seed=0, durations=True, nsf=True,
+                    sampling_rate=NSF_SR)
+    stage = os.path.join(tmp, "nsf", "am_train")
+    t0 = time.perf_counter()
+    trainer = train(train_config(os.path.join(stage, "model.yaml"), "sambert_nsf_24k",
+                                 **SHORT_KEYS), data, stage)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    steps = SHORT_KEYS["train_max_steps"]
+    if trainer.steps_taken != steps or not os.path.exists(ckpt_path(stage, steps)):
+        raise AssertionError(f"NSF AM: {trainer.steps_taken} steps, expected {steps}")
+    if not (trainer.model.d_mel == 82 and trainer.train_loader.dataset.with_duration):
+        raise AssertionError("NSF AM: not an 82-channel duration model")
+    for kind, at, means in trainer.history:
+        if not all(np.isfinite(v) for v in means.values()):
+            raise AssertionError(f"NSF AM {kind} metrics at step {at}: {means}")
+    log("nsf_am_train", steps=steps, batch=trainer.config["batch_size"],
+        seconds=round(seconds, 3), total_loss=json.dumps(
+            {f"{k}@{a}": round(m[f"{k}/TotalLoss"], 4) for k, a, m in trainer.history}
+        ).replace(" ", ""))
+
+
+def phase_nsf(tmp: str) -> dict:
+    """Phase 9, (a)-(h) above. K1 must not launch."""
+    import torch
+
+    from kantts_tpu_torch.ops.mas import b_mas_cuda
+
+    t_phase = time.perf_counter()
+    b_mas_cuda.launches = 0
+    am_ckpt, voc_ckpt = nsf_checkpoints(tmp)
+    cli = nsf_text_to_wav(tmp, am_ckpt, voc_ckpt)
+    gaps = nsf_card_vs_cpu(voc_ckpt)
+    times = nsf_chunked_and_times(tmp, voc_ckpt, os.path.join(cli, "feat"))
+    nsf_serve(am_ckpt, voc_ckpt)
+    nsf_gan_train(tmp)
+    torch.cuda.empty_cache()
+    mb_gan_train(tmp)
+    nsf_am_train(tmp)
+    if b_mas_cuda.launches != 0:
+        raise AssertionError(f"the NSF path launched K1 {b_mas_cuda.launches} times")
+    log("nsf", k1_launches=0, phase_s=round(time.perf_counter() - t_phase, 3))
+    return {"k1_launches": b_mas_cuda.launches, **gaps, **times}
+
+
 def old_k1(src: str):
     """Build an earlier K1 source with the same nvcc flags; it has the first
     K1's C interface (the caller zeroes the output and passes a uint8
@@ -1416,6 +1902,7 @@ def main(argv) -> int:
         phase_train_to_serve(tmp, ckpt_path(os.path.join(tmp, "train"), 40),
                              ckpt_path(os.path.join(tmp, "voc_train"), 40))
         serve = phase_serve(tmp, am_ckpt, voc_ckpt)
+        nsf = phase_nsf(tmp)
     import torch
 
     train = k1["train"]
@@ -1426,7 +1913,8 @@ def main(argv) -> int:
         "launches": fwd_launches + train_launches,
         "launches_by_path": {"mas_forward": fwd_launches,
                              "train_sambert": train_launches,
-                             "serve": serve["k1_launches"]},
+                             "serve": serve["k1_launches"],
+                             "nsf": nsf["k1_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
         "ms": train["ms"], "plain_ms": train["plain_ms"],
         "bound_ms": train["bound_ms"], "bound_by": train["bound_by"],

@@ -12,6 +12,11 @@ the end, so the padding is part of its output. Three paths:
 - ``--batch B``: B mels per call, longest first, each group padded to its
   bucket and the batch padded with zero mels.
 
+An NSF generator's input has its uv channel binarised (``binarize``); its
+source draws from a ``torch.Generator`` seeded 0 anew for every call, as
+the JAX package passes every call the key 0. A multi-band generator's
+sub-bands are synthesised by its PQMF filter bank (not with ``--chunked``).
+
     python -m kantts_tpu_torch.bin.infer_hifigan --ckpt VOC.pt \
         --input_mel MELS --output_dir OUT [--chunked N | --batch B] \
         [--device cuda|cpu]
@@ -30,7 +35,7 @@ import numpy as np
 import torch
 
 from kantts_tpu_torch.infer.chunked import chunked_apply
-from kantts_tpu_torch.models.builder import load_checkpoint
+from kantts_tpu_torch.models.builder import build_pqmf, load_checkpoint
 from kantts_tpu_torch.models.hifigan.layers import fold_weight_norm
 from kantts_tpu_torch.utils.audio import save_wav
 from kantts_tpu_torch.utils.device import resolve_device, synchronize
@@ -44,6 +49,24 @@ def load_vocoder(ckpt: str, device: torch.device):
     its config)."""
     model, config = load_checkpoint(ckpt, device)
     return fold_weight_norm(model), config
+
+
+def binarize(mel: np.ndarray, threshold: float = 0.6) -> np.ndarray:
+    """A copy of an NSF mel (T, C) with its uv channel set to 0/1."""
+    res_mel = mel.copy()
+    res_mel[:, -1] = np.where(mel[:, -1] < threshold, 0.0, 1.0)
+    return res_mel
+
+
+def vocode(model, pqmf, mel: torch.Tensor, chunked: int = 0) -> torch.Tensor:
+    """mel (B, T, C) on the generator's device -> wav (B, T * hop, 1): the
+    plain or chunked generator call, then ``pqmf``'s synthesis; an NSF
+    source draws from a fresh ``torch.Generator`` seeded 0."""
+    rng = torch.Generator(device=mel.device).manual_seed(0)
+    if chunked:
+        return chunked_apply(model, mel, chunked, rng=rng)
+    y = model(mel, generator=rng)
+    return pqmf.synthesis(y) if pqmf is not None else y
 
 
 def bucket_pad(mels, frame_bucket: int, batch: int) -> np.ndarray:
@@ -72,8 +95,12 @@ def hifigan_infer(input_mel: str, ckpt: str, output_dir: str,
         raise SystemExit("--chunked (single-utterance latency) and --batch "
                          "(cross-utterance throughput) are mutually exclusive")
     model, config = load_vocoder(ckpt, device)
-    if chunked and not model.causal:
+    pqmf = build_pqmf(config)
+    if chunked and (not model.causal or pqmf is not None):
         raise SystemExit("--chunked requires a causal, fullband generator")
+    if pqmf is not None:
+        pqmf = pqmf.to(device)
+    nsf = model.nsf_params is not None
     sampling_rate = config["audio_config"]["sampling_rate"]
     os.makedirs(output_dir, exist_ok=True)
     if os.path.isdir(input_mel):
@@ -89,7 +116,7 @@ def hifigan_infer(input_mel: str, ckpt: str, output_dir: str,
         if mel.shape[0] == 0:
             logging.warning("%s: empty mel, skipping", utt_id)
             continue
-        items.append((utt_id, mel))
+        items.append((utt_id, binarize(mel) if nsf else mel))
     if batch > 1:
         # longest first, so that a group shares its bucket
         items.sort(key=lambda it: -it[1].shape[0])
@@ -103,8 +130,7 @@ def hifigan_infer(input_mel: str, ckpt: str, output_dir: str,
         synchronize(device)
         t0 = time.perf_counter()
         with torch.inference_mode():
-            y = chunked_apply(model, mel_in, chunked) if chunked else model(mel_in)
-            y = y.cpu().numpy()
+            y = vocode(model, pqmf, mel_in, chunked).cpu().numpy()
         elapsed = time.perf_counter() - t0
         hop = y.shape[1] // mel_in.shape[1]
         secs = 0.0

@@ -28,6 +28,42 @@ from kantts_tpu_torch.text.ling_unit import KanTtsLinguisticUnit
 from kantts_tpu_torch.utils.device import resolve_device, synchronize
 
 
+def denorm_f0(mel: np.ndarray, f0_threshold: float = 30, uv_threshold: float = 0.6,
+              norm_type: str = "mean_std", f0_feature=None) -> np.ndarray:
+    """Denormalise the f0 and uv channels appended to an NSF mel (T, C), in
+    place, and return it: uv -> 0/1 at ``uv_threshold``; f0 * std + mean
+    with ``f0_feature`` the (2, 1) [mean; std] array (``mean_std``), or
+    f0 * (max - min) + min with ``f0_feature`` = [max, min] (``global``);
+    then f0 floored at ``f0_threshold``."""
+    f0 = mel[:, -2]
+    uv = np.where(mel[:, -1] < uv_threshold, 0.0, 1.0)
+    if norm_type == "mean_std":
+        f0 = f0 * f0_feature[1:, :].squeeze() + f0_feature[0:1, :].squeeze()
+    else:  # global
+        f0_max, f0_min = f0_feature
+        f0 = f0 * (f0_max - f0_min) + f0_min
+    mel[:, -2] = np.maximum(f0, f0_threshold)
+    mel[:, -1] = uv
+    return mel
+
+
+def nsf_denormaliser(params: dict, ckpt: str):
+    """``params``: a SAM-BERT's params (``model.config``) -> a function that
+    denormalises its mel (``denorm_f0`` with the statistics of its norm
+    type), or None for a non-NSF model."""
+    if not params.get("NSF", False):
+        return None
+    norm_type = params.get("nsf_norm_type", "mean_std")
+    if norm_type == "mean_std":
+        f0_feature = np.load(os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(ckpt))), "mvn.npy"))
+    else:
+        f0_feature = [params.get("nsf_f0_global_maximum", 730.0),
+                      params.get("nsf_f0_global_minimum", 30.0)]
+    return lambda mel: denorm_f0(mel.copy(), norm_type=norm_type,
+                                 f0_feature=f0_feature)
+
+
 def encode_symbol_inputs(ling_unit, symbol_seq: str, max_input_len: int,
                          n_ling: int = 4):
     """One symbol sequence -> padded int32 arrays (ling (1, L, n_ling), emo
@@ -106,6 +142,7 @@ def am_infer(sentence: str, ckpt: str, output_dir: str, batch: int = 1,
     over the acoustic forwards (the clock read after a device sync)."""
     device = resolve_device(device)
     model, ling_unit = load_am(ckpt, device)
+    denorm = nsf_denormaliser(model.config, ckpt)
     results_dir = os.path.join(output_dir, "feat")
     os.makedirs(results_dir, exist_ok=True)
     with open(sentence, encoding="utf-8") as f:
@@ -131,6 +168,8 @@ def am_infer(sentence: str, ckpt: str, output_dir: str, batch: int = 1,
         seconds += elapsed
         for i, (_, mel_post, dur, f0, energy) in zip(group, results):
             utt_id = utts[i][0]
+            if denorm is not None:
+                mel_post = denorm(mel_post)
             np.save(os.path.join(results_dir, f"{utt_id}_mel.npy"), mel_post)
             np.savetxt(os.path.join(results_dir, f"{utt_id}_dur.txt"), dur)
             np.savetxt(os.path.join(results_dir, f"{utt_id}_f0.txt"), f0)

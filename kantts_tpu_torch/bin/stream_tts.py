@@ -43,9 +43,17 @@ class StreamingTTS:
         self.device = resolve_device(device)
         self.am_model, self.ling_unit = load_am(am_ckpt, self.device)
         self.voc_model, self.voc_config = load_vocoder(voc_ckpt, self.device)
+        if self.voc_model.out_channels != 1:
+            raise ValueError("streaming synthesis supports single-band "
+                             "causal generators (PQMF multiband is "
+                             "whole-utterance only)")
         if not self.voc_model.causal:
             raise ValueError("streaming synthesis requires a causal "
                              "generator config (hifigan_v1_*)")
+        if self.voc_model.nsf_params is not None:
+            raise ValueError("streaming synthesis does not support NSF "
+                             "generators (the harmonic source phase is a "
+                             "whole-utterance cumsum)")
         self.sampling_rate = (self.voc_config.get("audio_config", {})
                               .get("sampling_rate", 16000))
         self.hop = int(np.prod(self.voc_model.upsample_scales))

@@ -10,8 +10,9 @@ config, which is stamped and written to ``STAGE/config.yaml``. Each
 ``DATA`` holds ``wav/`` and ``mel/``; ``train.lst``/``valid.lst`` are written
 there when missing. One process trains on one device: the generator and the
 discriminator families of the config, each with its own optimizer and
-schedule. Checkpoints go to ``STAGE/ckpt/checkpoint_{steps}.ckpt`` and serve
-through ``bin/text_to_wav.py --voc_ckpt`` as they are.
+schedule, and a multi-band generator its PQMF filter bank. Checkpoints go
+to ``STAGE/ckpt/checkpoint_{steps}.ckpt`` and serve through
+``bin/text_to_wav.py --voc_ckpt`` as they are.
 
 ``--resume_path`` loads weights only by default (a fine-tune start: fresh
 optimizers, step 1); with ``--resume_training_state`` it also restores both
@@ -81,9 +82,13 @@ def _train(model_config, roots, stage_dir, resume_path, resume_training_state,
         valid_dataset, config["batch_size"],
         DistributedSampler(len(valid_dataset), shuffle=False), drop_last=False)
 
-    built = hifigan_gan_builder(config, config.get("seed", 0), device)
+    seed = config.get("seed", 0)
+    built = hifigan_gan_builder(config, seed, device)
     generator, discriminators = built["generator"], built["discriminators"]
+    pqmf = built["pqmf"]
     criterion = criterion_builder(config)
+    # an NSF generator's source draws, one stream for the run's steps
+    rng = torch.Generator(device=device).manual_seed(seed)
 
     def make_step(train_generator: bool, include_adversarial: bool):
         return make_gan_step(
@@ -91,12 +96,12 @@ def _train(model_config, roots, stage_dir, resume_path, resume_training_state,
             built["gen_scheduler"], built["disc_optimizers"],
             built["disc_schedulers"], built["gen_clip"], built["disc_clips"],
             train_generator=train_generator,
-            include_adversarial=include_adversarial)
+            include_adversarial=include_adversarial, pqmf=pqmf, rng=rng)
 
     trainer = GanTrainer(
         config, generator, discriminators, built["gen_optimizer"],
         built["gen_scheduler"], built["disc_optimizers"], built["disc_schedulers"],
-        make_step, make_gan_eval_step(generator, discriminators, criterion),
+        make_step, make_gan_eval_step(generator, discriminators, criterion, pqmf, rng),
         train_loader, valid_loader, stage_dir, device,
         sampling_rate=config["audio_config"]["sampling_rate"],
         max_steps=config.get("train_max_steps"),

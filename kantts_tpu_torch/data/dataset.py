@@ -6,9 +6,10 @@ Input lengths round up to ``input_bucket`` and mel lengths to
 ``frame_bucket`` (a multiple of outputs_per_step), as in the JAX package;
 masked loss reductions divide by valid counts, so padding is invisible to
 training. Arrays are numpy; the DataLoader is a seeded shuffling iterator
-with per-process sharding. The JAX package's FP, SE, NSF and byte-input
-branches and its Textsy-BERT dataset are not copied: the port's models
-refuse those configs.
+with per-process sharding. NSF configs append frame-level f0 and uv to the
+mel, as the JAX package does. Its FP, SE and byte-input branches and its
+Textsy-BERT dataset are not copied: the port's models refuse those
+configs.
 """
 
 from __future__ import annotations
@@ -108,9 +109,18 @@ def load_wav(path: str, expected_sr: Optional[int] = None) -> np.ndarray:
 # ------------------------------------------------------------------- vocoder
 
 
+def _f0_stats(frame_f0_file: str) -> Tuple[float, float]:
+    """The corpus's f0 mean and std, from ``f0/f0_mean.txt`` and
+    ``f0/f0_std.txt`` beside ``frame_f0/``."""
+    f0_dir = os.path.join(os.path.dirname(os.path.dirname(frame_f0_file)), "f0")
+    return (np.loadtxt(os.path.join(f0_dir, "f0_mean.txt")),
+            np.loadtxt(os.path.join(f0_dir, "f0_std.txt")))
+
+
 class VocDataset:
     """(wav, mel) random-crop pairs; crops are fixed ``batch_max_steps``
-    windows."""
+    windows. For an NSF generator the mel carries f0 (denormalised with the
+    corpus's mean and std) and uv as its last two channels."""
 
     def __init__(self, metafile, root_dir, config):
         self.config = config
@@ -120,10 +130,12 @@ class VocDataset:
         self.hop_length = audio["hop_length"]
         self.batch_max_steps = config["batch_max_steps"]
         self.batch_max_frames = self.batch_max_steps // self.hop_length
+        gen_params = config["Model"]["Generator"]["params"]
+        self.nsf_enable = gen_params.get("nsf_params", None) is not None
 
         metafile = metafile if isinstance(metafile, list) else [metafile]
         root_dir = root_dir if isinstance(root_dir, list) else [root_dir]
-        self.meta: List[Tuple[str, str]] = []
+        self.meta: List[Tuple[str, ...]] = []
         for meta, data_dir in zip(metafile, root_dir):
             if not os.path.exists(meta):
                 raise ValueError(f"[VocDataset] meta file not found: {meta}")
@@ -143,7 +155,12 @@ class VocDataset:
             index = os.path.splitext(os.path.basename(wav_file))[0]
             mel_file = os.path.join(mel_dir, index + ".npy")
             if os.path.exists(mel_file):
-                items.append((wav_file, mel_file))
+                base = os.path.dirname(wav_dir)
+                items.append((
+                    wav_file, mel_file,
+                    os.path.join(base, "frame_f0", index + ".npy"),
+                    os.path.join(base, "frame_uv", index + ".npy"),
+                ))
         return items
 
     @staticmethod
@@ -162,7 +179,10 @@ class VocDataset:
         with open(metafile) as f:
             names = [line.strip() for line in f if line.strip()]
         return [(os.path.join(data_dir, "wav", name + ".wav"),
-                 os.path.join(data_dir, "mel", name + ".npy")) for name in names]
+                 os.path.join(data_dir, "mel", name + ".npy"),
+                 os.path.join(data_dir, "frame_f0", name + ".npy"),
+                 os.path.join(data_dir, "frame_uv", name + ".npy"))
+                for name in names]
 
     def __len__(self):
         return len(self.meta)
@@ -170,9 +190,15 @@ class VocDataset:
     def __getitem__(self, idx):
         if self.allow_cache and len(self.caches[idx]):
             return self.caches[idx]
-        wav_file, mel_file = self.meta[idx]
+        wav_file, mel_file, frame_f0_file, frame_uv_file = self.meta[idx]
         wav = load_wav(wav_file, self.sampling_rate)
         mel = np.load(mel_file)
+        if self.nsf_enable:
+            # stored frame f0 is mean/std-normalised; the source wants Hz
+            f0_mean, f0_std = _f0_stats(frame_f0_file)
+            f0 = np.load(frame_f0_file).reshape(-1, 1) * f0_std + f0_mean
+            uv = np.load(frame_uv_file).reshape(-1, 1)
+            mel = np.concatenate([mel, f0, uv], axis=1)
         if mel.shape[0] <= self.batch_max_frames:
             extra = self.batch_max_frames - mel.shape[0] + 1
             mel = np.concatenate([mel, np.zeros((extra, mel.shape[1]))], axis=0)
@@ -221,12 +247,19 @@ def get_voc_datasets(config, root_dir, split_ratio=0.98):
 
 
 class AMDataset:
-    """(ling, mel, dur, f0, energy, prior) items with bucketed collate."""
+    """(ling, mel, dur, f0, energy, prior) items with bucketed collate. With
+    ``NSF`` the mel carries frame f0 and uv as its last two channels; the
+    ``global`` norm type maps f0 from the corpus's mean and std onto
+    [nsf_f0_global_minimum, nsf_f0_global_maximum] -> [0, 1]."""
 
     def __init__(self, config, metafile, root_dir, allow_cache=False,
                  input_bucket: int = 16, frame_bucket: int = 96):
         self.config = config
         params = config["Model"]["KanTtsSAMBERT"]["params"]
+        self.nsf_enable = params.get("NSF", False)
+        self.nsf_norm_type = params.get("nsf_norm_type", "mean_std")
+        self.nsf_f0_global_minimum = params.get("nsf_f0_global_minimum", 30.0)
+        self.nsf_f0_global_maximum = params.get("nsf_f0_global_maximum", 730.0)
         self.mas_enable = params.get("MAS", False)
         self.r = params["outputs_per_step"]
         self.input_bucket = input_bucket
@@ -259,6 +292,8 @@ class AMDataset:
                 os.path.join(dur_dir, index + ".npy") if self.with_duration else None,
                 os.path.join(data_dir, "f0", index + ".npy"),
                 os.path.join(data_dir, "energy", index + ".npy"),
+                os.path.join(data_dir, "frame_f0", index + ".npy"),
+                os.path.join(data_dir, "frame_uv", index + ".npy"),
             ))
         return items
 
@@ -268,7 +303,8 @@ class AMDataset:
     def __getitem__(self, idx):
         if self.allow_cache and len(self.caches[idx]):
             return self.caches[idx]
-        ling_txt, mel_file, dur_file, f0_file, energy_file = self.meta[idx]
+        (ling_txt, mel_file, dur_file, f0_file, energy_file, frame_f0_file,
+         frame_uv_file) = self.meta[idx]
         ling_data = self.ling_unit.encode_symbol_sequence(ling_txt)
         mel = np.load(mel_file)
         dur = np.load(dur_file) if dur_file is not None else None
@@ -276,6 +312,14 @@ class AMDataset:
         if not self.with_duration:
             attn_prior = beta_binomial_prior_distribution(len(ling_data[0]),
                                                           mel.shape[0])
+        if self.nsf_enable:
+            frame_f0 = np.load(frame_f0_file).reshape(-1, 1)
+            if self.nsf_norm_type == "global":
+                f0_mean, f0_std = _f0_stats(frame_f0_file)
+                frame_f0 = (frame_f0 * f0_std + f0_mean - self.nsf_f0_global_minimum) / (
+                    self.nsf_f0_global_maximum - self.nsf_f0_global_minimum)
+            frame_uv = np.load(frame_uv_file).reshape(-1, 1)
+            mel = np.concatenate([mel, frame_f0, frame_uv], axis=1)
         item = (ling_data, mel, dur, np.load(f0_file), np.load(energy_file),
                 attn_prior)
         if self.allow_cache:

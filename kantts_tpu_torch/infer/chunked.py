@@ -14,6 +14,12 @@ to the causal convs' implicit padding (biases make zero inputs nonzero deep
 in the stack, see infer/streaming.py), so early windows start at frame 0
 and emit at a smaller offset instead. Right padding is harmless: a causal
 stack never reads frames to the right of an emitted position.
+
+NSF generators work too: the harmonic source, whose phase is a cumsum over
+the whole utterance, is computed once on the full input (its draws from
+``rng``) and windowed at sample rate alongside the mel, so each
+window sees the whole-utterance excitation. A PQMF (multi-band) generator
+is refused, as by the JAX package's CLI.
 """
 
 from __future__ import annotations
@@ -42,15 +48,26 @@ def _plan(T: int, n_chunks: int, ctx: int):
 
 def _context_frames(generator, context_frames: Optional[int]) -> int:
     assert generator.causal, "chunked inference requires the causal generator"
+    if generator.out_channels != 1:
+        raise ValueError("chunked inference requires a fullband generator "
+                         "(PQMF multi-band is whole-utterance only)")
     if context_frames is not None:
         return int(context_frames)
-    return generator_receptive_field(generator)
+    ctx = generator_receptive_field(generator)
+    if generator.nsf_params is not None:
+        # source_downs_i is a causal conv of kernel 2u at stride u over the
+        # sample-rate excitation: at most 2 more mel frames of left context
+        # at any stage; the JAX package pads the margin to 4
+        ctx += 4
+    return ctx
 
 
 def chunked_apply(generator, mel: torch.Tensor, n_chunks: int,
-                  context_frames: Optional[int] = None) -> torch.Tensor:
-    """mel (1, T, C) -> wav (1, T*hop, out_ch): n_chunks causal-context
-    windows through one batched generator call, emitted regions stitched."""
+                  context_frames: Optional[int] = None,
+                  rng: Optional[torch.Generator] = None) -> torch.Tensor:
+    """mel (1, T, C) -> wav (1, T*hop, 1): n_chunks causal-context windows
+    through one batched generator call, emitted regions stitched. ``rng``
+    gives an NSF generator's draws."""
     ctx = _context_frames(generator, context_frames)
     T = int(mel.shape[1])
     starts, offsets, chunk, window = _plan(T, n_chunks, ctx)
@@ -61,7 +78,13 @@ def chunked_apply(generator, mel: torch.Tensor, n_chunks: int,
     pad = starts[-1] + window - T
     m = F.pad(mel[0], (0, 0, 0, pad))
     windows = torch.stack([m[s:s + window] for s in starts])  # (n, window, C)
-    y = generator(windows)
+    if generator.nsf_params is not None:
+        exc = generator(mel, excitation_only=True, generator=rng)  # (1, T*hop, 1)
+        e = F.pad(exc[0], (0, 0, 0, pad * hop))
+        y = generator(windows, excitation=torch.stack(
+            [e[s * hop:(s + window) * hop] for s in starts]))
+    else:
+        y = generator(windows)
     pieces = [y[c, offsets[c] * hop:(offsets[c] + chunk) * hop]
               for c in range(n_chunks)]
     return torch.cat(pieces, dim=0)[None, :T * hop]

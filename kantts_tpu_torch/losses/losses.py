@@ -4,9 +4,10 @@
 SAM-BERT's reductions divide by the number of valid elements under the
 padding masks, so bucketed padding cannot change a loss value.
 ``criterion_builder`` keeps the config contract (per-loss
-``enable``/``params``/``weights``); the sub-band STFT loss (it needs PQMF)
-and the Textsy-BERT and FP losses are not ported yet and are refused by name
-when enabled.
+``enable``/``params``/``weights``); the sub-band STFT loss is a
+``MultiResolutionSTFTLoss`` on PQMF sub-bands (``train/steps.py``). The
+Textsy-BERT and FP losses are not ported yet and are refused by name when
+enabled.
 """
 
 from __future__ import annotations
@@ -283,6 +284,7 @@ loss_dict = {
     "discriminator_adv_loss": DiscriminatorAdversarialLoss,
     "stft_loss": MultiResolutionSTFTLoss,
     "mel_loss": MelSpectrogramLoss,
+    "subband_stft_loss": MultiResolutionSTFTLoss,
     "feat_match_loss": FeatureMatchLoss,
     "MelReconLoss": MelReconLoss,
     "ProsodyReconLoss": ProsodyReconLoss,
@@ -291,7 +293,7 @@ loss_dict = {
 }
 
 # criteria of the JAX package that the port does not have yet
-NOT_PORTED = ("subband_stft_loss", "SeqCELoss", "FpCELoss")
+NOT_PORTED = ("SeqCELoss", "FpCELoss")
 
 
 def criterion_builder(config: Dict[str, Any]) -> Dict[str, Any]:

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Any, Dict, Mapping, Tuple, Union
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -25,6 +25,7 @@ from kantts_tpu_torch.models.hifigan.discriminators import (
 )
 from kantts_tpu_torch.models.hifigan.generator import Generator
 from kantts_tpu_torch.models.hifigan.layers import WeightNormParams
+from kantts_tpu_torch.models.pqmf import PQMF
 from kantts_tpu_torch.models.sambert.adaptors import VarRnnARPredictor
 from kantts_tpu_torch.models.sambert.sambert import KanTtsSAMBERT
 from kantts_tpu_torch.text.ling_unit import KanTtsLinguisticUnit
@@ -115,18 +116,17 @@ def sambert_model_builder(config: Dict[str, Any], seed: int = 0,
 
 def check_vocoder_ported(config: Dict[str, Any]) -> None:
     """Raise NotImplementedError naming each part of a HiFi-GAN config that
-    the port does not have: bf16 compute, NSF, PQMF (more than one output
-    channel) and MultiSpecDiscriminator."""
-    gen = config["Model"]["Generator"]["params"]
-    missing = [name for name, present in (
-        ("mixed_precision (bf16)", config.get("mixed_precision", False)),
-        ("NSF (nsf_params)", gen.get("nsf_params") is not None),
-        ("PQMF (out_channels > 1)", gen.get("out_channels", 1) > 1),
-        ("MultiSpecDiscriminator", "MultiSpecDiscriminator" in config["Model"]),
-    ) if present]
-    if missing:
+    the port does not have: bf16 compute (``mixed_precision``)."""
+    if config.get("mixed_precision", False):
         raise NotImplementedError("not ported to kantts_tpu_torch yet: "
-                                  + ", ".join(missing))
+                                  "mixed_precision (bf16)")
+
+
+def build_pqmf(config: Dict[str, Any]) -> Optional[PQMF]:
+    """The PQMF filter bank of a multi-band generator (``out_channels`` > 1,
+    one sub-band per channel), else None."""
+    subbands = config["Model"]["Generator"]["params"].get("out_channels", 1)
+    return PQMF(subbands=subbands) if subbands > 1 else None
 
 
 def hifigan_model_builder(config: Dict[str, Any], seed: int = 0) -> Generator:
@@ -143,7 +143,8 @@ def hifigan_gan_builder(config: Dict[str, Any], seed: int = 0,
     section (``Model.<name>.optimizer`` and ``.scheduler``; top-level
     ``generator_grad_norm`` and ``discriminator_grad_norm``). The
     discriminators are keyed by class name, in the JAX package's order;
-    discriminator i is drawn from seed + 1 + i."""
+    discriminator i is drawn from seed + 1 + i. ``pqmf`` is the filter bank
+    of a multi-band generator (``build_pqmf``), or None."""
     check_vocoder_ported(config)
     model_cfg = config["Model"]
     generator = hifigan_model_builder(config, seed).to(device).train()
@@ -162,8 +163,10 @@ def hifigan_gan_builder(config: Dict[str, Any], seed: int = 0,
                                           "generator_grad_norm")
     disc_parts = {name: family(name, d, "discriminator_grad_norm")
                   for name, d in discriminators.items()}
+    pqmf = build_pqmf(config)
     return {
         "generator": generator, "discriminators": discriminators,
+        "pqmf": pqmf.to(device) if pqmf is not None else None,
         "gen_optimizer": gen_opt, "gen_scheduler": gen_sched, "gen_clip": gen_clip,
         "disc_optimizers": {n: p[0] for n, p in disc_parts.items()},
         "disc_schedulers": {n: p[1] for n, p in disc_parts.items()},
@@ -172,8 +175,13 @@ def hifigan_gan_builder(config: Dict[str, Any], seed: int = 0,
 
 
 def model_builder(config: Dict[str, Any], seed: int = 0) -> nn.Module:
-    """Dispatch on ``config["model_type"]``; the model is in eval mode."""
+    """Dispatch on ``config["model_type"]``; the model is in eval mode. A
+    model type the port has no builder for (``sybert``) raises
+    NotImplementedError."""
     builders = {"sambert": build_sambert, "hifigan": hifigan_model_builder}
+    if config["model_type"] not in builders:
+        raise NotImplementedError(f"model_type {config['model_type']}: not ported "
+                                  "to kantts_tpu_torch yet")
     return builders[config["model_type"]](config, seed)
 
 

@@ -1,14 +1,16 @@
 """HiFi-GAN discriminators (counterpart of
-``kantts_tpu/models/hifigan/discriminators.py``): MultiPeriodDiscriminator
-and MultiScaleDiscriminator, with weight- and spectral-normed convolutions
-and the db3 wavelet between scales. MultiSpecDiscriminator is not ported.
+``kantts_tpu/models/hifigan/discriminators.py``): MultiPeriodDiscriminator,
+MultiScaleDiscriminator with the db3 wavelet between scales, and
+MultiSpecDiscriminator on STFT magnitudes, with weight- and spectral-normed
+convolutions.
 
 Layout is torch's: a discriminator takes a waveform (B, 1, T) and returns
 (score (B, n), feature maps), each map (B, C, T') or, in a period
-discriminator, (B, C, T / period, period). Parameter names follow the
-KAN-TTS state dict (``discriminators.{i}.convs.{j}.0``, ``conv_post``,
-``aux_convs.{i}``), so ``kantts_tpu.utils.torch_convert.convert_mpd`` and
-``convert_msd`` read them.
+discriminator, (B, C, T / period, period), in a spectral discriminator
+(B, C, frames, W). Parameter names follow the KAN-TTS state dict
+(``discriminators.{i}.convs.{j}.0``, ``conv_post``, ``aux_convs.{i}``), so
+``kantts_tpu.utils.torch_convert.convert_mpd`` and ``convert_msd`` read
+them; the spectral discriminators take the same pattern.
 
 Spectral norm follows the JAX package, not ``torch.nn.utils.spectral_norm``:
 every forward runs one power iteration from the stored ``weight_u`` without
@@ -25,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from kantts_tpu_torch.dsp.stft import hann_window, stft_magnitude
 from kantts_tpu_torch.models.hifigan.layers import get_activation, weight_norm
 
 Output = Tuple[List[torch.Tensor], List[List[torch.Tensor]]]
@@ -274,7 +277,82 @@ class MultiScaleDiscriminator(nn.Module):
         return outs, fmaps
 
 
+class SpecDiscriminator(nn.Module):
+    """2-D convs over the magnitude STFT of the detached waveform. The
+    frequency bins are the input channels over a (frames, 1) grid: a
+    (init_kernel, 1) conv, three (kernel_size, 1) convs at stride
+    (stride, 1), a (5, 1) conv and a (3, 1) ``conv_post``. As in the JAX
+    package (and torch's integer padding), every conv but ``conv_post`` pads
+    the unit-wide axis too, which so widens conv by conv (to 49 columns at
+    the defaults); the score is column 0 of ``conv_post``'s output."""
+
+    def __init__(self, channels: int = 32, init_kernel: int = 15,
+                 kernel_size: int = 11, stride: int = 2,
+                 use_spectral_norm: bool = False, fft_size: int = 1024,
+                 shift_size: int = 120, win_length: int = 600,
+                 window: str = "hann_window",
+                 nonlinear_activation: str = "LeakyReLU",
+                 nonlinear_activation_params: Optional[dict] = None):
+        super().__init__()
+        if window != "hann_window":
+            raise ValueError(f"{window} window is not implemented")
+        self.fft_size, self.shift_size, self.win_length = fft_size, shift_size, win_length
+        self.register_buffer("window", torch.from_numpy(hann_window(win_length)),
+                             persistent=False)
+        act_params = nonlinear_activation_params or {"negative_slope": 0.1}
+        norm = "spectral" if use_spectral_norm else "weight"
+
+        def layer(cin, k, stride_, pad):
+            return _conv_act(NormConv(cin, channels, (k, 1), (stride_, 1), (pad, pad),
+                                      norm=norm),
+                             get_activation(nonlinear_activation, act_params))
+
+        p0, p = (init_kernel - 1) // 2, (kernel_size - 1) // 2
+        self.convs = nn.ModuleList(
+            [layer(fft_size // 2 + 1, init_kernel, 1, p0)]
+            + [layer(channels, kernel_size, stride, p) for _ in range(3)]
+            + [layer(channels, 5, 1, 2)])
+        self.conv_post = NormConv(channels, 1, (3, 1), (1, 1), (1, 0), norm=norm)
+
+    def forward(self, y: torch.Tensor, update_stats: bool = False):
+        mag = stft_magnitude(y[:, 0].detach(), self.fft_size, self.shift_size,
+                             self.win_length, self.window)  # (B, frames, freq)
+        x = mag.transpose(1, 2)[..., None]  # (B, freq, frames, 1)
+        fmap = []
+        for layer in self.convs:
+            x = _run(layer, x, update_stats)
+            fmap.append(x)
+        x = self.conv_post(x, update_stats)
+        fmap.append(x)
+        return x[:, 0, :, 0], fmap
+
+
+class MultiSpecDiscriminator(nn.Module):
+    """One ``SpecDiscriminator`` per STFT resolution. ``kernel_sizes`` in
+    ``discriminator_params`` is dropped, as the JAX package drops it."""
+
+    def __init__(self, fft_sizes: Sequence[int] = (1024, 2048, 512),
+                 hop_sizes: Sequence[int] = (120, 240, 50),
+                 win_lengths: Sequence[int] = (600, 1200, 240),
+                 discriminator_params: Optional[dict] = None):
+        super().__init__()
+        params = dict(discriminator_params or {})
+        params.pop("kernel_sizes", None)
+        self.discriminators = nn.ModuleList([
+            SpecDiscriminator(fft_size=f, shift_size=h, win_length=w, **params)
+            for f, h, w in zip(fft_sizes, hop_sizes, win_lengths)])
+
+    def forward(self, y: torch.Tensor, update_stats: bool = False) -> Output:
+        outs, fmaps = [], []
+        for d in self.discriminators:
+            score, fmap = d(y, update_stats)
+            outs.append(score)
+            fmaps.append(fmap)
+        return outs, fmaps
+
+
 DISCRIMINATOR_CLASSES: Dict[str, type] = {
     "MultiScaleDiscriminator": MultiScaleDiscriminator,
     "MultiPeriodDiscriminator": MultiPeriodDiscriminator,
+    "MultiSpecDiscriminator": MultiSpecDiscriminator,
 }

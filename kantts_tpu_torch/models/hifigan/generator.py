@@ -1,27 +1,36 @@
-"""HiFi-GAN generator, non-NSF (counterpart of
+"""HiFi-GAN generator (counterpart of
 ``kantts_tpu/models/hifigan/generator.py``).
 
 Per upsample stage i:
   h   = sin(h) + h
   rep = conv(act(nearest_upsample(h)))      repeat path
   up  = deconv(act(h))                      transposed-conv path
-  h   = rep + up[:rep_len]
+  h   = rep (+ source_downs_i(e)) + up[:rep_len]
   h   = mean_j resblock_j(h)                multi-receptive-field fusion
 then leaky_relu with slope 0.01 -> conv_post -> tanh. Module indexes follow
 the KAN-TTS state-dict layout (``repeat_upsamples.{i}.2.conv1d``,
-``transpose_upsamples.{i}.1.deconv``, ``conv_blocks.{i*n_res+j}``).
+``transpose_upsamples.{i}.1.deconv``, ``conv_blocks.{i*n_res+j}``,
+``source_module.ffn.0``, ``source_downs.{i}.conv1d``).
+
+NSF (``nsf_params``): the input's last two channels are f0 and uv; the
+``SourceModule`` turns them into a sample-rate excitation e, which stage i
+sees through ``source_downs_i``, a strided conv down to that stage's rate.
+With ``out_channels`` > 1 the output is the PQMF sub-band signal
+(``models/pqmf.py`` synthesises the full band).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from kantts_tpu_torch.models.hifigan.layers import (
     ResidualBlock,
+    SourceModule,
     WNConv1d,
     WNConvTranspose1d,
     get_activation,
@@ -44,19 +53,26 @@ class Generator(nn.Module):
             raise ValueError("kernel_size must be odd")
         # repeat_upsample is accepted for config compatibility: the dual
         # path always runs, as in the JAX package
-        if nsf_params is not None or not use_weight_norm:
+        if not use_weight_norm:
             raise NotImplementedError(
-                "not ported yet: NSF and generators without weight norm")
-        if out_channels != 1:
-            raise NotImplementedError("not ported yet: PQMF (out_channels > 1)")
+                "not ported yet: generators without weight norm")
         act_params = nonlinear_activation_params or {"negative_slope": 0.1}
         k = kernel_size
         # what streaming and chunked inference read (infer/streaming.py)
         self.causal, self.kernel_size = causal, kernel_size
+        self.out_channels = out_channels
         self.upsample_scales = tuple(upsample_scales)
         self.resblock_kernel_sizes = tuple(resblock_kernel_sizes)
         self.resblock_dilations = tuple(tuple(d) for d in resblock_dilations)
         self.n_res = len(resblock_kernel_sizes)
+        self.nsf_params = dict(nsf_params) if nsf_params is not None else None
+        if self.nsf_params is not None:
+            hop = int(np.prod(upsample_scales))
+            self.source_module = SourceModule(self.nsf_params["nb_harmonics"], hop,
+                                              self.nsf_params["sampling_rate"])
+            # stage i runs at 1 / prod(scales[i+1:]) of the sample rate
+            downs = np.cumprod([1] + list(upsample_scales[::-1][:-1]))[::-1]
+            self.source_downs = nn.ModuleList()
         self.conv_pre = WNConv1d(in_channels, channels, k,
                                  padding=(k - 1) // 2, bias=bias, causal=causal)
         self.repeat_upsamples = nn.ModuleList()
@@ -75,6 +91,11 @@ class Generator(nn.Module):
                 get_activation(nonlinear_activation, act_params),
                 WNConvTranspose1d(ch_in, ch, up_k, scale,
                                   padding=(up_k - scale) // 2, causal=causal)))
+            if self.nsf_params is not None:
+                u = int(downs[i])
+                self.source_downs.append(
+                    WNConv1d(1, ch, 1) if u == 1 else
+                    WNConv1d(1, ch, 2 * u, stride=u, padding=u // 2, causal=causal))
             for rk, rd in zip(resblock_kernel_sizes, resblock_dilations):
                 self.conv_blocks.append(ResidualBlock(
                     ch, rk, tuple(rd), nonlinear_activation, act_params, causal))
@@ -82,15 +103,38 @@ class Generator(nn.Module):
         self.conv_post = WNConv1d(ch_in, out_channels, k, padding=(k - 1) // 2,
                                   bias=bias, causal=causal)
 
-    def forward(self, mel: torch.Tensor) -> torch.Tensor:
-        """mel (B, T, in_channels) -> (B, T * prod(upsample_scales),
-        out_channels) in [-1, 1]."""
+    def forward(self, x: torch.Tensor, excitation: Optional[torch.Tensor] = None,
+                excitation_only: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x (B, T, C): the mel, for NSF with f0 and uv as its last two
+        channels -> (B, T * prod(upsample_scales), out_channels) in [-1, 1].
+
+        NSF only: the source's draws come from ``generator``;
+        ``excitation_only=True`` returns the source (B, T * hop, 1) alone, and
+        ``excitation=`` injects a precomputed one instead of drawing (the
+        chunked path windows one source computed on the whole utterance)."""
+        if self.nsf_params is None:
+            if excitation is not None or excitation_only:
+                raise ValueError("excitation paths are NSF-only")
+            mel = x
+        else:
+            mel = x[:, :, :-2]
+            if excitation is None:
+                excitation = self.source_module(x[:, :, -2:-1], x[:, :, -1:],
+                                                generator=generator)
+            if excitation_only:
+                return excitation
+            e_in = excitation.transpose(1, 2)
         h = self.conv_pre(mel.transpose(1, 2))
         for i, (rep_up, tr_up) in enumerate(zip(self.repeat_upsamples,
                                                 self.transpose_upsamples)):
             h = torch.sin(h) + h
             rep = rep_up(h)
-            h = rep + tr_up(h)[:, :, :rep.shape[-1]]
+            n = rep.shape[-1]
+            if self.nsf_params is None:
+                h = rep + tr_up(h)[:, :, :n]
+            else:
+                h = rep + self.source_downs[i](e_in)[:, :, :n] + tr_up(h)[:, :, :n]
             blocks = self.conv_blocks[i * self.n_res:(i + 1) * self.n_res]
             acc = blocks[0](h)
             for block in blocks[1:]:

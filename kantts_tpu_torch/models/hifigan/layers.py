@@ -1,5 +1,5 @@
-"""HiFi-GAN conv primitives (counterpart of
-``kantts_tpu/models/hifigan/layers.py``), non-NSF.
+"""HiFi-GAN conv primitives and the NSF source (counterpart of
+``kantts_tpu/models/hifigan/layers.py``).
 
 These layers work on (B, C, T), the layout of ``F.conv1d``; the generator
 keeps (B, T, C) at its public boundary. Weight norm is written out: each conv
@@ -13,6 +13,8 @@ T*stride.
 from __future__ import annotations
 
 from typing import Optional, Sequence, Union
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -116,6 +118,82 @@ class ResidualBlock(nn.Module):
         for c1, c2 in zip(self.convs1, self.convs2):
             x = c2(self.act(c1(self.act(x)))) + x
         return x
+
+
+class SourceModule(nn.Module):
+    """NSF harmonic-plus-noise excitation. pitch, uv (B, T, 1) at frame rate
+    -> excitation (B, T * upsample_ratio, 1) in [-1, 1].
+
+    With H = nb_harmonics + 1 harmonics of the upsampled f0, the phase is
+    2 pi (cumsum(f0 h / sr) mod 1) (``phase_cycles``) plus a random initial
+    phase per harmonic
+    (0 for the fundamental); voiced samples take alpha sin(phase) plus
+    sigma-scaled Gaussian noise, unvoiced ones the noise alone at alpha / 3 /
+    sigma times its scale. The source is a constant to autograd; a weight-
+    normed pointwise conv (``ffn.0``, KAN-TTS's name) mixes the harmonics,
+    then tanh.
+
+    The draws are made in the JAX package's order, the phase (B, 1, H) from
+    U(-pi, pi) and then the noise (B, T * upsample_ratio, H) from N(0, 1),
+    from ``generator``; ``phase`` and ``noise`` given replace them with
+    those unscaled draws.
+    """
+
+    def __init__(self, nb_harmonics: int, upsample_ratio: int,
+                 sampling_rate: int, alpha: float = 0.1, sigma: float = 0.003):
+        super().__init__()
+        self.n_harmonics = nb_harmonics + 1
+        self.upsample_ratio, self.sampling_rate = upsample_ratio, sampling_rate
+        self.alpha, self.sigma = alpha, sigma
+        self.ffn = nn.Sequential(
+            WeightNormParams(1, self.n_harmonics, 1, bias_size=1), nn.Tanh())
+
+    def phase_cycles(self, pitch: torch.Tensor) -> torch.Tensor:
+        """pitch (B, T, 1) -> (B, T * upsample_ratio, H): the fractional part
+        of the running sum of f0 h / sr over the upsampled samples.
+
+        The upsampled f0 is constant over a frame's samples, so the sum at
+        sample k of frame i is the sum over frames before i plus (k + 1)
+        steps of frame i, and only its fractional part matters: each frame
+        adds the fractional part of its steps. The float32 running sum then
+        stays below T rather than growing to the harmonics' cycle count (a
+        sample-by-sample float32 scan on the card drifts from the CPU's by
+        up to half a cycle over 5 s at 24 kHz). The floored remainder is
+        jnp's %."""
+        B, T, _ = pitch.shape
+        H, up = self.n_harmonics, self.upsample_ratio
+        harmonics = torch.arange(1, H + 1, dtype=pitch.dtype, device=pitch.device)
+        step = pitch * harmonics / self.sampling_rate  # (B, T, H), a sample's advance
+        advance = torch.remainder(step * up, 1.0)  # a frame's, mod 1
+        start = torch.remainder(torch.cumsum(advance, dim=1), 1.0)
+        start = torch.cat([torch.zeros_like(start[:, :1]), start[:, :-1]], dim=1)
+        k = torch.arange(1, up + 1, dtype=pitch.dtype, device=pitch.device)
+        cycles = start[:, :, None, :] + k[:, None] * step[:, :, None, :]
+        return torch.remainder(cycles, 1.0).reshape(B, T * up, H)
+
+    def forward(self, pitch: torch.Tensor, uv: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                phase: Optional[torch.Tensor] = None,
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        B, T, _ = pitch.shape
+        H, up = self.n_harmonics, self.upsample_ratio
+        uv_s = uv.repeat_interleave(up, dim=1)  # (B, T*up, 1)
+        theta = 2.0 * math.pi * self.phase_cycles(pitch)  # (B, T*up, H)
+        if phase is None or noise is None:
+            if generator is None:
+                raise ValueError("the NSF source draws its phase and noise "
+                                 "from a torch.Generator: pass generator=")
+            phase = (torch.rand((B, 1, H), generator=generator, device=pitch.device,
+                                dtype=pitch.dtype) * 2.0 - 1.0) * math.pi
+            noise = torch.randn(theta.shape, generator=generator,
+                                device=pitch.device, dtype=pitch.dtype)
+        phase = torch.cat([torch.zeros_like(phase[..., :1]), phase[..., 1:]], dim=-1)
+        noise = self.sigma * noise
+        e_voice = self.alpha * torch.sin(theta + phase) + noise
+        e_unvoice = self.alpha / 3.0 / self.sigma * noise
+        e = (e_voice * uv_s + e_unvoice * (1.0 - uv_s)).detach()
+        conv = self.ffn[0]
+        return self.ffn[1](F.linear(e, conv.weight()[:, :, 0], conv.bias))
 
 
 @torch.no_grad()

@@ -4,6 +4,9 @@
 The teacher-forced ``forward`` is the training forward: the MAS branch
 (ConvAttention, then the hard alignment from ``mas_align``, kernel K1 on the
 card) and scheduled sampling; FP, SE and byte inputs are not ported yet.
+An NSF model (``NSF: true``) is the same model at ``num_mels`` 82: its
+last two output channels are the normalised f0 and uv, which inference
+denormalises on the host (``bin/infer_sambert.py::denorm_f0``).
 ``sambert_infer`` is the acoustic inference: the autoregressive duration
 loop and the PNCA decode are Python loops over steps.
 
@@ -43,7 +46,7 @@ from kantts_tpu_torch.models.sambert.positions import (
 )
 from kantts_tpu_torch.utils.mask import get_mask_from_lengths
 
-UNSUPPORTED = ("FP", "SE", "NSF", "using_byte")
+UNSUPPORTED = ("FP", "SE", "using_byte")
 
 
 class SelfAttentionEncoder(nn.Module):

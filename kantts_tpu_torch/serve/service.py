@@ -23,6 +23,13 @@ Design:
 Text requests run the same front-end as the CLI (default: the in-tree
 hanzi+pinyin front-end), and multi-sentence requests are joined with 0.28 s
 gaps and a 0.05 s tail, as ``text_to_wav`` does.
+
+NSF voices: the acoustic model's f0 and uv are denormalised on the host
+between the stages (``nsf_denorm``), and the vocoder's source draws from a
+generator seeded 0 at every batch, as the JAX service passes every batch
+the key 0. The noise so depends on the batch's shape, so an NSF utterance
+alone and the same utterance batched differ by the noise; streaming
+refuses NSF, since the source's phase is a cumsum over the whole utterance.
 """
 
 from __future__ import annotations
@@ -38,8 +45,18 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from kantts_tpu_torch.bin.infer_hifigan import INT8_NOT_PORTED, bucket_pad, load_vocoder
-from kantts_tpu_torch.bin.infer_sambert import am_synthesis_batch, load_am
+from kantts_tpu_torch.bin.infer_hifigan import (
+    INT8_NOT_PORTED,
+    bucket_pad,
+    load_vocoder,
+    vocode,
+)
+from kantts_tpu_torch.bin.infer_sambert import (
+    am_synthesis_batch,
+    load_am,
+    nsf_denormaliser,
+)
+from kantts_tpu_torch.models.builder import build_pqmf
 from kantts_tpu_torch.utils.device import resolve_device
 
 
@@ -101,7 +118,9 @@ class TTSService:
     to ``device``: "cuda" (the default, which raises without a card) or
     "cpu". ``synthesize`` is thread-safe and blocking; run it from as many
     request threads as the traffic needs (e.g. serve/server.py's
-    ThreadingHTTPServer handlers).
+    ThreadingHTTPServer handlers). ``pqmf`` synthesises a multi-band
+    vocoder's full band; ``nsf_denorm``, a (T, C) -> (T, C) function on the
+    host, denormalises an NSF acoustic model's f0 and uv before vocoding.
     """
 
     def __init__(self, am_model, ling_unit, generator, sample_rate: int,
@@ -109,12 +128,14 @@ class TTSService:
                  max_batch: int = 8, max_wait_ms: float = 20.0,
                  input_bucket: int = 32, frame_bucket: int = 100,
                  frames_per_symbol: int = 24, gap_seconds: float = 0.28,
-                 tail_seconds: float = 0.05,
+                 tail_seconds: float = 0.05, pqmf=None, nsf_denorm=None,
                  device: Union[str, torch.device] = "cuda"):
         self.device = resolve_device(device)
         self.am_model = am_model.to(self.device).eval()
         self.ling_unit = ling_unit
         self.generator = generator.to(self.device).eval()
+        self.pqmf = pqmf.to(self.device) if pqmf is not None else None
+        self.nsf_denorm = nsf_denorm  # (T, C) mel -> mel, on the host
         self.sample_rate = int(sample_rate)
         self.frontend = (frontend if frontend is None or hasattr(
             frontend, "text_to_symbols") else resolve_frontend(frontend))
@@ -151,10 +172,9 @@ class TTSService:
                          se_file: Optional[str] = None, int8: bool = False,
                          device: Union[str, torch.device] = "cuda", **kwargs):
         """Load both stages the way the inference CLIs do (the port's
-        checkpoints carry their config; weight norm folded for serving).
-        ``se_file``, an NSF acoustic model (its f0 denormalisation between
-        the stages) and ``int8`` raise ``NotImplementedError``; the
-        builders refuse NSF and PQMF vocoders."""
+        checkpoints carry their config; weight norm folded for serving; an
+        NSF acoustic model's denormaliser, a multi-band vocoder's PQMF).
+        ``se_file`` and ``int8`` raise ``NotImplementedError``."""
         device = resolve_device(device)
         if se_file is not None:
             raise NotImplementedError(
@@ -162,17 +182,12 @@ class TTSService:
                 "kantts_tpu_torch yet (ROADMAP.md queue 1, item 5)")
         if int8:
             raise NotImplementedError(INT8_NOT_PORTED)
-        am_cfg = torch.load(am_ckpt, map_location="cpu", weights_only=True,
-                            mmap=True)["config"]
-        if am_cfg["Model"]["KanTtsSAMBERT"]["params"].get("NSF", False):
-            raise NotImplementedError(
-                "NSF acoustic models (f0 denormalisation between the stages) "
-                "are not ported to kantts_tpu_torch yet (ROADMAP.md queue 1, "
-                "item 4)")
         am_model, ling_unit = load_am(am_ckpt, device)
         generator, voc_cfg = load_vocoder(voc_ckpt, device)
         return cls(am_model, ling_unit, generator,
-                   voc_cfg["audio_config"]["sampling_rate"], frontend=frontend,
+                   voc_cfg["audio_config"]["sampling_rate"],
+                   pqmf=build_pqmf(voc_cfg), frontend=frontend,
+                   nsf_denorm=nsf_denormaliser(am_model.config, am_ckpt),
                    device=device, **kwargs)
 
     def synthesize(self, text: str, timeout: Optional[float] = None,
@@ -233,9 +248,17 @@ class TTSService:
         chunks (exact fixed-latency streaming, infer/streaming.py). The
         acoustic forward still rides the coordinator: a streamed request's
         mel can batch with concurrent traffic, and sentence i streams while
-        sentence i+1 is being synthesized. Causal generators only."""
+        sentence i+1 is being synthesized. Causal single-band non-NSF
+        generators only."""
+        if self.pqmf is not None:
+            raise ValueError("streaming supports single-band generators "
+                             "(PQMF multiband is whole-utterance only)")
         if not self.generator.causal:
             raise ValueError("streaming requires a causal generator config")
+        if self.nsf_denorm is not None or self.generator.nsf_params is not None:
+            raise ValueError("streaming does not support NSF checkpoints "
+                             "(the harmonic source phase is a whole-"
+                             "utterance cumsum)")
         seqs = self._text_to_seqs(text, speaker, lang)
         self._validate(seqs)
 
@@ -394,10 +417,14 @@ class TTSService:
             input_bucket=self.input_bucket,
             frames_per_symbol=self.frames_per_symbol,
             batch_pad_to=self.max_batch)
-        return [post for _, post, _, _, _ in results]
+        mels = [post for _, post, _, _, _ in results]
+        if self.nsf_denorm is not None:
+            mels = [self.nsf_denorm(m) for m in mels]
+        return mels
 
     def _vocode_batch(self, mels: List[np.ndarray]) -> List[np.ndarray]:
         mel_in = bucket_pad(mels, self.frame_bucket, self.max_batch)
-        y = self.generator(torch.from_numpy(mel_in).to(self.device)).cpu().numpy()
+        y = vocode(self.generator, self.pqmf,
+                   torch.from_numpy(mel_in).to(self.device)).cpu().numpy()
         hop = y.shape[1] // mel_in.shape[1]
         return [y[i, :m.shape[0] * hop, 0] for i, m in enumerate(mels)]

@@ -134,15 +134,23 @@ def run_discriminators(discriminators: Discriminators, y: torch.Tensor,
 
 def generator_losses(generator: nn.Module, discriminators: Discriminators,
                      criterion: Dict[str, Any], wav: torch.Tensor,
-                     mel: torch.Tensor, include_adversarial: bool
+                     mel: torch.Tensor, include_adversarial: bool,
+                     pqmf: Optional[nn.Module] = None,
+                     rng: Optional[torch.Generator] = None
                      ) -> Tuple[torch.Tensor, Metrics]:
     """wav (B, T, 1), mel (B, frames, C) -> (generator loss, metrics): the
-    weighted sum of the multi-resolution STFT loss, the mel loss and, with
-    ``include_adversarial``, the adversarial and feature-matching losses.
-    The discriminators run with their stored spectral vectors; the real
-    feature maps are taken without gradient."""
-    y_ = generator(mel)
-    yt, yt_ = wav[..., 0], y_[..., 0]
+    weighted sum of the multi-resolution STFT loss, the sub-band STFT loss,
+    the mel loss and, with ``include_adversarial``, the adversarial and
+    feature-matching losses. With ``pqmf`` the generator's output is the
+    sub-band signal and its synthesis the full band that every term but the
+    sub-band one sees. The sub-band term first halves the loss so far (the
+    STFT term alone, as the JAX step does), then adds half its own sum,
+    unweighted. The discriminators run with their stored spectral vectors;
+    the real feature maps are taken without gradient. An NSF generator
+    draws from ``rng``."""
+    y_ = generator(mel, generator=rng)
+    y_full = pqmf.synthesis(y_) if pqmf is not None else y_
+    yt, yt_ = wav[..., 0], y_full[..., 0]
     gen_loss = 0.0
     metrics = {}
     if "stft_loss" in criterion:
@@ -150,13 +158,20 @@ def generator_losses(generator: nn.Module, discriminators: Discriminators,
         gen_loss = gen_loss + (sc + mag) * criterion["stft_loss"].weights
         metrics["spectral_convergence_loss"] = sc
         metrics["log_stft_magnitude_loss"] = mag
+    if "subband_stft_loss" in criterion and pqmf is not None:
+        gen_loss = gen_loss * 0.5
+        sub_sc, sub_mag = criterion["subband_stft_loss"](
+            y_.transpose(1, 2), pqmf.analysis(wav).transpose(1, 2))
+        gen_loss = gen_loss + 0.5 * (sub_sc + sub_mag)
+        metrics["sub_spectral_convergence_loss"] = sub_sc
+        metrics["sub_log_stft_magnitude_loss"] = sub_mag
     if "mel_loss" in criterion:
         mel_l = criterion["mel_loss"](yt_, yt)
         gen_loss = gen_loss + mel_l * criterion["mel_loss"].weights
         metrics["mel_loss"] = mel_l
     if include_adversarial:
         fake_outs, fake_fmaps = run_discriminators(discriminators,
-                                                   y_.transpose(1, 2))
+                                                   y_full.transpose(1, 2))
         adv = sum(criterion["generator_adv_loss"](fake_outs[n])
                   for n in discriminators)
         gen_loss = gen_loss + adv * criterion["generator_adv_loss"].weights
@@ -207,10 +222,16 @@ def make_gan_step(generator: nn.Module, discriminators: Discriminators,
                   disc_schedulers: Dict[str, torch.optim.lr_scheduler.LRScheduler],
                   gen_clip: Optional[Callable[[], torch.Tensor]] = None,
                   disc_clips: Optional[Dict[str, Optional[Callable]]] = None,
-                  train_generator: bool = True, include_adversarial: bool = True
+                  train_generator: bool = True, include_adversarial: bool = True,
+                  pqmf: Optional[nn.Module] = None,
+                  rng: Optional[torch.Generator] = None
                   ) -> Callable[[torch.Tensor, torch.Tensor], Metrics]:
     """-> step(wav (B, T, 1), mel (B, frames, C)) -> metrics.
-    ``train_generator`` and ``include_adversarial`` are the warm-up gates.
+    ``train_generator`` and ``include_adversarial`` are the warm-up gates;
+    ``pqmf`` synthesises a multi-band generator's full band. An NSF
+    generator draws from ``rng``: both of a step's generator forwards make
+    the same draws (the JAX step passes one key to both), and the step
+    leaves ``rng`` one draw further on.
 
     1. Generator losses with the discriminators frozen (the JAX step
        differentiates the generator's parameters only), backward, clip,
@@ -223,13 +244,14 @@ def make_gan_step(generator: nn.Module, discriminators: Discriminators,
 
     def step(wav: torch.Tensor, mel: torch.Tensor) -> Metrics:
         metrics = {}
+        rng_state = rng.get_state() if rng is not None else None
         if train_generator:
             gen_optimizer.zero_grad(set_to_none=True)
             _set_requires_grad(disc_params, False)
             try:
                 gen_loss, gmetrics = generator_losses(
                     generator, discriminators, criterion, wav, mel,
-                    include_adversarial)
+                    include_adversarial, pqmf, rng)
                 gen_loss.backward()
             finally:
                 _set_requires_grad(disc_params, True)
@@ -239,8 +261,13 @@ def make_gan_step(generator: nn.Module, discriminators: Discriminators,
             gen_scheduler.step()
             metrics.update(gmetrics)
         if include_adversarial:
+            if rng is not None:
+                rng.set_state(rng_state)
             with torch.no_grad():
-                y_fake = generator(mel).transpose(1, 2)
+                y_fake = generator(mel, generator=rng)
+                if pqmf is not None:
+                    y_fake = pqmf.synthesis(y_fake)
+                y_fake = y_fake.transpose(1, 2)
             for opt in disc_optimizers.values():
                 opt.zero_grad(set_to_none=True)
             dis_loss, dmetrics = discriminator_losses(
@@ -258,16 +285,21 @@ def make_gan_step(generator: nn.Module, discriminators: Discriminators,
 
 
 def make_gan_eval_step(generator: nn.Module, discriminators: Discriminators,
-                       criterion: Dict[str, Any]
+                       criterion: Dict[str, Any], pqmf: Optional[nn.Module] = None,
+                       rng: Optional[torch.Generator] = None
                        ) -> Callable[[torch.Tensor, torch.Tensor],
                                      Tuple[Metrics, torch.Tensor]]:
     """-> eval_step(wav, mel) -> (metrics, generated wav (B, T, 1)): the
-    criteria of the config without gradient and without updates; the
-    discriminators keep their spectral vectors."""
+    criteria of the config without gradient and without updates (the
+    generated wav is the full band, after ``pqmf``'s synthesis); the
+    discriminators keep their spectral vectors. An NSF generator draws from
+    ``rng``."""
 
     @torch.no_grad()
     def eval_step(wav: torch.Tensor, mel: torch.Tensor):
-        y_ = generator(mel)
+        y_ = generator(mel, generator=rng)
+        if pqmf is not None:
+            y_ = pqmf.synthesis(y_)
         yt, yt_ = wav[..., 0], y_[..., 0]
         metrics = {}
         if "mel_loss" in criterion:

@@ -25,10 +25,12 @@ import torch
 from kantts_tpu_torch.models.hifigan.discriminators import (
     MultiPeriodDiscriminator,
     MultiScaleDiscriminator,
+    MultiSpecDiscriminator,
 )
 from kantts_tpu_torch.models.hifigan.generator import Generator
 from kantts_tpu_torch.models.sambert.sambert import KanTtsSAMBERT
 from kantts_tpu_torch.utils.torch_convert import (
+    _wnconv_raw,
     convert_hifigan_generator,
     convert_mpd,
     convert_msd,
@@ -169,4 +171,37 @@ def msd_state_dict_from_jax(params_np: Mapping, cfg: Dict[str, Any],
     n_downs = len(module.discriminators[0].convs) - 2
     return _disc_state_dict_from_jax(
         module, lambda sd: convert_msd(sd, scales, n_downs, module.dwt),
+        params_np, spectral)
+
+
+def _convert_mspecd(sd: Mapping[str, np.ndarray], n_resolutions: int,
+                    n_convs: int) -> Dict[str, Any]:
+    """The forward map of a weight-normed MultiSpecDiscriminator: torch
+    ``discriminators.{i}.convs.{j}.0`` and ``discriminators.{i}.conv_post``
+    -> JAX ``discriminators_{i}/convs_{j}`` and ``discriminators_{i}/conv_post``."""
+    tree: Dict[str, Any] = {}
+    for i in range(n_resolutions):
+        for j in range(n_convs):
+            _wnconv_raw(tree, f"discriminators_{i}/convs_{j}", sd,
+                        f"discriminators.{i}.convs.{j}.0", ndim=4)
+        _wnconv_raw(tree, f"discriminators_{i}/conv_post", sd,
+                    f"discriminators.{i}.conv_post", ndim=4)
+    return tree
+
+
+def mspecd_state_dict_from_jax(params_np: Mapping, cfg: Dict[str, Any],
+                               spectral: Optional[Mapping] = None
+                               ) -> Dict[str, torch.Tensor]:
+    """JAX MultiSpecDiscriminator params (and, with ``use_spectral_norm``,
+    its ``spectral`` collection) -> a state dict that
+    ``MultiSpecDiscriminator(**cfg)`` loads with ``strict=True``. The JAX
+    package has no converter for this discriminator, so the names are the
+    port's: its module tree in the pattern of the MPD and MSD state dicts,
+    which ``_convert_mspecd`` maps onto the JAX module tree."""
+    with torch.device("meta"):
+        module = MultiSpecDiscriminator(**cfg)
+    n_resolutions = len(module.discriminators)
+    n_convs = len(module.discriminators[0].convs)
+    return _disc_state_dict_from_jax(
+        module, lambda sd: _convert_mspecd(sd, n_resolutions, n_convs),
         params_np, spectral)

@@ -1,18 +1,28 @@
 """Synthetic training corpora made with numpy from a seed. The repository
 holds no recorded corpus: these let training run end to end without one.
 
-``write_mas_corpus``: a SAM-BERT MAS corpus in the layout that
+``write_am_corpus``: a SAM-BERT corpus in the layout that
 ``data.dataset.AMDataset`` reads: ``raw_metafile.txt`` of symbol
-sequences, and per utterance ``mel/``, frame-level ``f0/`` and ``energy/``
-arrays; no ``duration/`` directory, so the dataset runs in MAS mode. Each
+sequences, and per utterance ``mel/``, ``f0/`` and ``energy/`` arrays. Each
 phone has its own random mel template, held over a random number of frames
 with a little noise, so that the text-to-mel alignment is there to be
-learnt; pitch and energy are constant over each phone.
+learnt; pitch and energy are constant over each phone. Without
+``durations`` (``write_mas_corpus``) there is no ``duration/`` directory,
+so the dataset runs in MAS mode, and pitch and energy are frame-level; with
+it, ``duration/`` holds each phone's frames and pitch and energy are
+phone-level. ``nsf`` adds the NSF features: ``frame_f0/`` (normalised,
+constant over each phone), ``frame_uv/`` (0 or 1 per phone), and the
+corpus statistics ``f0/f0_mean.txt`` and ``f0/f0_std.txt``.
 
 ``write_voc_corpus``: a vocoder corpus in the layout that
 ``data.dataset.VocDataset`` reads: ``wav/*.wav`` of harmonic tones and
 their ``mel/*.npy``, made by the port's ``MelSpectrogramExtractor`` at the
-values of ``kantts_tpu/configs/audio_config_16k.yaml``.
+values of ``kantts_tpu/configs/audio_config_{16k,24k}.yaml``. ``nsf`` adds
+one unvoiced stretch per tone (the tone muted, the noise kept) and the
+exact NSF features: ``frame_f0/`` is the tone's f0 at each frame's centre
+sample, normalised by the corpus's mean and std over voiced frames
+(``f0/f0_mean.txt``, ``f0/f0_std.txt``), ``frame_uv/`` is 0 on frames
+whose centre falls in the stretch and 1 elsewhere.
 """
 
 from __future__ import annotations
@@ -34,11 +44,22 @@ TONES = ("tone1", "tone2", "tone3", "tone4", "tone5")
 def write_mas_corpus(root: str, n_utts: int, symbols: Tuple[int, int],
                      frames: Tuple[int, int], n_mels: int = 80, seed: int = 0
                      ) -> None:
+    """``write_am_corpus`` without durations: a MAS corpus."""
+    write_am_corpus(root, n_utts, symbols, frames, n_mels, seed)
+
+
+def write_am_corpus(root: str, n_utts: int, symbols: Tuple[int, int],
+                    frames: Tuple[int, int], n_mels: int = 80, seed: int = 0,
+                    durations: bool = False, nsf: bool = False,
+                    sampling_rate: int = 16000) -> None:
     """Write ``n_utts`` utterances under ``root``, each with a symbol count
     and a frame count drawn uniformly from the inclusive ranges ``symbols``
-    and ``frames``."""
+    and ``frames``; ``audio_config.yaml`` carries the feature values of
+    ``sampling_rate``."""
     rng = np.random.RandomState(seed)
-    for sub in ("mel", "f0", "energy"):
+    subs = ["mel", "f0", "energy"] + (["duration"] if durations else []) + (
+        ["frame_f0", "frame_uv"] if nsf else [])
+    for sub in subs:
         os.makedirs(os.path.join(root, sub), exist_ok=True)
     templates = rng.randn(len(PHONES), n_mels).astype(np.float32)
     lines = []
@@ -54,8 +75,11 @@ def write_mas_corpus(root: str, n_utts: int, symbols: Tuple[int, int],
         utt = f"utt{i:04d}"
         np.save(os.path.join(root, "mel", f"{utt}.npy"), mel)
         for sub in ("f0", "energy"):
+            per_phone = (rng.rand(n_sym) + 0.5).astype(np.float32)
             np.save(os.path.join(root, sub, f"{utt}.npy"),
-                    np.repeat(rng.rand(n_sym) + 0.5, durs).astype(np.float32))
+                    per_phone if durations else np.repeat(per_phone, durs))
+        if durations:
+            np.save(os.path.join(root, "duration", f"{utt}.npy"), durs)
         tokens = []
         for j, p in enumerate(ids):
             flag = "s_begin" if j % 2 == 0 else "s_end"
@@ -63,12 +87,27 @@ def write_mas_corpus(root: str, n_utts: int, symbols: Tuple[int, int],
             tokens.append(f"{{{PHONES[p]}${TONES[rng.randint(len(TONES))]}"
                           f"${flag}${ws}$emotion_neutral$F7}}")
         lines.append(f"{utt}\t{' '.join(tokens)}")
+        if nsf:
+            uv = (rng.rand(n_sym) < 0.8).astype(np.float32)
+            np.save(os.path.join(root, "frame_f0", f"{utt}.npy"),
+                    np.repeat(rng.randn(n_sym).astype(np.float32), durs))
+            np.save(os.path.join(root, "frame_uv", f"{utt}.npy"), np.repeat(uv, durs))
+    if nsf:
+        _write_f0_stats(root, 150.0, 40.0)
     with open(os.path.join(root, "raw_metafile.txt"), "w", encoding="utf-8") as f:
         f.write("\n".join(lines) + "\n")
+    audio = AUDIO[sampling_rate]
     with open(os.path.join(root, "audio_config.yaml"), "w", encoding="utf-8") as f:
-        yaml.safe_dump({"audio_config": {"sampling_rate": 16000, "hop_length": 200,
-                                         "win_length": 1000, "n_fft": 2048,
-                                         "n_mels": n_mels}}, f)
+        yaml.safe_dump({"audio_config": {
+            "sampling_rate": sampling_rate, "hop_length": audio["hop_length"],
+            "win_length": audio["win_length"], "n_fft": audio["n_fft"],
+            "n_mels": n_mels}}, f)
+
+
+def _write_f0_stats(root: str, mean: float, std: float) -> None:
+    os.makedirs(os.path.join(root, "f0"), exist_ok=True)
+    np.savetxt(os.path.join(root, "f0", "f0_mean.txt"), [mean])
+    np.savetxt(os.path.join(root, "f0", "f0_std.txt"), [std])
 
 
 # the feature values of kantts_tpu/configs/audio_config_16k.yaml
@@ -76,25 +115,34 @@ AUDIO_16K = {"sampling_rate": 16000, "n_fft": 2048, "hop_length": 200,
              "win_length": 1000, "n_mels": 80, "fmin": 0.0, "fmax": 8000.0,
              "max_norm": 1.0, "min_level_db": -100.0, "ref_level_db": 20,
              "symmetric": False}
+# the feature values of kantts_tpu/configs/audio_config_24k.yaml
+AUDIO_24K = {"sampling_rate": 24000, "n_fft": 1024, "hop_length": 240,
+             "win_length": 1024, "n_mels": 80, "fmin": 50.0, "fmax": 8000.0,
+             "max_norm": 1.0, "min_level_db": -100.0, "ref_level_db": 20,
+             "symmetric": False}
+AUDIO = {16000: AUDIO_16K, 24000: AUDIO_24K}
 
 
 def write_voc_corpus(root: str, n_utts: int, seconds: Tuple[float, float],
-                     seed: int = 0) -> None:
+                     seed: int = 0, sampling_rate: int = 16000,
+                     nsf: bool = False) -> None:
     """Write ``n_utts`` utterances under ``root``, each of a length drawn
     uniformly from the range ``seconds``: a tone whose f0 glides around a
     random base of 90-260 Hz, with 6 harmonics at amplitudes 1/k, an
     envelope rising and falling over the utterance with a slow tremolo, and
-    a little white noise; peak near 0.5. Then ``audio_config.yaml``;
+    a little white noise; peak near 0.5. With ``nsf``, the tone is muted
+    over a random 10-25% of the utterance. Then ``audio_config.yaml``;
     ``get_voc_datasets`` writes ``train.lst``/``valid.lst`` itself."""
-    sr, hop = AUDIO_16K["sampling_rate"], AUDIO_16K["hop_length"]
+    audio = AUDIO[sampling_rate]
+    sr, hop = audio["sampling_rate"], audio["hop_length"]
     rng = np.random.RandomState(seed)
-    for sub in ("wav", "mel"):
+    for sub in ("wav", "mel") + (("frame_f0", "frame_uv") if nsf else ()):
         os.makedirs(os.path.join(root, sub), exist_ok=True)
     extract = MelSpectrogramExtractor(
-        sr, AUDIO_16K["n_fft"], hop, AUDIO_16K["win_length"], AUDIO_16K["n_mels"],
-        AUDIO_16K["max_norm"], AUDIO_16K["min_level_db"],
-        AUDIO_16K["ref_level_db"], AUDIO_16K["fmin"], AUDIO_16K["fmax"],
-        AUDIO_16K["symmetric"])
+        sr, audio["n_fft"], hop, audio["win_length"], audio["n_mels"],
+        audio["max_norm"], audio["min_level_db"], audio["ref_level_db"],
+        audio["fmin"], audio["fmax"], audio["symmetric"])
+    frame_f0s = {}
     for i in range(n_utts):
         n = int(rng.uniform(*seconds) * sr)
         t = np.arange(n) / sr
@@ -104,7 +152,13 @@ def write_voc_corpus(root: str, n_utts: int, seconds: Tuple[float, float],
         tone = sum(np.sin(k * phase + rng.uniform(0, 6.3)) / k for k in range(1, 7))
         envelope = (np.sqrt(np.clip(np.sin(np.pi * t / t[-1]), 0.0, None))
                     * (1 + 0.3 * np.sin(2 * np.pi * rng.uniform(2, 6) * t)))
-        wav = tone * envelope + 0.02 * rng.randn(n)
+        noise = 0.02 * rng.randn(n)
+        voiced = np.ones(n, dtype=bool)
+        if nsf:
+            gap = int(rng.uniform(0.1, 0.25) * n)
+            start = rng.randint(0, n - gap)
+            voiced[start:start + gap] = False
+        wav = tone * envelope * voiced + noise
         wav = (0.5 * wav / np.abs(wav).max()).astype(np.float32)
         utt = f"utt{i:04d}"
         save_wav(wav, os.path.join(root, "wav", f"{utt}.wav"), sr)
@@ -112,5 +166,16 @@ def write_voc_corpus(root: str, n_utts: int, seconds: Tuple[float, float],
         if len(mel) * hop < n:
             raise AssertionError(f"{utt}: {len(mel)} frames for {n} samples")
         np.save(os.path.join(root, "mel", f"{utt}.npy"), mel.astype(np.float32))
+        if nsf:
+            centres = np.minimum(np.arange(len(mel)) * hop, n - 1)
+            frame_f0s[utt] = (f0[centres], voiced[centres].astype(np.float32))
+    if nsf:
+        voiced_f0 = np.concatenate([f[uv > 0] for f, uv in frame_f0s.values()])
+        mean, std = float(voiced_f0.mean()), float(voiced_f0.std())
+        _write_f0_stats(root, mean, std)
+        for utt, (f0, uv) in frame_f0s.items():
+            np.save(os.path.join(root, "frame_f0", f"{utt}.npy"),
+                    ((f0 - mean) / std).astype(np.float32))
+            np.save(os.path.join(root, "frame_uv", f"{utt}.npy"), uv)
     with open(os.path.join(root, "audio_config.yaml"), "w", encoding="utf-8") as f:
-        yaml.safe_dump({"audio_config": dict(AUDIO_16K)}, f)
+        yaml.safe_dump({"audio_config": dict(audio)}, f)

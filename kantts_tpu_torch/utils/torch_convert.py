@@ -204,6 +204,11 @@ def convert_hifigan_generator(sd: Dict[str, np.ndarray], cfg: Dict[str, Any]
                 _wnconv(tree, f"conv_blocks_{i}_{j}/convs2_{d}", sd,
                         f"conv_blocks.{flat}.convs2.{d}.conv1d")
     _wnconv(tree, "conv_post", sd, "conv_post.conv1d")
+
+    if cfg.get("nsf_params") is not None:
+        _wnconv(tree, "source_module/ffn", sd, "source_module.ffn.0")
+        for i in range(n_up):
+            _wnconv(tree, f"source_downs_{i}", sd, f"source_downs.{i}.conv1d")
     return tree
 
 

@@ -296,8 +296,11 @@ def test_criterion_builder_takes_the_gan_losses():
                          "mel_loss", "feat_match_loss"}
     assert crit["mel_loss"].weights == 45.0 and crit["feat_match_loss"].weights == 2.0
     assert not crit["generator_adv_loss"].average_by_discriminators
-    with pytest.raises(NotImplementedError, match="subband_stft_loss"):
-        criterion_builder({"Loss": {"subband_stft_loss": {"enable": True}}})
+    sub = criterion_builder({"Loss": {"subband_stft_loss": {"enable": True, "params": {
+        "fft_sizes": [384, 683, 171], "hop_sizes": [35, 75, 15],
+        "win_lengths": [150, 300, 60], "window": "hann_window"}}}})
+    assert isinstance(sub["subband_stft_loss"], tl.MultiResolutionSTFTLoss)
+    assert [f.fft_size for f in sub["subband_stft_loss"].stft_losses] == [384, 683, 171]
 
 
 # ----------------------------------------------------------------- GAN step
@@ -432,21 +435,41 @@ def test_eval_step_matches_jax():
 
 
 def test_builder_refuses_what_is_not_ported():
+    """bf16 is refused by name; NSF, PQMF and the MultiSpecDiscriminator build
+    (hifigan_v1_16k.yaml with a narrow generator, its MSD and MPD left out),
+    each with what it brings."""
     base = get_config("hifigan_v1_16k")
+    cfg = get_config("hifigan_v1_16k")
+    cfg.update(mixed_precision=True)
+    with pytest.raises(NotImplementedError, match="mixed_precision"):
+        hifigan_gan_builder(cfg)
+    assert base == get_config("hifigan_v1_16k")
+    narrow = {"channels": 32, "resblock_kernel_sizes": [3], "resblock_dilations": [[1]]}
     cases = {
-        "mixed_precision": lambda c: c.update(mixed_precision=True),
         "NSF": lambda c: c["Model"]["Generator"]["params"].update(
-            nsf_params={"nb_harmonics": 7}),
-        "PQMF": lambda c: c["Model"]["Generator"]["params"].update(out_channels=4),
+            nsf_params={"nb_harmonics": 7, "sampling_rate": 16000}),
+        "PQMF": lambda c: c["Model"]["Generator"]["params"].update(
+            out_channels=4, upsample_scales=[5, 5, 2], upsample_kernal_sizes=[10, 10, 4]),
         "MultiSpecDiscriminator": lambda c: c["Model"].update(
-            MultiSpecDiscriminator={"params": {}}),
+            MultiSpecDiscriminator={"params": {"discriminator_params": {"channels": 4}},
+                                    "optimizer": ADAM}),
     }
     for name, change in cases.items():
-        cfg = get_config("hifigan_v1_16k")
+        with open(os.path.join(ROOT, "kantts_tpu_torch", "resources", "configs",
+                               "hifigan_v1_16k.yaml")) as f:
+            cfg = yaml.safe_load(f)
+        cfg["Model"]["Generator"]["params"].update(narrow)
+        del cfg["Model"]["MultiScaleDiscriminator"], cfg["Model"]["MultiPeriodDiscriminator"]
         change(cfg)
-        with pytest.raises(NotImplementedError, match=name):
-            hifigan_gan_builder(cfg)
-    assert base == get_config("hifigan_v1_16k")
+        built = hifigan_gan_builder(cfg)
+        assert (built["generator"].nsf_params is not None) == (name == "NSF")
+        assert (built["pqmf"] is not None) == (name == "PQMF")
+        assert list(built["discriminators"]) == (
+            ["MultiSpecDiscriminator"] if name == "MultiSpecDiscriminator" else [])
+        mel = torch.randn(1, 4, 82 if name == "NSF" else 80)
+        with torch.no_grad():
+            y = built["generator"](mel, generator=torch.Generator().manual_seed(0))
+        assert y.shape == ((1, 4 * 50, 4) if name == "PQMF" else (1, 4 * 200, 1))
 
 
 def gan_config(stage: str, **keys) -> str:

@@ -27,7 +27,11 @@ import torch
 
 from kantts_tpu.bin.infer_sambert import am_synthesis_batch as j_am_synthesis_batch
 from kantts_tpu_torch.bin import serve_tts, stream_tts
-from kantts_tpu_torch.models.builder import load_checkpoint
+from kantts_tpu_torch.models.builder import (
+    hifigan_model_builder,
+    load_checkpoint,
+    save_checkpoint,
+)
 from kantts_tpu_torch.serve import TTSService, make_http_server, wav_bytes
 from kantts_tpu_torch.serve.server import parse_wav_bytes
 from test_torch_port_slice import ROOT, _symbols, slice_models  # noqa: F401
@@ -250,6 +254,27 @@ def test_close_drains_pending_requests(slice_models):
         svc.synthesize(TEXTS[2])
 
 
+def _nsf_checkpoints(slice_models, tmp_path):
+    """The slice's acoustic model as an NSF one (its last two mel channels
+    read as f0 and uv) with mvn.npy two directories above it, and a small
+    NSF vocoder on the other 78 channels. -> (AM checkpoint, vocoder's)."""
+    payload = torch.load(str(slice_models["ckpt_dir"] / "am.pt"), map_location="cpu",
+                         weights_only=True)
+    nsf = copy.deepcopy(payload["config"])
+    nsf["Model"]["KanTtsSAMBERT"]["params"]["NSF"] = True
+    am_ckpt = tmp_path / "am" / "ckpt" / "nsf_am.pt"
+    am_ckpt.parent.mkdir(parents=True)
+    torch.save(dict(payload, config=nsf), str(am_ckpt))
+    np.save(tmp_path / "am" / "mvn.npy", np.array([[170.0], [40.0]], np.float32))
+    voc_cfg = copy.deepcopy(load_checkpoint(str(slice_models["ckpt_dir"] / "voc.pt"),
+                                            torch.device("cpu"))[1])
+    voc_cfg["Model"]["Generator"]["params"].update(
+        in_channels=78, nsf_params={"nb_harmonics": 7, "sampling_rate": 16000})
+    voc_ckpt = str(tmp_path / "nsf_voc.pt")
+    save_checkpoint(voc_ckpt, hifigan_model_builder(voc_cfg, seed=2), voc_cfg)
+    return str(am_ckpt), voc_ckpt
+
+
 def test_from_checkpoints_refusals(slice_models, tmp_path):
     d = slice_models["ckpt_dir"]
     am, voc = str(d / "am.pt"), str(d / "voc.pt")
@@ -257,13 +282,52 @@ def test_from_checkpoints_refusals(slice_models, tmp_path):
         TTSService.from_checkpoints(am, voc, se_file="se.npy", device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         TTSService.from_checkpoints(am, voc, int8=True, device="cpu")
-    payload = torch.load(am, map_location="cpu", weights_only=True)
-    nsf = copy.deepcopy(payload["config"])
-    nsf["Model"]["KanTtsSAMBERT"]["params"]["NSF"] = True
-    nsf_ckpt = str(tmp_path / "nsf_am.pt")
-    torch.save(dict(payload, config=nsf), nsf_ckpt)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TTSService.from_checkpoints(nsf_ckpt, voc, device="cpu")
+    svc = TTSService.from_checkpoints(*_nsf_checkpoints(slice_models, tmp_path),
+                                      frontend="pinyin", device="cpu")
+    try:
+        assert svc.nsf_denorm is not None and svc.generator.nsf_params is not None
+        with pytest.raises(ValueError, match="NSF"):
+            svc.stream(TEXTS[0])
+    finally:
+        svc.close()
+
+
+def test_nsf_service_serves(slice_models, tmp_path, monkeypatch):
+    """An NSF pair behind the service: the acoustic model's f0 and uv are
+    denormalised between the stages (the vocoder gets f0 >= 30 Hz and a
+    binary uv), and each response has the length, rate and finiteness
+    of its sentences. The noise depends on the batch's shape, so an NSF
+    response is not compared with another run's."""
+    svc = TTSService.from_checkpoints(*_nsf_checkpoints(slice_models, tmp_path),
+                                      frontend="pinyin", max_batch=MAX_BATCH,
+                                      max_wait_ms=100.0, device="cpu")
+    seen = []
+    vocode = svc._vocode_batch
+
+    def spy(mels):
+        seen.extend(mels)
+        return vocode(mels)
+
+    monkeypatch.setattr(svc, "_vocode_batch", spy)
+    try:
+        results = [None] * 3
+        threads = [threading.Thread(target=lambda i=i: results.__setitem__(
+            i, svc.synthesize(TEXTS[i], timeout=120))) for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=180)
+            assert not t.is_alive()
+    finally:
+        svc.close()
+    assert len(seen) == 3
+    for mel in seen:
+        assert (mel[:, -2] >= 30).all() and set(np.unique(mel[:, -1])) <= {0.0, 1.0}
+    frames = sorted(m.shape[0] for m in seen)
+    for sr, wav in results:
+        assert sr == 16000 and np.isfinite(wav).all() and np.abs(wav).max() <= 1.0
+    # each text is one sentence: its mel's samples, then the 0.05 s tail
+    assert sorted(len(w) - 800 for _, w in results) == [n * 16 for n in frames]
 
 
 def test_coordinator_bookkeeping_under_thread_stress(slice_models, monkeypatch):

@@ -91,7 +91,11 @@ def test_load_merged_config(name, tmp_path):
 
 
 @pytest.mark.parametrize("name", ["sambert_16k_MAS", "hifigan_v1_16k",
-                                  "hifigan_noncausal_v1_16k"])
+                                  "hifigan_noncausal_v1_16k", "hifigan_v1_nsf_24k",
+                                  "hifigan_noncausal_nsf_v1_16k",
+                                  "hifigan_noncausal_nsf_global_v1_16k",
+                                  "sambert_nsf_16k", "sambert_nsf_24k",
+                                  "audio_config_24k"])
 def test_config_copies_equal_the_originals(name):
     """The port's copies of the YAML configs that chip_smoke.py reads."""
     copy = os.path.join(ROOT, "kantts_tpu_torch", "resources", "configs", f"{name}.yaml")

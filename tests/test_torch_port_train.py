@@ -130,7 +130,7 @@ def test_criterion_builder():
     assert set(crit) == set(MAS_LOSSES)
     assert crit["MelReconLoss"].weights == 2.0
     assert crit["AttentionCTCLoss"].weights == 1.0
-    for key in ("SeqCELoss", "FpCELoss", "subband_stft_loss"):
+    for key in ("SeqCELoss", "FpCELoss"):
         with pytest.raises(NotImplementedError, match=key):
             criterion_builder({"Loss": {key: {"enable": True}}})
     with pytest.raises(NotImplementedError, match="NoSuchLoss"):
