@@ -67,11 +67,33 @@ hifigan_v1_16k, with weights made from a seed:
      frame f0 and uv; (h) the NSF vocoder at B=1 on 5 s, plain and
      chunked-8, by CUDA events, and the ``SourceModule``'s share of the
      plain call from ``torch.profiler``. K1 must not launch on this path.
+ 10. bf16, SE and byte: (a) full-width hifigan_v1_16k with
+     ``mixed_precision``, seeded: bf16 on the card against f32 on the card
+     (e_ref) and against bf16 on the CPU on 250 frames, and at B=1 on 5 s
+     plain and chunked-8 in both dtypes by CUDA events, chunked-8 against
+     plain in bf16; (b) 10 bf16 GAN steps through ``train_hifigan`` on
+     phase 5's corpus, float32 parameters and Adam moments after, the step
+     at 16 x 9600 timed beside the f32 step with host syncs and the
+     convolutions' share from ``torch.profiler``, a step at B=2 card vs CPU;
+     (c) 5 bf16 steps of sambert_16k_MAS through ``train_sambert`` (K1 in
+     each), the step at 32 x 96 x 576 timed beside f32, acoustic inference
+     at B=8 bf16 against f32, a forward and backward at B=4 card vs CPU; (d)
+     ``text_to_wav`` on both bf16 checkpoints with no ``--device``; (e) the
+     byte voice, sambert_16k_MAS_byte at full width: byte symbols of 4 hanzi
+     lines from ``turn_text_into_bytes`` through ``text_to_wav
+     --symbols_file`` with phase 6's vocoder, 5 MAS train steps on a byte
+     corpus (K1 in each), the forward card vs CPU; (f) the SE voice,
+     sambert_se_nsf_global_16k and hifigan_noncausal_nsf_global_v1_16k with
+     a seeded 192-d ``se.npy``: ``text_to_wav --se_file``, ``TTSService``
+     with ``se_file`` answering 4 ``/tts`` requests, 5 train steps on an SE
+     corpus, the forward card vs CPU; K1 must not launch there. Every bf16
+     result on the card lies within e_ref of the CPU's, e_ref = max
+     |bf16 - f32| of the same module on the card on the same inputs.
 
 Each phase prints lines of its own and raises on failure. Before the last
 line it prints a JSON object on the kernels; the last line is
 {"ok": true, "device": {...}}. TF32 is off for matmuls and cuDNN, so every
-comparison and every time is in float32.
+comparison and every time outside phase 10's bf16 runs is in float32.
 """
 
 from __future__ import annotations
@@ -818,16 +840,12 @@ def phase_gan_step(trainer, name: str = "gan_step", n_timed: int = 20,
         top=json.dumps(prof["top"]).replace(" ", ""))
 
 
-def phase_gan_card_vs_cpu(trainer, name: str = "gan_card_vs_cpu"):
-    """The GAN of ``trainer.config`` at full width, B=2, on the card and on
-    the CPU from the same seeded weights and batch: the generator loss and
-    its backward (the generator's gradient norm), the fake regenerated, the
-    discriminator loss and its backward (the discriminators' gradient
-    norm). An NSF generator's noise cannot match across devices, so one
-    excitation, drawn on the CPU, is injected into both; a multi-band
-    generator's sub-bands go through its PQMF. Tolerance: losses rtol 1e-5,
-    gradient norms rtol 1e-3 (float32 with TF32 off on both; the order of
-    sums differs)."""
+def gan_losses_and_norms(config, wav, mel, excitation=None) -> list:
+    """[generator loss, discriminator loss, the generator's and the
+    discriminators' gradient norms] of one step's two backward passes on
+    ``config``'s GAN seeded as train_hifigan seeds it, on wav's device. An
+    NSF generator takes ``excitation`` in place of its draws; a multi-band
+    generator's sub-bands go through its PQMF."""
     import torch
 
     from kantts_tpu_torch.losses import criterion_builder
@@ -843,41 +861,56 @@ def phase_gan_card_vs_cpu(trainer, name: str = "gan_card_vs_cpu"):
         def forward(self, mel, generator=None):
             return self.gen(mel, excitation=self.excitation)
 
-    criterion = criterion_builder(trainer.config)
-    out, excitation = {}, None
-    for device in (torch.device("cpu"), torch.device("cuda")):
-        built = hifigan_gan_builder(trainer.config, seed=0, device=device)
-        gen, discs, pqmf = built["generator"], built["discriminators"], built["pqmf"]
-        wav, mel = gan_batch(trainer, 2, device)
-        gen_in = gen
-        if gen.nsf_params is not None:
-            if excitation is None:
-                with torch.no_grad():
-                    excitation = gen(mel, excitation_only=True,
-                                     generator=torch.Generator().manual_seed(0))
-            gen_in = Injected(gen, excitation.to(device))
-        gen_loss, _ = generator_losses(gen_in, discs, criterion, wav, mel, True, pqmf)
-        gen_loss.backward()
-        g_norm = global_grad_norm(gen.parameters())
-        for d in discs.values():
-            d.zero_grad(set_to_none=True)
+    built = hifigan_gan_builder(config, seed=0, device=wav.device)
+    gen, discs, pqmf = built["generator"], built["discriminators"], built["pqmf"]
+    criterion = criterion_builder(config)
+    gen_in = gen if excitation is None else Injected(gen, excitation.to(wav.device))
+    gen_loss, _ = generator_losses(gen_in, discs, criterion, wav, mel, True, pqmf)
+    gen_loss.backward()
+    g_norm = global_grad_norm(gen.parameters())
+    for d in discs.values():
+        d.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        y_fake = gen_in(mel)
+        y_fake = (pqmf.synthesis(y_fake) if pqmf is not None else y_fake).transpose(1, 2)
+    dis_loss, _ = discriminator_losses(discs, criterion, wav.transpose(1, 2), y_fake)
+    dis_loss.backward()
+    d_norm = global_grad_norm([p for d in discs.values() for p in d.parameters()])
+    return [gen_loss.item(), dis_loss.item(), g_norm.item(), d_norm.item()]
+
+
+def phase_gan_card_vs_cpu(trainer, name: str = "gan_card_vs_cpu"):
+    """The GAN of ``trainer.config`` at full width, B=2, on the card and on
+    the CPU from the same seeded weights and batch: the generator loss and
+    its backward (the generator's gradient norm), the fake regenerated, the
+    discriminator loss and its backward (the discriminators' gradient
+    norm). An NSF generator's noise cannot match across devices, so one
+    excitation, drawn on the CPU, is injected into both; a multi-band
+    generator's sub-bands go through its PQMF. Tolerance: losses rtol 1e-5,
+    gradient norms rtol 1e-3 (float32 with TF32 off on both; the order of
+    sums differs)."""
+    import torch
+
+    from kantts_tpu_torch.models.builder import hifigan_model_builder
+
+    wav, mel = gan_batch(trainer, 2, torch.device("cpu"))
+    excitation = None
+    gen = hifigan_model_builder(trainer.config, seed=0)
+    if gen.nsf_params is not None:
         with torch.no_grad():
-            y_fake = gen_in(mel)
-            y_fake = (pqmf.synthesis(y_fake) if pqmf is not None else y_fake).transpose(1, 2)
-        dis_loss, _ = discriminator_losses(discs, criterion, wav.transpose(1, 2),
-                                           y_fake)
-        dis_loss.backward()
-        d_norm = global_grad_norm([p for d in discs.values() for p in d.parameters()])
-        out[device.type] = [gen_loss.item(), dis_loss.item(), g_norm.item(),
-                            d_norm.item()]
-    card, cpu = np.array(out["cuda"]), np.array(out["cpu"])
+            excitation = gen(mel, excitation_only=True,
+                             generator=torch.Generator().manual_seed(0))
+    cpu = np.array(gan_losses_and_norms(trainer.config, wav, mel, excitation))
+    card = np.array(gan_losses_and_norms(trainer.config, wav.cuda(), mel.cuda(),
+                                         excitation))
     rel = np.abs(card - cpu) / np.abs(cpu)
     log(name, shape="B={}xT={}".format(*wav.shape[:2]),
         gen_loss=card[0], gen_loss_cpu=cpu[0],
         dis_loss=card[1], dis_loss_cpu=cpu[1], gen_grad_norm=card[2],
         gen_grad_norm_cpu=cpu[2], dis_grad_norm=card[3], dis_grad_norm_cpu=cpu[3],
         rel_errs=",".join(f"{r:.3g}" for r in rel), tol="1e-5,1e-5,1e-3,1e-3",
-        excitation_injected=excitation is not None, pqmf=pqmf is not None)
+        excitation_injected=excitation is not None,
+        pqmf=trainer.config["Model"]["Generator"]["params"].get("out_channels", 1) > 1)
     if not (np.isfinite(card).all() and (rel <= [1e-5, 1e-5, 1e-3, 1e-3]).all()):
         raise AssertionError(f"{name}: card {card}, CPU {cpu}")
 
@@ -985,17 +1018,12 @@ def phase_train_step(trainer) -> float:
     return k1_ms
 
 
-def phase_train_card_vs_cpu(trainer):
-    """One forward and backward at full width, B=4, on the card and on the
-    CPU: the same seeded weights and batch, train() mode with every
-    dropout's p at 0, the binarization loss at epoch 50. The CPU side takes
-    the card's hard alignment, so that a rounding flip in the Viterbi cannot
-    fork the comparison; whether its own alignment agrees is printed.
-    Tolerance: total loss rtol 1e-4, global grad norm rtol 1e-3 (float32
-    with TF32 off on both; the order of sums differs, and CUDA's CTC
-    backward accumulates with atomics)."""
-    import copy
-
+def sambert_loss_and_norm(config, batch_np, device, hard=None) -> tuple:
+    """One forward and backward of ``config``'s seeded SAM-BERT (train mode,
+    every dropout's p at 0, binarization loss at epoch 50) on a collated
+    batch. ``hard``: a hard alignment that replaces MAS's own (so that a
+    rounding flip in the Viterbi cannot fork a comparison). -> (total loss,
+    global gradient norm, MAS's own hard alignment or None)."""
     import torch
     from torch import nn
 
@@ -1006,45 +1034,51 @@ def phase_train_card_vs_cpu(trainer):
     from kantts_tpu_torch.train.steps import sambert_losses
     from kantts_tpu_torch.train.trainer import batch_to_device
 
-    batch_np = trainer.train_loader.dataset.collate_fn(longest_items(trainer, 4))
-    criterion = criterion_builder(trainer.config)
-    cpu_model = build_sambert(trainer.config, seed=0)
-    card_model = copy.deepcopy(cpu_model).cuda()
+    model = build_sambert(config, seed=0).to(device)
+    for m in model.modules():
+        if isinstance(m, nn.Dropout):
+            m.p = 0.0
+    model.train()
     mas_align = sambert_module.mas_align
-    hard = {}
+    used = {}
 
-    def card_mas(*args):
-        hard["card"] = mas_align(*args)
-        return hard["card"]
+    def align(*args):
+        used["own"] = mas_align(*args)
+        return used["own"] if hard is None else hard.to(device)
 
-    def cpu_mas(*args):
-        hard["cpu"] = mas_align(*args)
-        return hard["card"].cpu()
+    with_mas = model.mas_enable
+    sambert_module.mas_align = align
+    try:
+        loss, _ = sambert_losses(model, criterion_builder(config),
+                                 batch_to_device(batch_np, device), EPOCH, with_mas)
+        loss.backward()
+    finally:
+        sambert_module.mas_align = mas_align
+    return loss.item(), global_grad_norm(model.parameters()).item(), used.get("own")
 
-    out = {}
-    for name, model, device, align in (
-            ("card", card_model, torch.device("cuda"), card_mas),
-            ("cpu", cpu_model, torch.device("cpu"), cpu_mas)):
-        for m in model.modules():
-            if isinstance(m, nn.Dropout):
-                m.p = 0.0
-        model.train()
-        sambert_module.mas_align = align
-        try:
-            loss, _ = sambert_losses(model, criterion,
-                                     batch_to_device(batch_np, device), EPOCH, True)
-            loss.backward()
-        finally:
-            sambert_module.mas_align = mas_align
-        out[name] = (loss.item(), global_grad_norm(model.parameters()).item())
-    (loss_card, norm_card), (loss_cpu, norm_cpu) = out["card"], out["cpu"]
+
+def phase_train_card_vs_cpu(trainer):
+    """One forward and backward at full width, B=4, on the card and on the
+    CPU (``sambert_loss_and_norm``): the same seeded weights and batch. The
+    CPU side takes the card's hard alignment, so that a rounding flip in the
+    Viterbi cannot fork the comparison; whether its own alignment agrees is
+    printed. Tolerance: total loss rtol 1e-4, global grad norm rtol 1e-3
+    (float32 with TF32 off on both; the order of sums differs, and CUDA's
+    CTC backward accumulates with atomics)."""
+    import torch
+
+    batch_np = trainer.train_loader.dataset.collate_fn(longest_items(trainer, 4))
+    loss_card, norm_card, hard = sambert_loss_and_norm(trainer.config, batch_np,
+                                                       torch.device("cuda"))
+    loss_cpu, norm_cpu, own_cpu = sambert_loss_and_norm(trainer.config, batch_np,
+                                                        torch.device("cpu"), hard)
     loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
     norm_rel = abs(norm_card - norm_cpu) / abs(norm_cpu)
     log("train_card_vs_cpu", shape=f"B=4xT_in={batch_np['input_lings'].shape[1]}"
                                    f"xT_mel={batch_np['mel_targets'].shape[1]}",
         loss_card=loss_card, loss_cpu=loss_cpu, loss_rel_err=loss_rel,
         grad_norm_card=norm_card, grad_norm_cpu=norm_cpu, grad_norm_rel_err=norm_rel,
-        cpu_alignment_equal=bool(torch.equal(hard["cpu"], hard["card"].cpu())),
+        cpu_alignment_equal=bool(torch.equal(own_cpu, hard.cpu())),
         tol="1e-4,1e-3")
     if not (np.isfinite([loss_card, norm_card]).all() and loss_rel <= 1e-4
             and norm_rel <= 1e-3):
@@ -1606,20 +1640,24 @@ def nsf_chunked_and_times(tmp: str, voc_ckpt: str, feat_dir: str) -> dict:
     return result
 
 
-def nsf_serve(am_ckpt: str, voc_ckpt: str) -> dict:
+def nsf_serve(am_ckpt: str, voc_ckpt: str, se_file=None, sr: int = NSF_SR,
+              hop: int = NSF_HOP, name: str = "nsf_serve") -> dict:
     """(d) TTSService on the NSF pair behind the HTTP server: 4 concurrent
-    /tts requests at 24 kHz, each finite, in [-1, 1] and as long as its
-    sentences' frames plus the gaps; the vocoder's input mels denormalised
-    (f0 >= 30, uv 0/1); ``stream`` refuses NSF. The noise depends on the
-    batch's shape, so no response is held to another run's."""
+    /tts requests at ``sr`` (24 kHz), each finite, in [-1, 1] and as long as
+    its sentences' frames plus the gaps; the vocoder's input mels
+    denormalised (f0 >= 30, uv 0/1); ``stream`` refuses NSF. The noise
+    depends on the batch's shape, so no response is held to another run's.
+    ``se_file``: an SE acoustic model's speaker embedding (phase 10)."""
     import threading
     from concurrent.futures import ThreadPoolExecutor
 
     from kantts_tpu_torch.serve import TTSService, make_http_server
     from kantts_tpu_torch.serve.server import parse_wav_bytes
 
-    service = TTSService.from_checkpoints(am_ckpt, voc_ckpt, max_batch=8,
-                                          max_wait_ms=20)
+    service = TTSService.from_checkpoints(am_ckpt, voc_ckpt, se_file=se_file,
+                                          max_batch=8, max_wait_ms=20)
+    if (service.se is not None) != (se_file is not None):
+        raise AssertionError(f"{name}: the service's speaker embedding is {service.se}")
     httpd = None
     try:
         seen = []
@@ -1640,15 +1678,15 @@ def nsf_serve(am_ckpt: str, voc_ckpt: str) -> dict:
         check_nsf_mels(seen)
         sentence_samples = 0
         for i, (_, body) in enumerate(replies):
-            sr, wav = parse_wav_bytes(body)
+            got_sr, wav = parse_wav_bytes(body)
             n_sent = len(service._text_to_seqs(TEXTS[i], None, None))
-            pad = int(0.28 * sr) * (n_sent - 1) + int(0.05 * sr)
-            if not (sr == NSF_SR and np.isfinite(wav).all() and np.abs(wav).max() <= 1.0
-                    and (len(wav) - pad) % NSF_HOP == 0 and len(wav) > pad):
-                raise AssertionError(f"NSF /tts {i}: sr {sr}, {len(wav)} samples")
+            pad = int(0.28 * got_sr) * (n_sent - 1) + int(0.05 * got_sr)
+            if not (got_sr == sr and np.isfinite(wav).all() and np.abs(wav).max() <= 1.0
+                    and (len(wav) - pad) % hop == 0 and len(wav) > pad):
+                raise AssertionError(f"{name} /tts {i}: sr {got_sr}, {len(wav)} samples")
             sentence_samples += len(wav) - pad
-        if sentence_samples != NSF_HOP * sum(m.shape[0] for m in seen):
-            raise AssertionError(f"NSF /tts: {sentence_samples} samples for "
+        if sentence_samples != hop * sum(m.shape[0] for m in seen):
+            raise AssertionError(f"{name} /tts: {sentence_samples} samples for "
                                  f"{sum(m.shape[0] for m in seen)} frames")
         try:
             service.stream(TEXTS[0])
@@ -1662,9 +1700,9 @@ def nsf_serve(am_ckpt: str, voc_ckpt: str) -> dict:
             httpd.shutdown()
             httpd.server_close()
         service.close()
-    log("nsf_serve", requests=4, batches=health["batches"],
-        utterances=health["utterances"], sampling_rate=NSF_SR,
-        audio_s=round(sentence_samples / NSF_SR, 3), wall_s=round(wall, 3),
+    log(name, requests=4, batches=health["batches"],
+        utterances=health["utterances"], sampling_rate=sr,
+        audio_s=round(sentence_samples / sr, 3), wall_s=round(wall, 3),
         f0_min=round(float(min(m[:, -2].min() for m in seen)), 3),
         stream_refused=json.dumps(refused[:40]))
     return {"batches": health["batches"]}
@@ -1810,6 +1848,563 @@ def phase_nsf(tmp: str) -> dict:
     return {"k1_launches": b_mas_cuda.launches, **gaps, **times}
 
 
+# ------------------------------------------------------------- phase 10
+
+HANZI = ["你好，欢迎来到北京。", "今天天气很好，我们去公园散步吧。",
+         "这是一个语音合成的测试。", "请再说一遍，谢谢。"]
+SE_UNITS = 192  # speaker_units of sambert_se_nsf_global_16k
+AM_INFER_FRAMES = 576  # the frame budget of phase 10's acoustic inference at B=8
+# phase 10's 5-step SAM-BERT runs; allow_cache makes each item's
+# beta-binomial prior (~0.5 s of host time at these lengths) once, not per pass
+CACHED_SHORT_KEYS = dict(SHORT_KEYS, allow_cache=True)
+BF16_GAN_KEYS = dict(mixed_precision=True, train_max_steps=10, save_interval_steps=10,
+                     eval_interval_steps=10, log_interval_steps=5)
+
+
+def within_e_ref(name: str, card16, cpu16, card16_vs_32) -> dict:
+    """The bf16 rule (PERF.md): e_ref = max |bf16 - f32| of the same module on
+    the card on the same inputs; the card's bf16 result lies within e_ref of
+    the CPU's bf16 result. Each argument is an array, or a list of scalars
+    held one by one. -> the gaps and e_refs; raises on a miss."""
+    card16, cpu16, e_ref = (np.atleast_1d(np.asarray(a, dtype=np.float64))
+                            for a in (card16, cpu16, card16_vs_32))
+    gaps = np.abs(card16 - cpu16).reshape(len(e_ref), -1).max(axis=1)
+    if not (np.isfinite(card16).all() and (gaps <= e_ref).all()):
+        raise AssertionError(f"{name}: bf16 card vs CPU {gaps} > e_ref {e_ref}")
+    return {"gap": gaps.tolist(), "e_ref": e_ref.tolist()}
+
+
+def all_float32(modules, optimizers) -> None:
+    """bf16 compute leaves every parameter and optimizer moment float32."""
+    import torch
+
+    bad = [n for m in modules for n, p in m.named_parameters() if p.dtype != torch.float32]
+    bad += [k for opt in optimizers for st in opt.state.values() for k, v in st.items()
+            if torch.is_tensor(v) and v.is_floating_point() and v.dtype != torch.float32]
+    if bad:
+        raise AssertionError(f"bf16 run left non-float32 state: {bad[:5]}")
+
+
+def bf16_vocoder() -> dict:
+    """(a) Full-width hifigan_v1_16k with ``mixed_precision``, seeded: on
+    250 frames bf16 on the card against f32 on the card (e_ref) and against
+    bf16 on the CPU (within e_ref); at B=1 on 5 s, plain and chunked-8 in
+    both dtypes by CUDA events in turns, and chunked-8 against plain in
+    bf16 within 2 e_ref of the plain call (PERF.md §6: the window
+    batch makes cuDNN round in another order, and two bf16 results, each
+    within e_ref of f32, are within 2 e_ref of each other)."""
+    import torch
+
+    from kantts_tpu_torch.configs import get_config
+    from kantts_tpu_torch.infer.chunked import chunked_apply
+    from kantts_tpu_torch.models.builder import model_builder
+
+    cfg = get_config("hifigan_v1_16k")
+    cfg16 = dict(cfg, mixed_precision=True)
+    gen = {"f32": model_builder(cfg, seed=2).cuda(),
+           "bf16": model_builder(cfg16, seed=2).cuda()}
+    cpu16 = model_builder(cfg16, seed=2)
+    mel = torch.from_numpy(np.random.RandomState(11).randn(1, 250, 80).astype(np.float32))
+    with torch.inference_mode():
+        y = {dt: g(mel.cuda()).float().cpu() for dt, g in gen.items()}
+        y_cpu = cpu16(mel).float()
+    if gen["bf16"].conv_pre.dtype != torch.bfloat16:
+        raise AssertionError("mixed_precision did not give a bf16 generator")
+    e_ref = (y["bf16"] - y["f32"]).abs().max().item()
+    card_cpu = within_e_ref("bf16 generator, 250 frames", y["bf16"], y_cpu, e_ref)
+
+    mel5 = torch.from_numpy(np.random.RandomState(5).randn(1, 400, 80)
+                            .astype(np.float32)).cuda()
+    runs = {f"{dt}_{how}": (lambda g=g, how=how: chunked_apply(g, mel5, 8)
+                            if how == "chunked8" else g(mel5))
+            for dt, g in gen.items() for how in ("plain", "chunked8")}
+    times = collections.defaultdict(list)
+    with torch.inference_mode():
+        out = {k: f().float() for k, f in runs.items()}
+        for k in ("f32_plain", "bf16_plain", "f32_chunked8", "bf16_chunked8",
+                  "bf16_chunked8", "f32_chunked8", "bf16_plain", "f32_plain"):
+            times[k].append(cuda_ms(runs[k], 10))
+    e_ref5 = (out["bf16_plain"] - out["f32_plain"]).abs().max().item()
+    chunk16 = (out["bf16_chunked8"] - out["bf16_plain"]).abs().max().item()
+    chunk32 = (out["f32_chunked8"] - out["f32_plain"]).abs().max().item()
+    ms = {k: float(np.mean(v)) for k, v in times.items()}
+    log("bf16_vocoder", frames=250, e_ref=e_ref, card_vs_cpu_bf16=card_cpu["gap"][0],
+        b1_5s_f32_plain_ms=round(ms["f32_plain"], 4),
+        b1_5s_bf16_plain_ms=round(ms["bf16_plain"], 4),
+        b1_5s_f32_chunked8_ms=round(ms["f32_chunked8"], 4),
+        b1_5s_bf16_chunked8_ms=round(ms["bf16_chunked8"], 4),
+        plain_bf16_over_f32=round(ms["bf16_plain"] / ms["f32_plain"], 4),
+        chunked8_bf16_over_f32=round(ms["bf16_chunked8"] / ms["f32_chunked8"], 4),
+        e_ref_5s=e_ref5, chunked8_vs_plain_bf16=chunk16, chunked8_bf16_tol=2 * e_ref5,
+        chunked8_vs_plain_f32=chunk32)
+    if not (chunk16 <= 2 * e_ref5 and chunk32 <= 1e-5):
+        raise AssertionError(f"chunked-8 vs plain: bf16 {chunk16} (2 e_ref "
+                             f"{2 * e_ref5}), f32 {chunk32} (1e-5)")
+    return {"e_ref": e_ref, "card_vs_cpu": card_cpu["gap"][0], "ms": ms,
+            "chunked8_vs_plain_bf16": chunk16, "e_ref_5s": e_ref5}
+
+
+def conv_share(prof) -> tuple:
+    """-> (device ms of the kernels that convolution operators launch, device
+    ms of all kernels) in a profile: the self device time of every operator
+    whose name holds "convolution" (cuDNN's forward, transposed and backward
+    kernels), against the sum over all device kernels."""
+    from torch.autograd import DeviceType
+
+    conv_us = sum(getattr(e, "self_device_time_total", None)
+                  or getattr(e, "self_cuda_time_total", 0.0)
+                  for e in prof.key_averages() if "convolution" in e.key)
+    total_us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    return conv_us / 1e3, total_us / 1e3
+
+
+def share(part: float, whole: float):
+    return round(part / whole, 4) if whole else "not measured"
+
+
+def gan_step_of(config):
+    """A GAN step on the card from ``config``, seeded as train_hifigan seeds
+    it."""
+    import torch
+
+    from kantts_tpu_torch.losses import criterion_builder
+    from kantts_tpu_torch.models.builder import hifigan_gan_builder
+    from kantts_tpu_torch.train.steps import make_gan_step
+
+    b = hifigan_gan_builder(config, 0, torch.device("cuda"))
+    return make_gan_step(b["generator"], b["discriminators"], criterion_builder(config),
+                         b["gen_optimizer"], b["gen_scheduler"], b["disc_optimizers"],
+                         b["disc_schedulers"], b["gen_clip"], b["disc_clips"],
+                         pqmf=b["pqmf"]), b
+
+
+def bf16_gan(tmp: str) -> str:
+    """(b) 10 bf16 GAN steps of hifigan_v1_16k through train_hifigan on
+    phase 5's corpus, float32 parameters and Adam moments after; one step
+    at 16 x 9600 timed beside the f32 step in turns, each with its host
+    syncs and the convolutions' share of its device time from
+    torch.profiler; a step at B=2 on the card against the CPU under the
+    bf16 rule. -> the bf16 GAN checkpoint of step 10."""
+    import torch
+
+    from kantts_tpu_torch.bin.train_hifigan import train
+
+    stage = os.path.join(tmp, "bf16_voc_train")
+    t0 = time.perf_counter()
+    trainer = train(gan_config(os.path.join(stage, "model.yaml"), **BF16_GAN_KEYS),
+                    os.path.join(tmp, "voc_corpus"), stage, device="cuda")
+    seconds = time.perf_counter() - t0
+    check_gan_run(trainer, stage, BF16_GAN_KEYS["train_max_steps"])
+    all_float32([trainer.generator, *trainer.discriminators.values()],
+                [trainer.gen_optimizer, *trainer.disc_optimizers.values()])
+    if trainer.generator.dtype != torch.bfloat16:
+        raise AssertionError("train_hifigan did not train in bf16")
+    log("bf16_voc_train", steps=trainer.steps_taken, batch=trainer.config["batch_size"],
+        seconds=round(seconds, 3), params_and_moments="float32",
+        losses=gan_losses(trainer))
+
+    config16 = trainer.config
+    config32 = dict(config16, mixed_precision=False)
+    batch = gan_batch(trainer, GAN_SHAPE[0], torch.device("cuda"))
+    small = gan_batch(trainer, 2, torch.device("cuda"))
+    del trainer
+    torch.cuda.empty_cache()
+    steps = {"f32": gan_step_of(config32)[0], "bf16": gan_step_of(config16)[0]}
+    result = {}
+    for dt, step in steps.items():
+        for _ in range(3):
+            step(*batch)
+        torch.cuda.synchronize()
+        result[f"{dt}_host_syncs"] = len(host_syncs(lambda: step(*batch)))
+    times = collections.defaultdict(list)
+    for dt in ("f32", "bf16", "bf16", "f32"):
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps[dt](*batch)
+            torch.cuda.synchronize()
+            times[dt].append(time.perf_counter() - t0)
+    from torch.profiler import ProfilerActivity, profile
+
+    for dt, step in steps.items():
+        result[f"{dt}_ms"] = float(np.median(times[dt])) * 1e3
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                step(*batch)
+            torch.cuda.synchronize()
+        conv_ms, device_ms = conv_share(prof)
+        result[f"{dt}_conv_ms"], result[f"{dt}_device_ms"] = conv_ms / 2, device_ms / 2
+    del steps
+    torch.cuda.empty_cache()
+    log("bf16_gan_step", shape="B={}xT={}".format(*GAN_SHAPE),
+        f32_median_ms=round(result["f32_ms"], 3), bf16_median_ms=round(result["bf16_ms"], 3),
+        bf16_over_f32=round(result["bf16_ms"] / result["f32_ms"], 4),
+        f32_device_ms=round(result["f32_device_ms"], 3),
+        bf16_device_ms=round(result["bf16_device_ms"], 3),
+        f32_conv_ms=round(result["f32_conv_ms"], 3),
+        bf16_conv_ms=round(result["bf16_conv_ms"], 3),
+        f32_conv_share=share(result["f32_conv_ms"], result["f32_device_ms"]),
+        bf16_conv_share=share(result["bf16_conv_ms"], result["bf16_device_ms"]),
+        f32_host_syncs=result["f32_host_syncs"], bf16_host_syncs=result["bf16_host_syncs"])
+
+    wav, mel = small
+    card16 = gan_losses_and_norms(config16, wav, mel)
+    card32 = gan_losses_and_norms(config32, wav, mel)
+    cpu16 = gan_losses_and_norms(config16, wav.cpu(), mel.cpu())
+    e_ref = np.abs(np.array(card16) - np.array(card32))
+    rule = within_e_ref("bf16 GAN step, B=2", card16, cpu16, e_ref)
+    log("bf16_gan_card_vs_cpu", shape="B={}xT={}".format(*wav.shape[:2]),
+        quantities="gen_loss,dis_loss,gen_grad_norm,dis_grad_norm",
+        card_bf16=",".join(f"{v:.6g}" for v in card16),
+        cpu_bf16=",".join(f"{v:.6g}" for v in cpu16),
+        card_f32=",".join(f"{v:.6g}" for v in card32),
+        gaps=",".join(f"{v:.3g}" for v in rule["gap"]),
+        e_refs=",".join(f"{v:.3g}" for v in rule["e_ref"]))
+    return ckpt_path(stage, BF16_GAN_KEYS["train_max_steps"]), result
+
+
+def time_alternating(runs: dict, order, n: int) -> dict:
+    """Median milliseconds of each run, n timed calls a turn, each call
+    between two synchronizes, the turns in ``order``."""
+    import torch
+
+    times = collections.defaultdict(list)
+    for name in order:
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[name]()
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+    return {name: float(np.median(v)) * 1e3 for name, v in times.items()}
+
+
+def bf16_sambert(tmp: str):
+    """(c) 5 bf16 steps of sambert_16k_MAS through train_sambert on a
+    34-utterance MAS corpus of phase 4's kind (K1 in each); the train step at 32 x 96 x 576 timed beside f32;
+    acoustic inference at B=8 on a 576-frame budget, bf16 against f32 (mel
+    gap and time, the f32 durations fed to both); and a forward and backward at B=4 on the
+    card against the CPU under the bf16 rule. -> (the bf16 checkpoint of
+    step 5, K1 launches in the 5 steps, results)."""
+    import torch
+
+    from kantts_tpu_torch.bin.infer_sambert import encode_symbol_inputs
+    from kantts_tpu_torch.bin.train_sambert import train
+    from kantts_tpu_torch.configs import get_config
+    from kantts_tpu_torch.models.builder import build_sambert, sambert_model_builder
+    from kantts_tpu_torch.models.sambert.sambert import sambert_infer
+    from kantts_tpu_torch.ops.mas import b_mas_cuda
+    from kantts_tpu_torch.serve.service import resolve_frontend
+    from kantts_tpu_torch.losses import criterion_builder
+    from kantts_tpu_torch.text.ling_unit import KanTtsLinguisticUnit
+    from kantts_tpu_torch.train.steps import make_sambert_step
+    from kantts_tpu_torch.train.trainer import batch_to_device
+    from kantts_tpu_torch.utils.corpus import write_mas_corpus
+
+    stage = os.path.join(tmp, "bf16_train")
+    steps = SHORT_KEYS["train_max_steps"]
+    data = os.path.join(tmp, "bf16_corpus")
+    write_mas_corpus(data, 34, (60, 90), (400, 570), seed=1)
+    b_mas_cuda.launches = 0
+    t0 = time.perf_counter()
+    trainer = train(train_config(os.path.join(stage, "model.yaml"), mixed_precision=True,
+                                 **CACHED_SHORT_KEYS), data, stage)
+    seconds = time.perf_counter() - t0
+    launches = b_mas_cuda.launches
+    if trainer.steps_taken != steps or not os.path.exists(ckpt_path(stage, steps)):
+        raise AssertionError(f"bf16 AM: {trainer.steps_taken} steps, expected {steps}")
+    if launches < steps:
+        raise AssertionError(f"bf16 AM: K1 launched {launches} times in {steps} steps")
+    if trainer.model.mel_decoder.dtype != torch.bfloat16:
+        raise AssertionError("train_sambert did not train in bf16")
+    all_float32([trainer.model], [trainer.optimizer])
+    for kind, at, means in trainer.history:
+        if not all(np.isfinite(v) for v in means.values()):
+            raise AssertionError(f"bf16 AM {kind} metrics at step {at}: {means}")
+    log("bf16_am_train", steps=steps, batch=trainer.config["batch_size"],
+        seconds=round(seconds, 3), k1_launches=launches, params_and_moments="float32",
+        total_loss=json.dumps({f"{k}@{a}": round(m[f"{k}/TotalLoss"], 4)
+                               for k, a, m in trainer.history}).replace(" ", ""))
+
+    config16 = trainer.config
+    config32 = dict(config16, mixed_precision=False)
+    ds = trainer.train_loader.dataset
+    batch_np = ds.collate_fn(longest_items(trainer, TRAIN_SHAPE[0]))
+    small_np = ds.collate_fn(longest_items(trainer, 4))
+    del trainer
+    batch = batch_to_device(batch_np, torch.device("cuda"))
+    shape = (*batch["input_lings"].shape[:2], batch["mel_targets"].shape[1])
+    if shape != TRAIN_SHAPE:
+        raise AssertionError(f"timing batch {shape}, expected {TRAIN_SHAPE}")
+    runs = {}
+    for dt, cfg in (("f32", config32), ("bf16", config16)):
+        built = sambert_model_builder(cfg, 0, torch.device("cuda"))
+        step = make_sambert_step(built["model"], criterion_builder(cfg),
+                                 built["optimizer"], built["scheduler"], built["clip"],
+                                 True)
+        for _ in range(3):
+            step(batch, EPOCH)
+        runs[dt] = lambda step=step: step(batch, EPOCH)
+    step_ms = time_alternating(runs, ("f32", "bf16", "bf16", "f32"), 5)
+    del runs
+    torch.cuda.empty_cache()
+
+    am_cfg = get_config("sambert_16k_MAS")
+    am_cfg["Model"]["KanTtsSAMBERT"]["params"]["dur_pred_bias_init"] = 2.2
+    models = {"f32": build_sambert(am_cfg, seed=1).cuda(),
+              "bf16": build_sambert(dict(am_cfg, mixed_precision=True), seed=1).cuda()}
+    lu = KanTtsLinguisticUnit(am_cfg)
+    seqs = [s for line in resolve_frontend("pinyin").text_to_symbols(TEXTS) for s in line]
+    seqs = (seqs * 8)[:8]
+    L_in = 32 * -(-max(len(lu.encode_symbol_sequence(s)[0]) - 1 for s in seqs) // 32)
+    parts = [encode_symbol_inputs(lu, s, L_in) for s in seqs]
+    args = [torch.from_numpy(np.concatenate([p[i] for p in parts])).cuda()
+            for i in range(4)]
+    args = [a.long() for a in args[:3]] + [args[3]]
+    with torch.no_grad():
+        ref = sambert_infer(models["f32"], *args, AM_INFER_FRAMES)
+        durs = torch.floor(ref["duration_predictions"] + 0.5)
+        infer = {dt: (lambda m=m: sambert_infer(m, *args, AM_INFER_FRAMES,
+                                                duration_override=durs))
+                 for dt, m in models.items()}
+        mel = {dt: f()["postnet_outputs"].float() for dt, f in infer.items()}
+        infer_ms = time_alternating(infer, ("bf16", "f32"), 1)
+    mel_gap = (mel["bf16"] - mel["f32"]).abs().max().item()
+    mel_scale = mel["f32"].abs().max().item()
+    del models
+    log("bf16_am_step_and_infer", step_shape="B={}xT_in={}xT_mel={}".format(*TRAIN_SHAPE),
+        f32_step_median_ms=round(step_ms["f32"], 3),
+        bf16_step_median_ms=round(step_ms["bf16"], 3),
+        step_bf16_over_f32=round(step_ms["bf16"] / step_ms["f32"], 4),
+        infer_b8_f32_ms=round(infer_ms["f32"], 3), infer_b8_bf16_ms=round(infer_ms["bf16"], 3),
+        infer_bf16_over_f32=round(infer_ms["bf16"] / infer_ms["f32"], 4),
+        infer_mel_gap=mel_gap, infer_mel_max_abs_f32=mel_scale, infer_mel_tol=0.1 * mel_scale)
+    if not mel_gap <= 0.1 * mel_scale:
+        raise AssertionError(f"bf16 AM inference: mel gap {mel_gap} > 0.1 x {mel_scale}")
+
+    loss16, norm16, hard = sambert_loss_and_norm(config16, small_np, torch.device("cuda"))
+    loss32, norm32, _ = sambert_loss_and_norm(config32, small_np, torch.device("cuda"), hard)
+    cpu_loss, cpu_norm, _ = sambert_loss_and_norm(config16, small_np, torch.device("cpu"),
+                                                  hard)
+    rule = within_e_ref("bf16 AM forward+backward, B=4", [loss16, norm16],
+                        [cpu_loss, cpu_norm], [abs(loss16 - loss32), abs(norm16 - norm32)])
+    log("bf16_am_card_vs_cpu", shape="B=4xT_in={}xT_mel={}".format(
+        small_np["input_lings"].shape[1], small_np["mel_targets"].shape[1]),
+        loss_card=loss16, loss_cpu=cpu_loss, loss_card_f32=loss32, grad_norm_card=norm16,
+        grad_norm_cpu=cpu_norm, grad_norm_card_f32=norm32,
+        gaps=",".join(f"{v:.3g}" for v in rule["gap"]),
+        e_refs=",".join(f"{v:.3g}" for v in rule["e_ref"]))
+    return ckpt_path(stage, steps), launches, {"step_ms": step_ms, "infer_ms": infer_ms,
+                                               "mel_gap": mel_gap}
+
+
+def am_forward_card_vs_cpu(name: str, config, batch_np) -> float:
+    """The teacher-forced forward of ``config``'s seeded SAM-BERT (eval mode)
+    on a collated batch, on the card and on the CPU, the CPU fed the card's
+    hard alignment under MAS. Tolerance 1e-3, as phase 6's: float32 on both,
+    the order of sums differs. -> max |diff| of the postnet mel."""
+    import torch
+
+    import kantts_tpu_torch.models.sambert.sambert as sambert_module
+    from kantts_tpu_torch.models.builder import build_sambert
+    from kantts_tpu_torch.train.steps import sambert_forward
+    from kantts_tpu_torch.train.trainer import batch_to_device
+
+    model = build_sambert(config, seed=0)
+    mas_align = sambert_module.mas_align
+    hard, out = {}, {}
+    for device in ("cuda", "cpu"):
+        def align(*args, device=device):
+            if device == "cuda":
+                hard["card"] = mas_align(*args)
+            return hard["card"].to(device)
+
+        sambert_module.mas_align = align
+        try:
+            with torch.no_grad():
+                out[device] = sambert_forward(model.to(device).eval(),
+                                              batch_to_device(batch_np, torch.device(device))
+                                              )["postnet_outputs"].cpu()
+        finally:
+            sambert_module.mas_align = mas_align
+    err = (out["cuda"] - out["cpu"]).abs().max().item()
+    log(name, shape="B={}xT_in={}xT_mel={}".format(
+        *batch_np["input_lings"].shape[:2], batch_np["mel_targets"].shape[1]),
+        mel_max_abs_err=err, tol=1e-3)
+    if not (np.isfinite(out["cuda"]).all() and err <= 1e-3):
+        raise AssertionError(f"{name}: card vs CPU {err} > 1e-3")
+    return err
+
+
+def short_am_train(tmp: str, name: str, stage_name: str, data: str):
+    """5 steps of ``name`` as published through train_sambert on ``data``.
+    -> (trainer, K1 launches, seconds)."""
+    from kantts_tpu_torch.bin.train_sambert import train
+    from kantts_tpu_torch.ops.mas import b_mas_cuda
+
+    stage = os.path.join(tmp, stage_name)
+    b_mas_cuda.launches = 0
+    t0 = time.perf_counter()
+    trainer = train(train_config(os.path.join(stage, "model.yaml"), name,
+                                 **CACHED_SHORT_KEYS), data, stage)
+    seconds = time.perf_counter() - t0
+    steps = SHORT_KEYS["train_max_steps"]
+    if trainer.steps_taken != steps or not os.path.exists(ckpt_path(stage, steps)):
+        raise AssertionError(f"{name}: {trainer.steps_taken} steps, expected {steps}")
+    for kind, at, means in trainer.history:
+        if not all(np.isfinite(v) for v in means.values()):
+            raise AssertionError(f"{name} {kind} metrics at step {at}: {means}")
+    return trainer, b_mas_cuda.launches, seconds
+
+
+def text_to_wav_cli(out: str, am_ckpt: str, voc_ckpt: str, *args) -> dict:
+    """``python -m kantts_tpu_torch.bin.text_to_wav`` with no --device. ->
+    its printed stats."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "kantts_tpu_torch.bin.text_to_wav", "--am_ckpt", am_ckpt,
+         "--voc_ckpt", voc_ckpt, "--output_dir", out, *args],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"text_to_wav exited {proc.returncode}:\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    stats = json.loads(proc.stdout.strip().splitlines()[-1])
+    if stats["device"] != "cuda":
+        raise AssertionError(f"text_to_wav ran on {stats['device']}")
+    return stats
+
+
+def byte_voice(tmp: str, voc_ckpt: str) -> int:
+    """(e) Full-width sambert_16k_MAS_byte, seeded (duration bias 2.2): byte
+    symbols of 4 hanzi lines from ``turn_text_into_bytes``, then
+    ``text_to_wav --symbols_file`` with phase 6's vocoder; 5 MAS train
+    steps on a byte corpus, K1 in each; the forward card vs CPU at B=4.
+    -> K1 launches in the 5 steps."""
+    from kantts_tpu_torch.models.builder import model_builder, save_checkpoint
+    from kantts_tpu_torch.preprocess.script_convertor import turn_text_into_bytes
+    from kantts_tpu_torch.utils.config import load_yaml
+    from kantts_tpu_torch.utils.corpus import write_am_corpus
+
+    root = os.path.join(tmp, "byte")
+    os.makedirs(root)
+    text, symbols = os.path.join(root, "hanzi.txt"), os.path.join(root, "symbols.lst")
+    with open(text, "w", encoding="utf-8") as f:
+        f.write("".join(f"{i}\t{line}\n" for i, line in enumerate(HANZI)))
+    turn_text_into_bytes(text, symbols, "F7")
+    cfg = load_yaml(os.path.join(CONFIGS, "sambert_16k_MAS_byte.yaml"))
+    cfg["Model"]["KanTtsSAMBERT"]["params"]["dur_pred_bias_init"] = 2.2
+    am_ckpt = os.path.join(root, "am.pt")
+    save_checkpoint(am_ckpt, model_builder(cfg, seed=1), cfg)
+    out = os.path.join(root, "cli")
+    stats = text_to_wav_cli(out, am_ckpt, voc_ckpt, "--symbols_file", symbols)
+    n_sent = check_wavs(out)
+    with open(symbols, encoding="utf-8") as f:
+        n_bytes = [len(line.split("\t")[1].split()) for line in f]
+    log("byte_text_to_wav_cli", sentences=n_sent, bytes_per_line=n_bytes,
+        am_frames=stats["am_frames"], audio_s=round(stats["audio_seconds"], 3))
+
+    data = os.path.join(root, "corpus")
+    write_am_corpus(data, 24, (60, 90), (400, 570), seed=0, byte=True)
+    trainer, launches, seconds = short_am_train(tmp, "sambert_16k_MAS_byte",
+                                                "byte_train", data)
+    if not trainer.model.text_encoder.using_byte or launches < SHORT_KEYS["train_max_steps"]:
+        raise AssertionError(f"byte AM: using_byte {trainer.model.text_encoder.using_byte}, "
+                             f"K1 launches {launches}")
+    log("byte_am_train", steps=trainer.steps_taken, batch=trainer.config["batch_size"],
+        seconds=round(seconds, 3), k1_launches=launches)
+    items = trainer.train_loader.dataset.collate_fn(longest_items(trainer, 4))
+    am_forward_card_vs_cpu("byte_am_card_vs_cpu", trainer.config, items)
+    return launches
+
+
+def se_voice(tmp: str) -> int:
+    """(f) Full-width sambert_se_nsf_global_16k and
+    hifigan_noncausal_nsf_global_v1_16k, seeded, with a seeded 192-d
+    ``se.npy``: ``text_to_wav --se_file`` (no --device); ``TTSService`` with
+    ``se_file`` answering 4 ``/tts`` requests; 5 train steps on an SE
+    corpus; the forward card vs CPU at B=4. K1 must not launch. -> K1's
+    launches (0)."""
+    from kantts_tpu_torch.models.builder import model_builder, save_checkpoint
+    from kantts_tpu_torch.ops.mas import b_mas_cuda
+    from kantts_tpu_torch.utils.config import load_yaml
+    from kantts_tpu_torch.utils.corpus import write_am_corpus
+
+    root = os.path.join(tmp, "se")
+    os.makedirs(root)
+    b_mas_cuda.launches = 0
+    am_cfg = load_yaml(os.path.join(CONFIGS, "sambert_se_nsf_global_16k.yaml"))
+    am_cfg["Model"]["KanTtsSAMBERT"]["params"]["dur_pred_bias_init"] = 2.2
+    voc_cfg = load_yaml(os.path.join(CONFIGS, "hifigan_noncausal_nsf_global_v1_16k.yaml"))
+    voc_cfg["audio_config"] = {"sampling_rate": 16000}
+    am_ckpt, voc_ckpt = os.path.join(root, "am.pt"), os.path.join(root, "voc.pt")
+    save_checkpoint(am_ckpt, model_builder(am_cfg, seed=1), am_cfg)
+    save_checkpoint(voc_ckpt, model_builder(voc_cfg, seed=2), voc_cfg)
+    se_file = os.path.join(root, "se.npy")
+    np.save(se_file, np.random.RandomState(12).randn(SE_UNITS).astype(np.float32))
+    text = os.path.join(root, "text.txt")
+    with open(text, "w", encoding="utf-8") as f:
+        f.write("\n".join(TEXTS) + "\n")
+    out = os.path.join(root, "cli")
+    stats = text_to_wav_cli(out, am_ckpt, voc_ckpt, "--txt", text, "--se_file", se_file,
+                            "--am_batch", "4")
+    n_sent = check_wavs(out)
+    check_nsf_mels(np.load(p) for p in glob.glob(os.path.join(out, "feat", "*_mel.npy")))
+    log("se_text_to_wav_cli", sentences=n_sent, am_frames=stats["am_frames"],
+        audio_s=round(stats["audio_seconds"], 3))
+    nsf_serve(am_ckpt, voc_ckpt, se_file=se_file, sr=16000, hop=HOP, name="se_serve")
+
+    data = os.path.join(root, "corpus")
+    write_am_corpus(data, 40, (60, 90), (400, 570), seed=0, durations=True, nsf=True,
+                    se_units=SE_UNITS)
+    trainer, _, seconds = short_am_train(tmp, "sambert_se_nsf_global_16k", "se_train",
+                                         data)
+    if not (trainer.model.se_enable and trainer.model.d_mel == 82):
+        raise AssertionError("SE AM: not an 82-channel SE model")
+    log("se_am_train", steps=trainer.steps_taken, batch=trainer.config["batch_size"],
+        seconds=round(seconds, 3))
+    items = trainer.train_loader.dataset.collate_fn(longest_items(trainer, 4))
+    if items["input_speakers"].shape[-1] != SE_UNITS:
+        raise AssertionError(f"SE batch speakers {items['input_speakers'].shape}")
+    am_forward_card_vs_cpu("se_am_card_vs_cpu", trainer.config, items)
+    if b_mas_cuda.launches != 0:
+        raise AssertionError(f"the SE path launched K1 {b_mas_cuda.launches} times")
+    return b_mas_cuda.launches
+
+
+def phase_bf16_se_byte(tmp: str, voc_ckpt: str) -> dict:
+    """Phase 10, (a)-(f) above. -> K1 launches by path, and results."""
+    import torch
+
+    t_phase = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.empty_cache()
+        seconds[name] = round(time.perf_counter() - t0, 3)
+        return out
+
+    voc = timed("a", bf16_vocoder)
+    gan_ckpt, gan = timed("b", bf16_gan, tmp)
+    am_ckpt, bf16_launches, am = timed("c", bf16_sambert, tmp)
+    out = os.path.join(tmp, "bf16_cli")
+    stats = timed("d", text_to_wav_cli, out, am_ckpt, gan_ckpt, "--txt",
+                  os.path.join(tmp, "text.txt"), "--am_batch", "4")
+    log("bf16_text_to_wav_cli", sentences=check_wavs(out), am_frames=stats["am_frames"],
+        audio_s=round(stats["audio_seconds"], 3))
+    byte_launches = timed("e", byte_voice, tmp, voc_ckpt)
+    se_launches = timed("f", se_voice, tmp)
+    log("bf16_se_byte", k1_launches_bf16=bf16_launches, k1_launches_byte=byte_launches,
+        k1_launches_se=se_launches, seconds=json.dumps(seconds).replace(" ", ""),
+        phase_s=round(time.perf_counter() - t_phase, 3))
+    return {"k1_launches": {"bf16_train_sambert": bf16_launches,
+                            "byte_train_sambert": byte_launches, "se": se_launches},
+            "vocoder": voc, "gan": gan, "am": am}
+
+
 def old_k1(src: str):
     """Build an earlier K1 source with the same nvcc flags; it has the first
     K1's C interface (the caller zeroes the output and passes a uint8
@@ -1903,6 +2498,7 @@ def main(argv) -> int:
                              ckpt_path(os.path.join(tmp, "voc_train"), 40))
         serve = phase_serve(tmp, am_ckpt, voc_ckpt)
         nsf = phase_nsf(tmp)
+        bf16 = phase_bf16_se_byte(tmp, voc_ckpt)
     import torch
 
     train = k1["train"]
@@ -1910,11 +2506,12 @@ def main(argv) -> int:
         "name": "K1 mas_width1 (MAS Viterbi)", "route": "cuda",
         "source": "kantts_tpu_torch/csrc/mas.cu",
         "replaces": "kantts_tpu/ops/mas_pallas.py:91",
-        "launches": fwd_launches + train_launches,
+        "launches": (fwd_launches + train_launches
+                     + sum(bf16["k1_launches"].values())),
         "launches_by_path": {"mas_forward": fwd_launches,
                              "train_sambert": train_launches,
                              "serve": serve["k1_launches"],
-                             "nsf": nsf["k1_launches"]},
+                             "nsf": nsf["k1_launches"], **bf16["k1_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
         "ms": train["ms"], "plain_ms": train["plain_ms"],
         "bound_ms": train["bound_ms"], "bound_by": train["bound_by"],

@@ -130,7 +130,7 @@ def hifigan_infer(input_mel: str, ckpt: str, output_dir: str,
         synchronize(device)
         t0 = time.perf_counter()
         with torch.inference_mode():
-            y = vocode(model, pqmf, mel_in, chunked).cpu().numpy()
+            y = vocode(model, pqmf, mel_in, chunked).float().cpu().numpy()
         elapsed = time.perf_counter() - t0
         hop = y.shape[1] // mel_in.shape[1]
         secs = 0.0

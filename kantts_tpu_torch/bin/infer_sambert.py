@@ -5,10 +5,12 @@ Per line of the sentence file (``utt_id<TAB>symbols``) it writes
 ``feat/{utt}_mel.npy`` and the duration, f0 and energy text files.
 Utterances of a group pad to a common symbol bucket (a multiple of
 ``input_bucket``) and get a frame budget of ``frames_per_symbol`` per padded
-symbol, as in the JAX package; ``--batch`` groups utterances per forward.
+symbol, as in the JAX package; ``--batch`` groups utterances per forward. An
+SE voice takes its speaker embedding from ``--se_file`` (a (speaker_units,)
+npy), repeated over the symbols; other voices ignore it.
 
     python -m kantts_tpu_torch.bin.infer_sambert --sentence S --ckpt AM.pt \
-        --output_dir OUT [--batch B] [--device cuda|cpu]
+        --output_dir OUT [--batch B] [--se_file SE.npy] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -65,10 +67,11 @@ def nsf_denormaliser(params: dict, ckpt: str):
 
 
 def encode_symbol_inputs(ling_unit, symbol_seq: str, max_input_len: int,
-                         n_ling: int = 4):
+                         n_ling: int = 4, se: Optional[np.ndarray] = None):
     """One symbol sequence -> padded int32 arrays (ling (1, L, n_ling), emo
     (1, L), spk (1, L), lengths (1,)): the trailing EOS is dropped and each
-    track pads with its own pad id."""
+    track pads with its own pad id. With ``se`` the speaker input is that
+    embedding repeated over all L positions, (1, L, speaker_units) float32."""
     feats = ling_unit.encode_symbol_sequence(symbol_seq)
     n = len(feats[0]) - 1
     if n > max_input_len:
@@ -80,30 +83,48 @@ def encode_symbol_inputs(ling_unit, symbol_seq: str, max_input_len: int,
                       constant_values=ling_unit.pad_id(types[i]))
 
     ling = np.stack([pad_track(i) for i in range(n_ling)], axis=-1)
-    emo, spk = pad_track(n_ling), pad_track(n_ling + 1)
-    return (ling[None].astype(np.int32), emo[None].astype(np.int32),
-            spk[None].astype(np.int32), np.asarray([n], dtype=np.int32))
+    if se is not None:
+        spk = np.repeat(se.reshape(1, -1), max_input_len, axis=0).astype(np.float32)
+    else:
+        spk = pad_track(n_ling + 1).astype(np.int32)
+    return (ling[None].astype(np.int32), pad_track(n_ling)[None].astype(np.int32),
+            spk[None], np.asarray([n], dtype=np.int32))
+
+
+def load_se(model: KanTtsSAMBERT, se_file: Optional[str]) -> Optional[np.ndarray]:
+    """The speaker embedding an SE voice reads from ``se_file``; None for any
+    other voice, which ignores the file, as the JAX package does."""
+    if not model.se_enable:
+        return None
+    if se_file is None:
+        raise ValueError("an SE voice needs its speaker embedding: pass se_file")
+    return np.load(se_file).astype(np.float32)
 
 
 def am_synthesis_batch(symbol_seqs: List[str], model: KanTtsSAMBERT,
                        ling_unit, input_bucket: int = 32,
                        frames_per_symbol: int = 24,
-                       batch_pad_to: Optional[int] = None):
+                       batch_pad_to: Optional[int] = None,
+                       se: Optional[np.ndarray] = None):
     """A group of utterances through one acoustic forward. The batch pads
     to ``batch_pad_to`` by repeating the last item; per-item band widths keep
-    each utterance's output what its own B=1 run gives. Returns one
-    (dec_mel, postnet_mel, durations, f0, energy) of numpy arrays per input."""
+    each utterance's output what its own B=1 run gives. ``se`` is an SE
+    voice's speaker embedding (``load_se``). Returns one (dec_mel,
+    postnet_mel, durations, f0, energy) of numpy arrays per input."""
     device = next(model.parameters()).device
     r = model.r
+    n_ling = 1 if ling_unit.using_byte() else 4
     ns = [len(ling_unit.encode_symbol_sequence(s)[0]) - 1 for s in symbol_seqs]
     L_in = int(np.ceil(max(max(ns), 1) / input_bucket) * input_bucket)
-    parts = [encode_symbol_inputs(ling_unit, s, L_in) for s in symbol_seqs]
+    parts = [encode_symbol_inputs(ling_unit, s, L_in, n_ling, se)
+             for s in symbol_seqs]
     parts += [parts[-1]] * ((batch_pad_to or 0) - len(parts))
     ling, emo, spk, lengths = (
         torch.from_numpy(np.concatenate([p[i] for p in parts])).to(device)
         for i in range(4))
     max_output_len = int(np.ceil(L_in * frames_per_symbol / r) * r)
-    res = sambert_infer(model, ling.long(), emo.long(), spk.long(), lengths,
+    res = sambert_infer(model, ling.long(), emo.long(),
+                        spk if se is not None else spk.long(), lengths,
                         max_output_len)
     res = {k: v.cpu().numpy() for k, v in res.items()}
     durs = np.floor(np.exp(res["log_duration_predictions"]) - 1 + 0.5
@@ -122,11 +143,12 @@ def am_synthesis_batch(symbol_seqs: List[str], model: KanTtsSAMBERT,
 
 
 def am_synthesis(symbol_seq: str, model: KanTtsSAMBERT, ling_unit,
-                 input_bucket: int = 32, frames_per_symbol: int = 24):
+                 input_bucket: int = 32, frames_per_symbol: int = 24,
+                 se: Optional[np.ndarray] = None):
     """One utterance (B=1) through ``am_synthesis_batch``."""
     return am_synthesis_batch([symbol_seq], model, ling_unit,
                               input_bucket=input_bucket,
-                              frames_per_symbol=frames_per_symbol)[0]
+                              frames_per_symbol=frames_per_symbol, se=se)[0]
 
 
 def load_am(ckpt: str, device: torch.device):
@@ -136,12 +158,15 @@ def load_am(ckpt: str, device: torch.device):
 
 
 def am_infer(sentence: str, ckpt: str, output_dir: str, batch: int = 1,
-             device: Union[str, torch.device] = "cuda") -> dict:
+             device: Union[str, torch.device] = "cuda",
+             se_file: Optional[str] = None) -> dict:
     """Synthesize every line of ``sentence`` on ``device`` ("cuda", the
     default, raises without a card; or "cpu"); returns {"frames", "seconds"}
-    over the acoustic forwards (the clock read after a device sync)."""
+    over the acoustic forwards (the clock read after a device sync).
+    ``se_file``: an SE voice's speaker embedding (``load_se``)."""
     device = resolve_device(device)
     model, ling_unit = load_am(ckpt, device)
+    se = load_se(model, se_file)
     denorm = nsf_denormaliser(model.config, ckpt)
     results_dir = os.path.join(output_dir, "feat")
     os.makedirs(results_dir, exist_ok=True)
@@ -158,7 +183,7 @@ def am_infer(sentence: str, ckpt: str, output_dir: str, batch: int = 1,
         synchronize(device)
         t0 = time.perf_counter()
         results = am_synthesis_batch([utts[i][1] for i in group], model,
-                                     ling_unit, batch_pad_to=batch)
+                                     ling_unit, batch_pad_to=batch, se=se)
         synchronize(device)
         elapsed = time.perf_counter() - t0
         n_frames = sum(res[1].shape[0] for res in results)
@@ -184,11 +209,13 @@ def main(argv=None):
     parser.add_argument("--ckpt", type=str, required=True)
     parser.add_argument("--batch", type=int, default=1,
                         help="utterances per acoustic forward")
+    parser.add_argument("--se_file", type=str, default=None,
+                        help="speaker embedding (.npy) of an SE voice")
     parser.add_argument("--device", type=str, default="cuda",
                         choices=("cuda", "cpu"))
     args = parser.parse_args(argv)
     am_infer(args.sentence, args.ckpt, args.output_dir, batch=args.batch,
-             device=args.device)
+             device=args.device, se_file=args.se_file)
 
 
 if __name__ == "__main__":

@@ -38,7 +38,7 @@ def main(argv=None):
     parser.add_argument("--speaker", type=str, default="F7")
     parser.add_argument("--lang", type=str, default="PinYin")
     parser.add_argument("--se_file", type=str, default=None,
-                        help="speaker embedding (not ported yet: raises)")
+                        help="speaker embedding (.npy) of an SE voice")
     parser.add_argument("--max_batch", type=int, default=8,
                         help="utterances per batched call (the fixed batch dim)")
     parser.add_argument("--max_wait_ms", type=float, default=20.0,

@@ -63,11 +63,12 @@ def text_to_wav(output_dir: str, am_ckpt: str, voc_ckpt: str,
                 frontend: Optional[str] = None, speaker: str = "F7",
                 lang: str = "PinYin", am_batch: int = 1, chunked: int = 0,
                 voc_batch: int = 1,
-                device: Union[str, torch.device] = "cuda") -> dict:
+                device: Union[str, torch.device] = "cuda",
+                se_file: Optional[str] = None) -> dict:
     """Runs on ``device``: "cuda" (the default, which raises without a card)
-    or "cpu". Returns the run's counts and times: mel frames and seconds of
-    the acoustic model, audio and seconds of the vocoder, and the wall time
-    of the whole path."""
+    or "cpu". ``se_file`` is an SE voice's speaker embedding. Returns the
+    run's counts and times: mel frames and seconds of the acoustic model,
+    audio and seconds of the vocoder, and the wall time of the whole path."""
     device = resolve_device(device)
     os.makedirs(output_dir, exist_ok=True)
     synchronize(device)
@@ -84,7 +85,7 @@ def text_to_wav(output_dir: str, am_ckpt: str, voc_ckpt: str,
                     f.write(f"{i}_{j}\t{seq}\n")
 
     am = am_infer(symbols_path, am_ckpt, output_dir, batch=am_batch,
-                  device=device)
+                  device=device, se_file=se_file)
     mel_list = os.path.join(output_dir, "mel.lst")
     with open(mel_list, "w") as f:
         for mel in sorted(glob.glob(os.path.join(output_dir, "feat", "*_mel.npy"))):
@@ -113,6 +114,8 @@ def main(argv=None):
     parser.add_argument("--am_ckpt", type=str, required=True)
     parser.add_argument("--voc_ckpt", type=str, required=True)
     parser.add_argument("--speaker", type=str, default="F7")
+    parser.add_argument("--se_file", type=str, default=None,
+                        help="speaker embedding (.npy) of an SE voice")
     parser.add_argument("--lang", type=str, default="PinYin")
     parser.add_argument("--am_batch", type=int, default=1, metavar="B",
                         help="utterances per acoustic forward")
@@ -130,7 +133,8 @@ def main(argv=None):
     stats = text_to_wav(args.output_dir, args.am_ckpt, args.voc_ckpt, args.txt,
                         args.symbols_file, args.frontend, args.speaker,
                         args.lang, am_batch=args.am_batch, chunked=args.chunked,
-                        voc_batch=args.voc_batch, device=args.device)
+                        voc_batch=args.voc_batch, device=args.device,
+                        se_file=args.se_file)
     print(json.dumps(stats))
 
 

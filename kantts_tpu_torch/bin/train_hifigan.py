@@ -31,7 +31,7 @@ import torch
 
 from kantts_tpu_torch.data.dataset import DataLoader, DistributedSampler, get_voc_datasets
 from kantts_tpu_torch.losses import criterion_builder
-from kantts_tpu_torch.models.builder import check_vocoder_ported, hifigan_gan_builder
+from kantts_tpu_torch.models.builder import hifigan_gan_builder, vocoder_dtype
 from kantts_tpu_torch.train.steps import make_gan_eval_step, make_gan_step
 from kantts_tpu_torch.train.trainer import GanTrainer
 from kantts_tpu_torch.utils.config import load_merged_config, stamp_and_dump
@@ -71,7 +71,7 @@ def train(model_config: str, root_dir: Union[str, Sequence[str]], stage_dir: str
 def _train(model_config, roots, stage_dir, resume_path, resume_training_state,
            device) -> GanTrainer:
     config = stamp_and_dump(load_merged_config(roots[0], model_config), stage_dir)
-    check_vocoder_ported(config)
+    vocoder_dtype(config)  # refuses bf16 with PQMF before the data loads
     train_dataset, valid_dataset = get_voc_datasets(config, roots)
     logging.info("train + valid: %d + %d", len(train_dataset), len(valid_dataset))
     train_loader = VocLoader(

@@ -56,7 +56,7 @@ def _train(model_config, roots, stage_dir, resume_path, device) -> SambertTraine
     params = config["Model"]["KanTtsSAMBERT"]["params"]
     train_dataset, valid_dataset = get_am_datasets(
         [os.path.join(d, "raw_metafile.txt") for d in roots], roots, config,
-        config.get("allow_cache", False),
+        config.get("allow_cache", False), se_enable=params.get("SE", False),
         input_bucket=int(config.get("input_bucket", 16)),
         frame_bucket=int(config.get("frame_bucket", 96)))
     logging.info("train + valid: %d + %d", len(train_dataset), len(valid_dataset))

@@ -247,10 +247,13 @@ def get_voc_datasets(config, root_dir, split_ratio=0.98):
 
 
 class AMDataset:
-    """(ling, mel, dur, f0, energy, prior) items with bucketed collate. With
-    ``NSF`` the mel carries frame f0 and uv as its last two channels; the
-    ``global`` norm type maps f0 from the corpus's mean and std onto
-    [nsf_f0_global_minimum, nsf_f0_global_maximum] -> [0, 1]."""
+    """(ling, mel, dur, f0, energy, prior, se) items with bucketed collate.
+    With ``NSF`` the mel carries frame f0 and uv as its last two channels;
+    the ``global`` norm type maps f0 from the corpus's mean and std onto
+    [nsf_f0_global_minimum, nsf_f0_global_maximum] -> [0, 1]. With ``SE``
+    every item carries its corpus's speaker embedding ``se/se.npy``, which
+    the collate repeats over the item's tokens in place of speaker ids. A
+    byte voice has one linguistic track."""
 
     def __init__(self, config, metafile, root_dir, allow_cache=False,
                  input_bucket: int = 16, frame_bucket: int = 96):
@@ -261,6 +264,7 @@ class AMDataset:
         self.nsf_f0_global_minimum = params.get("nsf_f0_global_minimum", 30.0)
         self.nsf_f0_global_maximum = params.get("nsf_f0_global_maximum", 730.0)
         self.mas_enable = params.get("MAS", False)
+        self.se_enable = params.get("SE", False)
         self.r = params["outputs_per_step"]
         self.input_bucket = input_bucket
         self.frame_bucket = Padder.round_up(frame_bucket, self.r)
@@ -294,6 +298,7 @@ class AMDataset:
                 os.path.join(data_dir, "energy", index + ".npy"),
                 os.path.join(data_dir, "frame_f0", index + ".npy"),
                 os.path.join(data_dir, "frame_uv", index + ".npy"),
+                os.path.join(data_dir, "se", "se.npy"),
             ))
         return items
 
@@ -304,7 +309,7 @@ class AMDataset:
         if self.allow_cache and len(self.caches[idx]):
             return self.caches[idx]
         (ling_txt, mel_file, dur_file, f0_file, energy_file, frame_f0_file,
-         frame_uv_file) = self.meta[idx]
+         frame_uv_file, se_path) = self.meta[idx]
         ling_data = self.ling_unit.encode_symbol_sequence(ling_txt)
         mel = np.load(mel_file)
         dur = np.load(dur_file) if dur_file is not None else None
@@ -320,15 +325,16 @@ class AMDataset:
                     self.nsf_f0_global_maximum - self.nsf_f0_global_minimum)
             frame_uv = np.load(frame_uv_file).reshape(-1, 1)
             mel = np.concatenate([mel, frame_f0, frame_uv], axis=1)
+        se = np.load(se_path) if self.se_enable else None
         item = (ling_data, mel, dur, np.load(f0_file), np.load(energy_file),
-                attn_prior)
+                attn_prior, se)
         if self.allow_cache:
             self.caches[idx] = item
         return item
 
     @staticmethod
     def gen_metafile(raw_meta_file, out_dir, train_meta_file, valid_meta_file,
-                     split_ratio=0.98):
+                     split_ratio=0.98, se_enable=False):
         with open(raw_meta_file) as f:
             lines = f.readlines()
         train, valid = _split_metafile(lines, split_ratio)
@@ -343,11 +349,14 @@ class AMDataset:
                     if os.path.exists(duration_dir) and not os.path.exists(
                             os.path.join(duration_dir, index + ".npy")):
                         continue
+                    if se_enable and not os.path.exists(
+                            os.path.join(out_dir, "se", "se.npy")):
+                        continue
                     f.write(line)
 
     def collate_fn(self, batch) -> Dict[str, Any]:
         lu = self.ling_unit
-        n_ling = 4
+        n_ling = 1 if lu.using_byte() else 4
         lfeat_types = lu.lfeat_type_list
         max_in = max(len(x[0][0]) for x in batch)
         L_in = Padder.round_up(max_in, self.input_bucket)
@@ -359,7 +368,9 @@ class AMDataset:
         data: Dict[str, Any] = {
             "input_lings": np.stack([track(i) for i in range(n_ling)], axis=2),
             "input_emotions": track(n_ling),
-            "input_speakers": track(n_ling + 1),
+            "input_speakers": (Padder.stack_2d(
+                [np.repeat(x[6][None, :], len(x[0][0]), axis=0) for x in batch],
+                L_in, 0.0) if self.se_enable else track(n_ling + 1)),
             # EOS is appended to every track; it carries no duration
             "valid_input_lengths": np.asarray([len(x[0][0]) - 1 for x in batch],
                                               dtype=np.int32),
@@ -395,7 +406,7 @@ class AMDataset:
 
 
 def get_am_datasets(metafile, root_dir, config, allow_cache=False,
-                    split_ratio=0.98, **dataset_kwargs):
+                    split_ratio=0.98, se_enable=False, **dataset_kwargs):
     root_dir = root_dir if isinstance(root_dir, list) else [root_dir]
     metafile = metafile if isinstance(metafile, list) else [metafile]
     train_meta, valid_meta = [], []
@@ -404,7 +415,7 @@ def get_am_datasets(metafile, root_dir, config, allow_cache=False,
         vm = os.path.join(data_dir, "am_valid.lst")
         if not (os.path.exists(tm) and os.path.exists(vm)):
             AMDataset.gen_metafile(raw_metafile, data_dir, tm, vm,
-                                   split_ratio=split_ratio)
+                                   split_ratio=split_ratio, se_enable=se_enable)
         train_meta.append(tm)
         valid_meta.append(vm)
     return (AMDataset(config, train_meta, root_dir, allow_cache, **dataset_kwargs),

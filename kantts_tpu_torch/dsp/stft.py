@@ -35,10 +35,13 @@ def stft_complex(x: torch.Tensor, n_fft: int, hop_length: int,
                  pad_mode: str = "reflect") -> torch.Tensor:
     """Complex STFT: (..., T) -> (..., num_frames, n_fft // 2 + 1).
     ``window`` (default: the Hann window of ``win_length``) is zero-padded
-    to ``n_fft`` about its centre when it is shorter."""
+    to ``n_fft`` about its centre when it is shorter. A bf16 ``x`` is
+    transformed in float32, as the JAX package's product with its float32
+    window promotes it."""
     win_length = win_length or n_fft
     if window is None:
         window = torch.from_numpy(hann_window(win_length))
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
     window = window.to(device=x.device, dtype=x.dtype)
     if window.shape[-1] < n_fft:
         lpad = (n_fft - window.shape[-1]) // 2

@@ -91,5 +91,5 @@ def stream_synthesis(
         window = np.pad(window, [(0, pad), (0, 0)]).astype(np.float32)
         with torch.inference_mode():
             y = generator(torch.from_numpy(window[None]).to(device))
-            y = y[0, ctx * hop:(ctx + end - start) * hop].cpu().numpy()
+            y = y[0, ctx * hop:(ctx + end - start) * hop].float().cpu().numpy()
         yield y

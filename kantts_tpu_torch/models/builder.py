@@ -34,10 +34,13 @@ from kantts_tpu_torch.train.optim import optimizer_builder
 
 def sambert_params(config: Dict[str, Any]) -> Dict[str, Any]:
     """The KanTtsSAMBERT params of a full config, with the vocabulary sizes
-    of its linguistic unit filled in."""
+    of its linguistic unit filled in, and ``compute_dtype: bfloat16`` where
+    the config sets ``mixed_precision`` (unless the params name one)."""
     params = dict(config["Model"]["KanTtsSAMBERT"]["params"])
     if "linguistic_unit" in config:
         params.update(KanTtsLinguisticUnit(config).get_unit_size())
+    if config.get("mixed_precision", False):
+        params.setdefault("compute_dtype", "bfloat16")
     return params
 
 
@@ -114,12 +117,18 @@ def sambert_model_builder(config: Dict[str, Any], seed: int = 0,
             "clip": clip}
 
 
-def check_vocoder_ported(config: Dict[str, Any]) -> None:
-    """Raise NotImplementedError naming each part of a HiFi-GAN config that
-    the port does not have: bf16 compute (``mixed_precision``)."""
-    if config.get("mixed_precision", False):
-        raise NotImplementedError("not ported to kantts_tpu_torch yet: "
-                                  "mixed_precision (bf16)")
+def vocoder_dtype(config: Dict[str, Any]) -> Optional[torch.dtype]:
+    """The compute dtype of a HiFi-GAN config's generator and
+    discriminators: bf16 with ``mixed_precision``, else None (float32).
+    bf16 with a multi-band generator raises NotImplementedError: the JAX
+    package cannot run it either (its PQMF synthesis convolves a bf16 signal
+    with float32 filters and fails with a TypeError)."""
+    if not config.get("mixed_precision", False):
+        return None
+    if config["Model"]["Generator"]["params"].get("out_channels", 1) > 1:
+        raise NotImplementedError("mixed_precision (bf16) with a multi-band "
+                                  "generator (out_channels > 1, PQMF)")
+    return torch.bfloat16
 
 
 def build_pqmf(config: Dict[str, Any]) -> Optional[PQMF]:
@@ -130,7 +139,8 @@ def build_pqmf(config: Dict[str, Any]) -> Optional[PQMF]:
 
 
 def hifigan_model_builder(config: Dict[str, Any], seed: int = 0) -> Generator:
-    model = Generator(**config["Model"]["Generator"]["params"])
+    model = Generator(**config["Model"]["Generator"]["params"],
+                      dtype=vocoder_dtype(config))
     init_parameters(model, seed)
     return model.eval()
 
@@ -144,13 +154,14 @@ def hifigan_gan_builder(config: Dict[str, Any], seed: int = 0,
     ``generator_grad_norm`` and ``discriminator_grad_norm``). The
     discriminators are keyed by class name, in the JAX package's order;
     discriminator i is drawn from seed + 1 + i. ``pqmf`` is the filter bank
-    of a multi-band generator (``build_pqmf``), or None."""
-    check_vocoder_ported(config)
+    of a multi-band generator (``build_pqmf``), or None. Every network
+    computes in ``vocoder_dtype(config)``."""
     model_cfg = config["Model"]
     generator = hifigan_model_builder(config, seed).to(device).train()
     discriminators = {}
     for i, name in enumerate(n for n in DISCRIMINATOR_CLASSES if n in model_cfg):
-        disc = DISCRIMINATOR_CLASSES[name](**model_cfg[name].get("params", {}))
+        disc = DISCRIMINATOR_CLASSES[name](**model_cfg[name].get("params", {}),
+                                           dtype=generator.dtype)
         init_parameters(disc, seed + 1 + i)
         discriminators[name] = disc.to(device).train()
 

@@ -16,6 +16,12 @@ Spectral norm follows the JAX package, not ``torch.nn.utils.spectral_norm``:
 every forward runs one power iteration from the stored ``weight_u`` without
 gradient and divides the weight by the detached sigma; the new ``u`` is
 stored only when the caller passes ``update_stats=True``.
+
+``dtype`` (bf16 under ``mixed_precision``) is every conv's compute dtype,
+as in ``layers.py``: the weight norm, the spectral norm's power iteration
+and its ``weight_u`` stay float32, the db3 filters take the waveform's
+dtype, and the STFT magnitudes are float32 before the first conv casts
+them. Scores and feature maps come out in the dtype.
 """
 
 from __future__ import annotations
@@ -28,7 +34,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from kantts_tpu_torch.dsp.stft import hann_window, stft_magnitude
-from kantts_tpu_torch.models.hifigan.layers import get_activation, weight_norm
+from kantts_tpu_torch.models.hifigan.layers import (
+    get_activation,
+    leaky_relu,
+    weight_norm,
+)
+from kantts_tpu_torch.utils.precision import Dtype, add_bias
 
 Output = Tuple[List[torch.Tensor], List[List[torch.Tensor]]]
 _DIRECTION = {"weight": "weight_v", "spectral": "weight_orig", "none": "weight"}
@@ -43,10 +54,10 @@ class NormConv(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: Sequence[int], stride: Sequence[int],
                  padding: Sequence[int], groups: int = 1, bias: bool = True,
-                 norm: str = "weight"):
+                 norm: str = "weight", dtype: Dtype = None):
         super().__init__()
         shape = (out_channels, in_channels // groups, *kernel_size)
-        self.norm = norm
+        self.norm, self.dtype = norm, dtype
         self.stride, self.padding, self.groups = tuple(stride), tuple(padding), groups
         self.conv = {1: F.conv1d, 2: F.conv2d}[len(kernel_size)]
         if norm == "weight":
@@ -87,7 +98,12 @@ class NormConv(nn.Module):
             w = self.spectral_weight(update_stats)
         else:
             w = self.weight
-        return self.conv(x, w, self.bias, self.stride, self.padding, 1, self.groups)
+        if self.dtype is None:
+            return self.conv(x, w, self.bias, self.stride, self.padding, 1,
+                             self.groups)
+        y = self.conv(x.to(self.dtype), w.to(self.dtype), None, self.stride,
+                      self.padding, 1, self.groups)
+        return add_bias(y, self.bias)
 
 
 def _conv_act(conv: NormConv, act: nn.Module) -> nn.Sequential:
@@ -119,8 +135,8 @@ def dwt1d_db3(x: torch.Tensor, filters: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One level of the db3 DWT of (B, 1, T) -> (lo, hi), each
     (B, 1, (T + 4) // 2 + 1): stride-2 correlation with ``db3_filters()``,
-    zero padding 5 on each side."""
-    y = F.conv1d(x, filters, stride=2, padding=len(_DB3_DEC_LO) - 1)
+    zero padding 5 on each side, in x's dtype."""
+    y = F.conv1d(x, filters.to(x.dtype), stride=2, padding=len(_DB3_DEC_LO) - 1)
     return y[:, :1], y[:, 1:]
 
 
@@ -137,7 +153,7 @@ class PeriodDiscriminator(nn.Module):
                  max_downsample_channels: int = 1024, bias: bool = True,
                  nonlinear_activation: str = "LeakyReLU",
                  nonlinear_activation_params: Optional[dict] = None,
-                 use_spectral_norm: bool = False):
+                 use_spectral_norm: bool = False, dtype: Dtype = None):
         super().__init__()
         del bias  # every conv has a bias, as in the JAX package
         self.period = period
@@ -149,12 +165,12 @@ class PeriodDiscriminator(nn.Module):
         for scale in downsample_scales:
             self.convs.append(_conv_act(
                 NormConv(in_chs, out_chs, (k0, 1), (scale, 1), ((k0 - 1) // 2, 0),
-                         norm=norm),
+                         norm=norm, dtype=dtype),
                 get_activation(nonlinear_activation, act_params)))
             in_chs = out_chs
             out_chs = min(out_chs * 4, max_downsample_channels)
         self.conv_post = NormConv(in_chs, out_channels, (k1 - 1, 1), (1, 1),
-                                  ((k1 - 1) // 2, 0), norm="none")
+                                  ((k1 - 1) // 2, 0), norm="none", dtype=dtype)
 
     def forward(self, x: torch.Tensor, update_stats: bool = False):
         B, C, T = x.shape
@@ -173,11 +189,11 @@ class PeriodDiscriminator(nn.Module):
 
 class MultiPeriodDiscriminator(nn.Module):
     def __init__(self, periods: Sequence[int] = (2, 3, 5, 7, 11),
-                 discriminator_params: Optional[dict] = None):
+                 discriminator_params: Optional[dict] = None, dtype: Dtype = None):
         super().__init__()
         params = dict(discriminator_params or {})
         self.discriminators = nn.ModuleList(
-            [PeriodDiscriminator(period=p, **params) for p in periods])
+            [PeriodDiscriminator(period=p, dtype=dtype, **params) for p in periods])
 
     def forward(self, y: torch.Tensor, update_stats: bool = False) -> Output:
         outs, fmaps = [], []
@@ -200,7 +216,7 @@ class ScaleDiscriminator(nn.Module):
                  downsample_scales: Sequence[int] = (2, 2, 4, 4, 1),
                  nonlinear_activation: str = "LeakyReLU",
                  nonlinear_activation_params: Optional[dict] = None,
-                 use_spectral_norm: bool = False):
+                 use_spectral_norm: bool = False, dtype: Dtype = None):
         super().__init__()
         if len(kernel_sizes) != 4:
             raise ValueError("ScaleDiscriminator takes 4 kernel sizes")
@@ -211,7 +227,7 @@ class ScaleDiscriminator(nn.Module):
         def layer(cin, cout, k, stride=1, groups=1):
             return _conv_act(
                 NormConv(cin, cout, (k,), (stride,), ((k - 1) // 2,), groups,
-                         bias, norm),
+                         bias, norm, dtype),
                 get_activation(nonlinear_activation, act_params))
 
         self.convs = nn.ModuleList([layer(in_channels, channels, k0)])
@@ -223,7 +239,7 @@ class ScaleDiscriminator(nn.Module):
             groups = min(groups * 4, max_groups)
         self.convs.append(layer(cur, out_chs, k2))
         self.conv_post = NormConv(out_chs, out_channels, (k3,), (1,),
-                                  ((k3 - 1) // 2,), 1, bias, norm)
+                                  ((k3 - 1) // 2,), 1, bias, norm, dtype)
 
     def forward(self, x: torch.Tensor, update_stats: bool = False):
         fmap = []
@@ -246,7 +262,7 @@ class MultiScaleDiscriminator(nn.Module):
     def __init__(self, scales: int = 3, downsample_pooling: str = "DWT",
                  downsample_pooling_params: Optional[dict] = None,
                  discriminator_params: Optional[dict] = None,
-                 follow_official_norm: bool = False):
+                 follow_official_norm: bool = False, dtype: Dtype = None):
         super().__init__()
         del downsample_pooling_params  # the pooling is fixed, as in the JAX package
         params = dict(discriminator_params or {})
@@ -255,11 +271,12 @@ class MultiScaleDiscriminator(nn.Module):
             p = dict(params)
             if follow_official_norm:
                 p["use_spectral_norm"] = i == 0
-            self.discriminators.append(ScaleDiscriminator(**p))
+            self.discriminators.append(ScaleDiscriminator(dtype=dtype, **p))
         self.dwt = downsample_pooling == "DWT"
         if self.dwt:
             self.aux_convs = nn.ModuleList([
-                NormConv(2, 1, (15,), (1,), (7,)) for _ in range(scales - 1)])
+                NormConv(2, 1, (15,), (1,), (7,), dtype=dtype)
+                for _ in range(scales - 1)])
             self.register_buffer("db3", db3_filters(), persistent=False)
 
     def forward(self, y: torch.Tensor, update_stats: bool = False) -> Output:
@@ -268,7 +285,7 @@ class MultiScaleDiscriminator(nn.Module):
             if i:
                 if self.dwt:
                     y = torch.cat(dwt1d_db3(y, self.db3), dim=1)
-                    y = F.leaky_relu(self.aux_convs[i - 1](y), 0.1)
+                    y = leaky_relu(self.aux_convs[i - 1](y), 0.1)
                 else:
                     y = F.avg_pool1d(y, 4, 2, padding=2, count_include_pad=True)
             score, fmap = d(y, update_stats)
@@ -292,7 +309,8 @@ class SpecDiscriminator(nn.Module):
                  shift_size: int = 120, win_length: int = 600,
                  window: str = "hann_window",
                  nonlinear_activation: str = "LeakyReLU",
-                 nonlinear_activation_params: Optional[dict] = None):
+                 nonlinear_activation_params: Optional[dict] = None,
+                 dtype: Dtype = None):
         super().__init__()
         if window != "hann_window":
             raise ValueError(f"{window} window is not implemented")
@@ -304,7 +322,7 @@ class SpecDiscriminator(nn.Module):
 
         def layer(cin, k, stride_, pad):
             return _conv_act(NormConv(cin, channels, (k, 1), (stride_, 1), (pad, pad),
-                                      norm=norm),
+                                      norm=norm, dtype=dtype),
                              get_activation(nonlinear_activation, act_params))
 
         p0, p = (init_kernel - 1) // 2, (kernel_size - 1) // 2
@@ -312,7 +330,8 @@ class SpecDiscriminator(nn.Module):
             [layer(fft_size // 2 + 1, init_kernel, 1, p0)]
             + [layer(channels, kernel_size, stride, p) for _ in range(3)]
             + [layer(channels, 5, 1, 2)])
-        self.conv_post = NormConv(channels, 1, (3, 1), (1, 1), (1, 0), norm=norm)
+        self.conv_post = NormConv(channels, 1, (3, 1), (1, 1), (1, 0), norm=norm,
+                                  dtype=dtype)
 
     def forward(self, y: torch.Tensor, update_stats: bool = False):
         mag = stft_magnitude(y[:, 0].detach(), self.fft_size, self.shift_size,
@@ -334,12 +353,13 @@ class MultiSpecDiscriminator(nn.Module):
     def __init__(self, fft_sizes: Sequence[int] = (1024, 2048, 512),
                  hop_sizes: Sequence[int] = (120, 240, 50),
                  win_lengths: Sequence[int] = (600, 1200, 240),
-                 discriminator_params: Optional[dict] = None):
+                 discriminator_params: Optional[dict] = None, dtype: Dtype = None):
         super().__init__()
         params = dict(discriminator_params or {})
         params.pop("kernel_sizes", None)
         self.discriminators = nn.ModuleList([
-            SpecDiscriminator(fft_size=f, shift_size=h, win_length=w, **params)
+            SpecDiscriminator(fft_size=f, shift_size=h, win_length=w, dtype=dtype,
+                              **params)
             for f, h, w in zip(fft_sizes, hop_sizes, win_lengths)])
 
     def forward(self, y: torch.Tensor, update_stats: bool = False) -> Output:

@@ -17,6 +17,10 @@ NSF (``nsf_params``): the input's last two channels are f0 and uv; the
 sees through ``source_downs_i``, a strided conv down to that stage's rate.
 With ``out_channels`` > 1 the output is the PQMF sub-band signal
 (``models/pqmf.py`` synthesises the full band).
+
+``dtype`` (bf16 under ``mixed_precision``) is the compute dtype of every
+conv, the source's ``ffn`` included; the stream between them stays in it and
+the output is in it, as in the JAX package. Parameters stay float32.
 """
 
 from __future__ import annotations
@@ -25,7 +29,6 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from kantts_tpu_torch.models.hifigan.layers import (
@@ -34,6 +37,7 @@ from kantts_tpu_torch.models.hifigan.layers import (
     WNConv1d,
     WNConvTranspose1d,
     get_activation,
+    leaky_relu,
 )
 
 
@@ -47,7 +51,8 @@ class Generator(nn.Module):
                  repeat_upsample: bool = True, bias: bool = True,
                  causal: bool = True, nonlinear_activation: str = "LeakyReLU",
                  nonlinear_activation_params: Optional[dict] = None,
-                 use_weight_norm: bool = True, nsf_params: Optional[dict] = None):
+                 use_weight_norm: bool = True, nsf_params: Optional[dict] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if kernel_size % 2 != 1:
             raise ValueError("kernel_size must be odd")
@@ -65,16 +70,18 @@ class Generator(nn.Module):
         self.resblock_kernel_sizes = tuple(resblock_kernel_sizes)
         self.resblock_dilations = tuple(tuple(d) for d in resblock_dilations)
         self.n_res = len(resblock_kernel_sizes)
+        self.dtype = dtype
         self.nsf_params = dict(nsf_params) if nsf_params is not None else None
         if self.nsf_params is not None:
             hop = int(np.prod(upsample_scales))
             self.source_module = SourceModule(self.nsf_params["nb_harmonics"], hop,
-                                              self.nsf_params["sampling_rate"])
+                                              self.nsf_params["sampling_rate"],
+                                              dtype=dtype)
             # stage i runs at 1 / prod(scales[i+1:]) of the sample rate
             downs = np.cumprod([1] + list(upsample_scales[::-1][:-1]))[::-1]
             self.source_downs = nn.ModuleList()
-        self.conv_pre = WNConv1d(in_channels, channels, k,
-                                 padding=(k - 1) // 2, bias=bias, causal=causal)
+        self.conv_pre = WNConv1d(in_channels, channels, k, padding=(k - 1) // 2,
+                                 bias=bias, causal=causal, dtype=dtype)
         self.repeat_upsamples = nn.ModuleList()
         self.transpose_upsamples = nn.ModuleList()
         self.conv_blocks = nn.ModuleList()
@@ -86,28 +93,32 @@ class Generator(nn.Module):
                 nn.Upsample(scale_factor=scale, mode="nearest"),
                 get_activation(nonlinear_activation, act_params),
                 WNConv1d(ch_in, ch, k, padding=(k - 1) // 2, bias=bias,
-                         causal=causal)))
+                         causal=causal, dtype=dtype)))
             self.transpose_upsamples.append(nn.Sequential(
                 get_activation(nonlinear_activation, act_params),
                 WNConvTranspose1d(ch_in, ch, up_k, scale,
-                                  padding=(up_k - scale) // 2, causal=causal)))
+                                  padding=(up_k - scale) // 2, causal=causal,
+                                  dtype=dtype)))
             if self.nsf_params is not None:
                 u = int(downs[i])
                 self.source_downs.append(
-                    WNConv1d(1, ch, 1) if u == 1 else
-                    WNConv1d(1, ch, 2 * u, stride=u, padding=u // 2, causal=causal))
+                    WNConv1d(1, ch, 1, dtype=dtype) if u == 1 else
+                    WNConv1d(1, ch, 2 * u, stride=u, padding=u // 2,
+                             causal=causal, dtype=dtype))
             for rk, rd in zip(resblock_kernel_sizes, resblock_dilations):
                 self.conv_blocks.append(ResidualBlock(
-                    ch, rk, tuple(rd), nonlinear_activation, act_params, causal))
+                    ch, rk, tuple(rd), nonlinear_activation, act_params, causal,
+                    dtype))
             ch_in = ch
         self.conv_post = WNConv1d(ch_in, out_channels, k, padding=(k - 1) // 2,
-                                  bias=bias, causal=causal)
+                                  bias=bias, causal=causal, dtype=dtype)
 
     def forward(self, x: torch.Tensor, excitation: Optional[torch.Tensor] = None,
                 excitation_only: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x (B, T, C): the mel, for NSF with f0 and uv as its last two
-        channels -> (B, T * prod(upsample_scales), out_channels) in [-1, 1].
+        channels -> (B, T * prod(upsample_scales), out_channels) in [-1, 1],
+        in the compute dtype.
 
         NSF only: the source's draws come from ``generator``;
         ``excitation_only=True`` returns the source (B, T * hop, 1) alone, and
@@ -140,5 +151,5 @@ class Generator(nn.Module):
             for block in blocks[1:]:
                 acc = acc + block(h)
             h = acc / self.n_res
-        h = self.conv_post(F.leaky_relu(h, 0.01))
+        h = self.conv_post(leaky_relu(h, 0.01))
         return torch.tanh(h).transpose(1, 2)

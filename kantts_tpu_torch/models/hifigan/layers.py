@@ -8,6 +8,11 @@ the norm taken over all axes but dim 0. For ``ConvTranspose1d`` dim 0 is the
 *input* channel, as with torch's ``weight_norm`` on that module. Causal convs
 pad (k-1)*dilation on the left; causal transposed convs trim their tail to
 T*stride.
+
+A conv built with a compute ``dtype`` (bf16) takes the weight norm in
+float32, casts its input and the normed weight to the dtype, convolves, and
+adds the bias cast to the dtype after the product, as the JAX layers do;
+without one it runs in its input's dtype with the bias fused.
 """
 
 from __future__ import annotations
@@ -20,11 +25,26 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from kantts_tpu_torch.utils.precision import Dtype, add_bias, weak_scalar
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float) -> torch.Tensor:
+    """Leaky ReLU with the slope rounded to x's dtype, as the JAX package's
+    ``slope * x`` rounds it (``utils/precision.py``)."""
+    return F.leaky_relu(x, weak_scalar(negative_slope, x.dtype))
+
+
+class LeakyReLU(nn.LeakyReLU):
+    """``nn.LeakyReLU`` through ``leaky_relu``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return leaky_relu(x, self.negative_slope)
+
 
 def get_activation(name: str, params: Optional[dict]) -> nn.Module:
     params = params or {}
     if name == "LeakyReLU":
-        return nn.LeakyReLU(params.get("negative_slope", 0.01))
+        return LeakyReLU(params.get("negative_slope", 0.01))
     if name == "ReLU":
         return nn.ReLU()
     if name == "Tanh":
@@ -61,17 +81,21 @@ class WNConv1d(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, dilation: int = 1,
-                 bias: bool = True, causal: bool = False):
+                 bias: bool = True, causal: bool = False, dtype: Dtype = None):
         super().__init__()
-        self.stride, self.dilation = stride, dilation
+        self.stride, self.dilation, self.dtype = stride, dilation, dtype
         self.pads = (((kernel_size - 1) * dilation, 0) if causal
                      else (padding, padding))
         self.conv1d = WeightNormParams(out_channels, in_channels, kernel_size,
                                        out_channels if bias else 0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv1d(F.pad(x, self.pads), self.conv1d.weight(),
-                        self.conv1d.bias, self.stride, 0, self.dilation)
+        w, b = self.conv1d.weight(), self.conv1d.bias
+        if self.dtype is None:
+            return F.conv1d(F.pad(x, self.pads), w, b, self.stride, 0, self.dilation)
+        y = F.conv1d(F.pad(x.to(self.dtype), self.pads), w.to(self.dtype), None,
+                     self.stride, 0, self.dilation)
+        return add_bias(y, b)
 
 
 class WNConvTranspose1d(nn.Module):
@@ -80,15 +104,21 @@ class WNConvTranspose1d(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int, padding: int = 0, bias: bool = True,
-                 causal: bool = False):
+                 causal: bool = False, dtype: Dtype = None):
         super().__init__()
         self.stride, self.padding, self.causal = stride, padding, causal
+        self.dtype = dtype
         self.deconv = WeightNormParams(in_channels, out_channels, kernel_size,
                                        out_channels if bias else 0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv_transpose1d(x, self.deconv.weight(), self.deconv.bias,
-                               self.stride)
+        if self.dtype is None:
+            y = F.conv_transpose1d(x, self.deconv.weight(), self.deconv.bias,
+                                   self.stride)
+        else:
+            y = add_bias(F.conv_transpose1d(
+                x.to(self.dtype), self.deconv.weight().to(self.dtype), None,
+                self.stride), self.deconv.bias)
         if self.causal:
             return y[:, :, :x.shape[-1] * self.stride]
         return y[:, :, self.padding:y.shape[-1] - self.padding]
@@ -101,7 +131,7 @@ class ResidualBlock(nn.Module):
                  dilation: Sequence[int] = (1, 3, 5),
                  nonlinear_activation: str = "LeakyReLU",
                  nonlinear_activation_params: Optional[dict] = None,
-                 causal: bool = False):
+                 causal: bool = False, dtype: Dtype = None):
         super().__init__()
         self.act = get_activation(nonlinear_activation,
                                   nonlinear_activation_params
@@ -109,10 +139,10 @@ class ResidualBlock(nn.Module):
         k = kernel_size
         self.convs1 = nn.ModuleList([
             WNConv1d(channels, channels, k, padding=(k * d - d) // 2,
-                     dilation=d, causal=causal) for d in dilation])
+                     dilation=d, causal=causal, dtype=dtype) for d in dilation])
         self.convs2 = nn.ModuleList([
             WNConv1d(channels, channels, k, padding=(k - 1) // 2,
-                     causal=causal) for _ in dilation])
+                     causal=causal, dtype=dtype) for _ in dilation])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for c1, c2 in zip(self.convs1, self.convs2):
@@ -136,12 +166,15 @@ class SourceModule(nn.Module):
     The draws are made in the JAX package's order, the phase (B, 1, H) from
     U(-pi, pi) and then the noise (B, T * upsample_ratio, H) from N(0, 1),
     from ``generator``; ``phase`` and ``noise`` given replace them with
-    those unscaled draws.
+    those unscaled draws. With a compute ``dtype`` only the ``ffn`` conv runs
+    in it: the phase sum and the draws stay float32.
     """
 
     def __init__(self, nb_harmonics: int, upsample_ratio: int,
-                 sampling_rate: int, alpha: float = 0.1, sigma: float = 0.003):
+                 sampling_rate: int, alpha: float = 0.1, sigma: float = 0.003,
+                 dtype: Dtype = None):
         super().__init__()
+        self.dtype = dtype
         self.n_harmonics = nb_harmonics + 1
         self.upsample_ratio, self.sampling_rate = upsample_ratio, sampling_rate
         self.alpha, self.sigma = alpha, sigma
@@ -193,7 +226,10 @@ class SourceModule(nn.Module):
         e_unvoice = self.alpha / 3.0 / self.sigma * noise
         e = (e_voice * uv_s + e_unvoice * (1.0 - uv_s)).detach()
         conv = self.ffn[0]
-        return self.ffn[1](F.linear(e, conv.weight()[:, :, 0], conv.bias))
+        if self.dtype is None:
+            return self.ffn[1](F.linear(e, conv.weight()[:, :, 0], conv.bias))
+        out = F.linear(e.to(self.dtype), conv.weight()[:, :, 0].to(self.dtype))
+        return self.ffn[1](out + conv.bias.to(self.dtype))
 
 
 @torch.no_grad()

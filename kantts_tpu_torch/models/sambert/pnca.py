@@ -10,6 +10,10 @@ length-regulated encoder memory (keys j in [t, t + h_band_width]).
   each step's keys and values in place into a preallocated (L, B, H, T, dh)
   cache; the memory-side keys and values are projected once before the loop.
 - Band widths are tensors: a scalar, or (B, 1, 1, 1) for per-item widths.
+- With a compute ``dtype`` (bf16) the projections and FFN convs run in it,
+  the residual stream between them stays in it, the caches hold it, and the
+  prenet, the final LayerNorm and the output head stay float32, as in the
+  JAX package.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from kantts_tpu_torch.models.sambert.common import (
     split_heads,
     torch_linear,
 )
+from kantts_tpu_torch.utils.precision import Dtype, weak_scalar
 
 
 def pnca_band_masks(T: int, x_band_width: torch.Tensor,
@@ -52,14 +57,14 @@ class MultiHeadPNCAAttention(nn.Module):
     """Dual-source multi-head attention."""
 
     def __init__(self, n_head: int, d_model: int, d_mem: int, d_head: int,
-                 dropout: float = 0.1, dropatt: float = 0.0):
+                 dropout: float = 0.1, dropatt: float = 0.0, dtype: Dtype = None):
         super().__init__()
         self.n_head, self.d_head = n_head, d_head
         self.layer_norm = nn.LayerNorm(d_model, eps=1e-6)
-        self.w_x_qkv = torch_linear(d_model, 3 * n_head * d_head)
-        self.fc_x = torch_linear(n_head * d_head, d_model)
-        self.w_h_kv = torch_linear(d_mem, 2 * n_head * d_head)
-        self.fc_h = torch_linear(n_head * d_head, d_model)
+        self.w_x_qkv = torch_linear(d_model, 3 * n_head * d_head, dtype=dtype)
+        self.fc_x = torch_linear(n_head * d_head, d_model, dtype=dtype)
+        self.w_h_kv = torch_linear(d_mem, 2 * n_head * d_head, dtype=dtype)
+        self.fc_h = torch_linear(n_head * d_head, d_model, dtype=dtype)
         self.drop = nn.Dropout(dropout)
         self.dropatt = nn.Dropout(dropatt)
 
@@ -74,13 +79,13 @@ class MultiHeadPNCAAttention(nn.Module):
 
     def _project_out(self, x_t, out_x, out_h):
         out = self.fc_x(merge_heads(out_x)) + self.fc_h(merge_heads(out_h))
-        return self.drop(out) + x_t
+        return (self.drop(out) + x_t).to(x_t.dtype)
 
     def forward(self, x, memory, x_attn_mask=None, h_attn_mask=None):
         """Teacher-forced pass. Masks (B|1, Tq, Tk), True = disallowed."""
         h_k, h_v = self.compute_h_kv(memory)
         q, k, v = (split_heads(t, self.n_head)
-                   for t in self.w_x_qkv(self.layer_norm(x)).chunk(3, dim=-1))
+                   for t in self.w_x_qkv(self.layer_norm(x.float())).chunk(3, dim=-1))
         xm = x_attn_mask[:, None] if x_attn_mask is not None else None
         hm = h_attn_mask[:, None] if h_attn_mask is not None else None
         out_x, attn_x = self._attend(q, k, v, xm)
@@ -92,7 +97,7 @@ class MultiHeadPNCAAttention(nn.Module):
         """One incremental step. x_t (B, 1, d_model); cache_k/cache_v (B, H,
         T, dh), written in place at row t."""
         q, k, v = (split_heads(u, self.n_head)
-                   for u in self.w_x_qkv(self.layer_norm(x_t)).chunk(3, dim=-1))
+                   for u in self.w_x_qkv(self.layer_norm(x_t.float())).chunk(3, dim=-1))
         cache_k[:, :, t] = k[:, :, 0]
         cache_v[:, :, t] = v[:, :, 0]
         j = torch.arange(cache_k.shape[2], device=x_t.device)[None, None, None, :]
@@ -110,12 +115,12 @@ class PNCABlock(nn.Module):
 
     def __init__(self, d_model: int, d_mem: int, n_head: int, d_head: int,
                  d_inner: int, dropout: float = 0.1, dropout_attn: float = 0.0,
-                 dropout_relu: float = 0.0):
+                 dropout_relu: float = 0.0, dtype: Dtype = None):
         super().__init__()
         self.pnca_attn = MultiHeadPNCAAttention(n_head, d_model, d_mem, d_head,
-                                                dropout, dropout_attn)
+                                                dropout, dropout_attn, dtype)
         self.pos_ffn = PositionwiseConvFeedForward(d_model, d_inner, (1, 1),
-                                                   dropout_relu, dropout)
+                                                   dropout_relu, dropout, dtype)
 
     def forward(self, x, memory, mask=None, x_attn_mask=None, h_attn_mask=None):
         out, attn_x, attn_h = self.pnca_attn(x, memory, x_attn_mask, h_attn_mask)
@@ -129,14 +134,15 @@ class HybridAttentionDecoder(nn.Module):
     def __init__(self, d_in: int, prenet_units: Sequence[int], n_layer: int,
                  d_model: int, d_mem: int, n_head: int, d_head: int,
                  d_inner: int, d_out: int, dropout: float = 0.1,
-                 dropout_attn: float = 0.0, dropout_relu: float = 0.0):
+                 dropout_attn: float = 0.0, dropout_relu: float = 0.0,
+                 dtype: Dtype = None):
         super().__init__()
         self.d_model = d_model
         self.prenet = Prenet(d_in, prenet_units, d_model)
-        self.dec_in_proj = torch_linear(d_mem + d_model, d_model)
+        self.dec_in_proj = torch_linear(d_mem + d_model, d_model, dtype=dtype)
         self.pnca = nn.ModuleList([
             PNCABlock(d_model, d_mem, n_head, d_head, d_inner, dropout,
-                      dropout_attn, dropout_relu)
+                      dropout_attn, dropout_relu, dtype)
             for _ in range(n_layer)])
         self.ln = nn.LayerNorm(d_model, eps=1e-6)
         self.dec_out_proj = torch_linear(d_model, d_out)
@@ -149,7 +155,7 @@ class HybridAttentionDecoder(nn.Module):
     def forward(self, inputs, memory, x_band_width, h_band_width, mask=None):
         """Teacher-forced pass over shifted targets (B, T, d_in)."""
         h = masked_zero(self._input(inputs, memory), mask)
-        h = self.drop(h * math.sqrt(self.d_model))
+        h = self.drop(h * weak_scalar(math.sqrt(self.d_model), h.dtype))
         x_attn_mask, h_attn_mask = pnca_band_masks(h.shape[1], x_band_width,
                                                    h_band_width, mask)
         attns_x: List[torch.Tensor] = []
@@ -158,19 +164,20 @@ class HybridAttentionDecoder(nn.Module):
             h, attn_x, attn_h = layer(h, memory, mask, x_attn_mask, h_attn_mask)
             attns_x.append(attn_x)
             attns_h.append(attn_h)
-        return self.dec_out_proj(self.ln(h)), attns_x, attns_h
+        return self.dec_out_proj(self.ln(h.float())), attns_x, attns_h
 
     def step(self, t: int, prev_frame, memory_t, h_kv, cache_k, cache_v,
              x_band_width, h_band_width, mem_pad_mask=None):
         """One decode step. prev_frame (B, 1, d_in); memory_t (B, 1, d_mem);
         cache_k/cache_v (L, B, H, T, dh), written in place."""
-        h = self.drop(self._input(prev_frame, memory_t) * math.sqrt(self.d_model))
+        h = self._input(prev_frame, memory_t)
+        h = self.drop(h * weak_scalar(math.sqrt(self.d_model), h.dtype))
         for i, layer in enumerate(self.pnca):
             h = layer.pnca_attn.step(h, t, cache_k[i], cache_v[i], h_kv[i][0],
                                      h_kv[i][1], x_band_width, h_band_width,
                                      mem_pad_mask)
             h = layer.pos_ffn(h)
-        return self.dec_out_proj(self.ln(h))
+        return self.dec_out_proj(self.ln(h.float()))
 
 
 class MelPNCADecoder(nn.Module):
@@ -179,14 +186,15 @@ class MelPNCADecoder(nn.Module):
     def __init__(self, prenet_units: Sequence[int], nb_layers: int,
                  nb_heads: int, d_model: int, d_inner: int, d_mem: int,
                  d_mel: int, r: int, dropout: float = 0.1,
-                 dropout_attn: float = 0.0, dropout_relu: float = 0.0):
+                 dropout_attn: float = 0.0, dropout_relu: float = 0.0,
+                 dtype: Dtype = None):
         super().__init__()
         self.nb_layers, self.nb_heads, self.d_model = nb_layers, nb_heads, d_model
-        self.d_mel, self.r = d_mel, r
+        self.d_mel, self.r, self.dtype = d_mel, r, dtype
         self.mel_dec = HybridAttentionDecoder(
             d_mel, prenet_units, nb_layers, d_model, d_mem, nb_heads,
             d_model // nb_heads, d_inner, d_mel * r, dropout, dropout_attn,
-            dropout_relu)
+            dropout_relu, dtype)
 
     def forward(self, memory, x_band_width, h_band_width, target, mask=None):
         """Teacher-forced: the decoder reads the last frame of each r-group of
@@ -209,8 +217,9 @@ def pnca_decoder_infer(decoder: MelPNCADecoder, memory: torch.Tensor,
     dh = decoder.d_model // H
     dec = decoder.mel_dec
     h_kv = [layer.pnca_attn.compute_h_kv(memory) for layer in dec.pnca]
-    cache_k = memory.new_zeros((L, B, H, T, dh))
-    cache_v = memory.new_zeros((L, B, H, T, dh))
+    # the caches hold the compute dtype, as the projections make it
+    cache_k = memory.new_zeros((L, B, H, T, dh), dtype=decoder.dtype or memory.dtype)
+    cache_v = torch.zeros_like(cache_k)
     prev = memory.new_zeros((B, 1, decoder.d_mel))
     outs = memory.new_empty((B, T, decoder.d_mel * decoder.r))
     for t in range(T):

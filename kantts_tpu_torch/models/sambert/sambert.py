@@ -3,7 +3,13 @@
 
 The teacher-forced ``forward`` is the training forward: the MAS branch
 (ConvAttention, then the hard alignment from ``mas_align``, kernel K1 on the
-card) and scheduled sampling; FP, SE and byte inputs are not ported yet.
+card) and scheduled sampling; FP is not ported yet. A byte voice
+(``using_byte``) embeds one byte id per token in place of the four
+linguistic tracks; an SE voice (``SE``) takes a float speaker embedding
+(B, T_in, speaker_units) as its speaker input, used as it is.
+``compute_dtype: bfloat16`` runs the encoder's FFT blocks and the PNCA
+decoder in bf16 (``common.py``); the LSTMs, FSMN predictors, postnet and
+``ConvAttention`` stay float32, so MAS sees float32 maps.
 An NSF model (``NSF: true``) is the same model at ``num_mels`` 82: its
 last two output channels are the normalised f0 and uv, which inference
 denormalises on the host (``bin/infer_sambert.py::denorm_f0``).
@@ -33,6 +39,7 @@ from kantts_tpu_torch.models.sambert.alignment import mas_align
 from kantts_tpu_torch.models.sambert.attention import ConvAttention
 from kantts_tpu_torch.models.sambert.common import (
     FFTBlock,
+    compute_dtype,
     conv1d_same,
     masked_zero,
     torch_linear,
@@ -45,8 +52,9 @@ from kantts_tpu_torch.models.sambert.positions import (
     duration_position_encoding,
 )
 from kantts_tpu_torch.utils.mask import get_mask_from_lengths
+from kantts_tpu_torch.utils.precision import Dtype
 
-UNSUPPORTED = ("FP", "SE", "using_byte")
+UNSUPPORTED = ("FP",)
 
 
 class SelfAttentionEncoder(nn.Module):
@@ -54,12 +62,12 @@ class SelfAttentionEncoder(nn.Module):
 
     def __init__(self, d_in: int, n_layer: int, d_model: int, n_head: int,
                  d_head: int, d_inner: int, dropout: float, dropout_att: float,
-                 dropout_relu: float, max_len: int):
+                 dropout_relu: float, max_len: int, dtype: Dtype = None):
         super().__init__()
         self.d_model, self.max_len = d_model, max_len
         self.fft = nn.ModuleList([
             FFTBlock(d_in if i == 0 else d_model, d_model, n_head, d_head,
-                     d_inner, (3, 1), dropout, dropout_att, dropout_relu)
+                     d_inner, (3, 1), dropout, dropout_att, dropout_relu, dtype)
             for i in range(n_layer)])
         self.ln = nn.LayerNorm(d_model, eps=1e-6)
         self.dropout = nn.Dropout(dropout)
@@ -71,37 +79,46 @@ class SelfAttentionEncoder(nn.Module):
         for block in self.fft:
             h, attn = block(h, mask)
             attns.append(attn)
-        return self.ln(h), attns
+        return self.ln(h.float()), attns
 
 
 class TextFftEncoder(nn.Module):
-    """Four summed linguistic embeddings -> encoder -> projection."""
+    """Four summed linguistic embeddings (or, with ``using_byte``, one byte
+    embedding) -> encoder -> projection."""
 
     def __init__(self, cfg: Dict[str, Any]):
         super().__init__()
         d_emb, d_model = cfg["embedding_dim"], cfg["encoder_num_units"]
         self.d_model = d_model
-        self.sy_emb = nn.Embedding(cfg["sy"], d_emb)
-        self.tone_emb = nn.Embedding(cfg["tone"], d_emb)
-        self.syllable_flag_emb = nn.Embedding(cfg["syllable_flag"], d_emb)
-        self.ws_emb = nn.Embedding(cfg["word_segment"], d_emb)
+        self.using_byte = cfg.get("using_byte", False)
+        if self.using_byte:
+            self.byte_index_emb = nn.Embedding(cfg["byte_index"], d_emb)
+        else:
+            self.sy_emb = nn.Embedding(cfg["sy"], d_emb)
+            self.tone_emb = nn.Embedding(cfg["tone"], d_emb)
+            self.syllable_flag_emb = nn.Embedding(cfg["syllable_flag"], d_emb)
+            self.ws_emb = nn.Embedding(cfg["word_segment"], d_emb)
         self.ling_enc = SelfAttentionEncoder(
             d_emb, cfg["encoder_num_layers"], d_model,
             cfg["encoder_num_heads"], d_model // cfg["encoder_num_heads"],
             cfg["encoder_ffn_inner_dim"], cfg["encoder_dropout"],
             cfg["encoder_attention_dropout"], cfg["encoder_relu_dropout"],
-            cfg["max_len"])
+            cfg["max_len"], compute_dtype(cfg))
         self.ling_proj = torch_linear(d_model, cfg["encoder_projection_units"],
                                       bias=False)
 
     def forward(self, inputs_ling, masks=None):
         """-> (text_hid, attns, MAS keys). The reference scales its encoder
         input in place, which aliases the embedding that MAS later reads: its
-        MAS keys are the embeddings times sqrt(d_model). Kept as is."""
-        ling_embedding = (self.sy_emb(inputs_ling[:, :, 0])
-                          + self.tone_emb(inputs_ling[:, :, 1])
-                          + self.syllable_flag_emb(inputs_ling[:, :, 2])
-                          + self.ws_emb(inputs_ling[:, :, 3]))
+        MAS keys are the embeddings times sqrt(d_model), byte ones too.
+        Kept as is."""
+        if self.using_byte:
+            ling_embedding = self.byte_index_emb(inputs_ling[:, :, 0])
+        else:
+            ling_embedding = (self.sy_emb(inputs_ling[:, :, 0])
+                              + self.tone_emb(inputs_ling[:, :, 1])
+                              + self.syllable_flag_emb(inputs_ling[:, :, 2])
+                              + self.ws_emb(inputs_ling[:, :, 3]))
         enc_output, attns = self.ling_enc(ling_embedding, masks)
         return (self.ling_proj(enc_output), attns,
                 ling_embedding * math.sqrt(self.d_model))
@@ -174,7 +191,9 @@ class KanTtsSAMBERT(nn.Module):
         self.config = cfg
         self.r, self.d_mel = cfg["outputs_per_step"], cfg["num_mels"]
         self.text_encoder = TextFftEncoder(cfg)
-        self.spk_tokenizer = nn.Embedding(cfg["speaker"], cfg["speaker_units"])
+        self.se_enable = cfg.get("SE", False)
+        if not self.se_enable:
+            self.spk_tokenizer = nn.Embedding(cfg["speaker"], cfg["speaker_units"])
         self.emo_tokenizer = nn.Embedding(cfg["emotion"], cfg["emotion_units"])
         self.variance_adaptor = VarianceAdaptor(cfg)
         d_mem = (cfg["encoder_projection_units"] * self.r + cfg["emotion_units"]
@@ -184,7 +203,7 @@ class KanTtsSAMBERT(nn.Module):
             cfg["decoder_num_heads"], cfg["decoder_num_units"],
             cfg["decoder_ffn_inner_dim"], d_mem, self.d_mel, self.r,
             cfg["decoder_dropout"], cfg["decoder_attention_dropout"],
-            cfg["decoder_relu_dropout"])
+            cfg["decoder_relu_dropout"], compute_dtype(cfg))
         self.mel_postnet = PostNet(cfg)
         self.mas_enable = cfg.get("MAS", False)
         if self.mas_enable:
@@ -197,7 +216,11 @@ class KanTtsSAMBERT(nn.Module):
         return self.text_encoder(inputs_ling, input_masks)
 
     def tokenize(self, inputs_emotion, inputs_speaker):
-        return self.emo_tokenizer(inputs_emotion), self.spk_tokenizer(inputs_speaker)
+        """-> (emotion, speaker) embeddings; an SE voice's speaker input is
+        its (B, T_in, speaker_units) embedding already."""
+        spk = (inputs_speaker if self.se_enable
+               else self.spk_tokenizer(inputs_speaker))
+        return self.emo_tokenizer(inputs_emotion), spk
 
     def variance_pre(self, text_hid, emo_hid, spk_hid, masks,
                      pitch_targets=None, energy_targets=None):

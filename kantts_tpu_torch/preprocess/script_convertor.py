@@ -2,9 +2,11 @@
 front-end (``text/pinyin_frontend.py``) needs: the syllable/word/sentence
 object model with its metafile emission (word and syllable position flags,
 break pseudo-phones) and the Chinese syllable formatters (sy2ph lookup and
-tone parse). The prosody-annotated text -> Script XML convertor, the phone
-set, the English formatter and byte-mode metafiles of the JAX package are not
-copied: the port has no preprocessing yet.
+tone parse), and the byte-mode metafile writer ``turn_text_into_bytes``
+(``TextScriptConvertor.turn_text_into_bytes`` there), the one producer of a
+byte voice's symbols. The prosody-annotated text -> Script XML convertor,
+the phone set and the English formatter of the JAX package are not copied:
+the port has no preprocessing yet.
 """
 
 from __future__ import annotations
@@ -165,3 +167,25 @@ def make_formatter(language: Language, sy2ph: Dict[str, List[str]]):
                                         expected_counts=(1, 2))
     logging.error("Unsupported language: %s", language)
     return None
+
+
+def turn_text_into_bytes(plain_text_path: str, output_meta_file_path: str,
+                         speaker: str) -> None:
+    """Write the UTF-8 byte metafile of a ``<id>\t<sentence>`` text file:
+    one ``{byte$emotion_neutral$speaker}`` token per byte of the sentence,
+    and a final full stop (byte 46) unless it already ends in '!', '.' or
+    '?'."""
+    meta_lines = []
+    with open(plain_text_path, encoding="utf-8") as f:
+        for text_line in f:
+            sentence_id, sentence = text_line.strip().split("\t")
+            seq = [
+                f"{{{b}$emotion_neutral${speaker}}}"
+                for ch in sentence
+                for b in ch.encode("utf-8")
+            ]
+            if seq and seq[-1][1:].split("$")[0] not in ("33", "46", "63"):
+                seq.append(f"{{46$emotion_neutral${speaker}}}")
+            meta_lines.append(f"{sentence_id}\t{' '.join(seq)}\n")
+    with open(output_meta_file_path, "w", encoding="utf-8") as f:
+        f.writelines(meta_lines)

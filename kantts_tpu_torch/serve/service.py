@@ -54,6 +54,7 @@ from kantts_tpu_torch.bin.infer_hifigan import (
 from kantts_tpu_torch.bin.infer_sambert import (
     am_synthesis_batch,
     load_am,
+    load_se,
     nsf_denormaliser,
 )
 from kantts_tpu_torch.models.builder import build_pqmf
@@ -120,7 +121,8 @@ class TTSService:
     request threads as the traffic needs (e.g. serve/server.py's
     ThreadingHTTPServer handlers). ``pqmf`` synthesises a multi-band
     vocoder's full band; ``nsf_denorm``, a (T, C) -> (T, C) function on the
-    host, denormalises an NSF acoustic model's f0 and uv before vocoding.
+    host, denormalises an NSF acoustic model's f0 and uv before vocoding;
+    ``se`` is an SE acoustic model's speaker embedding (``load_se``).
     """
 
     def __init__(self, am_model, ling_unit, generator, sample_rate: int,
@@ -129,6 +131,7 @@ class TTSService:
                  input_bucket: int = 32, frame_bucket: int = 100,
                  frames_per_symbol: int = 24, gap_seconds: float = 0.28,
                  tail_seconds: float = 0.05, pqmf=None, nsf_denorm=None,
+                 se: Optional[np.ndarray] = None,
                  device: Union[str, torch.device] = "cuda"):
         self.device = resolve_device(device)
         self.am_model = am_model.to(self.device).eval()
@@ -136,6 +139,7 @@ class TTSService:
         self.generator = generator.to(self.device).eval()
         self.pqmf = pqmf.to(self.device) if pqmf is not None else None
         self.nsf_denorm = nsf_denorm  # (T, C) mel -> mel, on the host
+        self.se = se
         self.sample_rate = int(sample_rate)
         self.frontend = (frontend if frontend is None or hasattr(
             frontend, "text_to_symbols") else resolve_frontend(frontend))
@@ -173,13 +177,10 @@ class TTSService:
                          device: Union[str, torch.device] = "cuda", **kwargs):
         """Load both stages the way the inference CLIs do (the port's
         checkpoints carry their config; weight norm folded for serving; an
-        NSF acoustic model's denormaliser, a multi-band vocoder's PQMF).
-        ``se_file`` and ``int8`` raise ``NotImplementedError``."""
+        NSF acoustic model's denormaliser, a multi-band vocoder's PQMF, an SE
+        acoustic model's speaker embedding from ``se_file``, which any other
+        acoustic model ignores). ``int8`` raises ``NotImplementedError``."""
         device = resolve_device(device)
-        if se_file is not None:
-            raise NotImplementedError(
-                "speaker-embedding (SE) inputs are not ported to "
-                "kantts_tpu_torch yet (ROADMAP.md queue 1, item 5)")
         if int8:
             raise NotImplementedError(INT8_NOT_PORTED)
         am_model, ling_unit = load_am(am_ckpt, device)
@@ -188,7 +189,7 @@ class TTSService:
                    voc_cfg["audio_config"]["sampling_rate"],
                    pqmf=build_pqmf(voc_cfg), frontend=frontend,
                    nsf_denorm=nsf_denormaliser(am_model.config, am_ckpt),
-                   device=device, **kwargs)
+                   se=load_se(am_model, se_file), device=device, **kwargs)
 
     def synthesize(self, text: str, timeout: Optional[float] = None,
                    speaker: Optional[str] = None,
@@ -416,7 +417,7 @@ class TTSService:
             symbol_seqs, self.am_model, self.ling_unit,
             input_bucket=self.input_bucket,
             frames_per_symbol=self.frames_per_symbol,
-            batch_pad_to=self.max_batch)
+            batch_pad_to=self.max_batch, se=self.se)
         mels = [post for _, post, _, _, _ in results]
         if self.nsf_denorm is not None:
             mels = [self.nsf_denorm(m) for m in mels]
@@ -425,6 +426,6 @@ class TTSService:
     def _vocode_batch(self, mels: List[np.ndarray]) -> List[np.ndarray]:
         mel_in = bucket_pad(mels, self.frame_bucket, self.max_batch)
         y = vocode(self.generator, self.pqmf,
-                   torch.from_numpy(mel_in).to(self.device)).cpu().numpy()
+                   torch.from_numpy(mel_in).to(self.device)).float().cpu().numpy()
         hop = y.shape[1] // mel_in.shape[1]
         return [y[i, :m.shape[0] * hop, 0] for i, m in enumerate(mels)]

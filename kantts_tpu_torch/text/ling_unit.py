@@ -1,7 +1,6 @@
 """KanTtsLinguisticUnit — the linguistic symbol codec (a copy of the encoding
 half of ``kantts_tpu/text/ling_unit.py``; the port decodes no ids and has no
-FP path or byte inputs, so ``decode_*``, ``mask_id``, ``get_fpdict`` and the
-``byte_index`` track are left out).
+FP path, so ``decode_*``, ``mask_id`` and ``get_fpdict`` are left out).
 
 Encoding contract, as in KAN-TTS:
 - Each linguistic feature ("lfeat") type has its own vocab, ending with the
@@ -14,6 +13,7 @@ Encoding contract, as in KAN-TTS:
   uniqueness); free text outside curly braces runs through cleaners and is
   encoded char-by-char (the character inventory is empty, so plain text chars
   drop out — only phone symbols survive).
+- byte mode: vocab ``@0..@255`` + specials, single ``byte_index`` track.
 """
 
 from __future__ import annotations
@@ -74,21 +74,28 @@ class KanTtsLinguisticUnit:
 
     def _build(self) -> None:
         phones, tones, syllable_flags, word_segments = get_language_symbols(self.lang_type)
-        self.vocabs["sy"] = _Vocab(["@" + p for p in phones] + SPECIALS)
-        self.vocabs["tone"] = _Vocab(tones + SPECIALS)
-        self.vocabs["syllable_flag"] = _Vocab(syllable_flags + SPECIALS)
-        self.vocabs["word_segment"] = _Vocab(word_segments + SPECIALS)
+        if self.using_byte():
+            self.vocabs["byte_index"] = _Vocab(
+                [f"@{i}" for i in range(256)] + SPECIALS)
+        else:
+            self.vocabs["sy"] = _Vocab(["@" + p for p in phones] + SPECIALS)
+            self.vocabs["tone"] = _Vocab(tones + SPECIALS)
+            self.vocabs["syllable_flag"] = _Vocab(syllable_flags + SPECIALS)
+            self.vocabs["word_segment"] = _Vocab(word_segments + SPECIALS)
         if "emo_category" in self._lfeat_type_list:
             self.vocabs["emo_category"] = _Vocab(EMOTION_TYPES + SPECIALS)
         if "speaker_category" in self._lfeat_type_list:
             speakers = self.unit_config["speaker_list"].strip().split(",")
             self.vocabs["speaker_category"] = _Vocab(speakers + SPECIALS)
 
+    def using_byte(self) -> bool:
+        return "byte_index" in self._lfeat_type_list
+
     def get_unit_size(self) -> Dict[str, int]:
         """Vocab sizes keyed by the model-config param names they feed."""
         names = {"sy": "sy", "tone": "tone", "syllable_flag": "syllable_flag",
-                 "word_segment": "word_segment", "emo_category": "emotion",
-                 "speaker_category": "speaker"}
+                 "word_segment": "word_segment", "byte_index": "byte_index",
+                 "emo_category": "emotion", "speaker_category": "speaker"}
         return {names[k]: len(v) for k, v in self.vocabs.items()}
 
     @property
@@ -112,6 +119,9 @@ class KanTtsLinguisticUnit:
         if lfeat_type == "sy":
             wrapped = " ".join("{%s}" % s for s in symbols.strip().split(" "))
             return self.encode_text(wrapped)
+        if lfeat_type == "byte_index":
+            return self._encode_simple(
+                ["@" + s for s in symbols.strip().split(" ")], "byte_index")
         if lfeat_type in ("tone", "syllable_flag", "word_segment", "emo_category",
                           "speaker_category"):
             return self._encode_simple(symbols.strip().split(" "), lfeat_type)

@@ -315,7 +315,7 @@ class GanTrainer(Trainer):
         out_dir = os.path.join(self.save_dir, f"intermediate_results_{self.steps}")
         os.makedirs(out_dir, exist_ok=True)
         n = min(self.config.get("num_save_intermediate_results", 4), wav.shape[0])
-        ref, gen = wav[:n, :, 0].cpu().numpy(), y_gen[:n, :, 0].cpu().numpy()
+        ref, gen = wav[:n, :, 0].cpu().numpy(), y_gen[:n, :, 0].float().cpu().numpy()
         for i in range(n):
             save_wav(ref[i], os.path.join(out_dir, f"{i}_ref.wav"), self.sampling_rate)
             save_wav(gen[i], os.path.join(out_dir, f"{i}_gen.wav"), self.sampling_rate)

@@ -12,7 +12,10 @@ so the dataset runs in MAS mode, and pitch and energy are frame-level; with
 it, ``duration/`` holds each phone's frames and pitch and energy are
 phone-level. ``nsf`` adds the NSF features: ``frame_f0/`` (normalised,
 constant over each phone), ``frame_uv/`` (0 or 1 per phone), and the
-corpus statistics ``f0/f0_mean.txt`` and ``f0/f0_std.txt``.
+corpus statistics ``f0/f0_mean.txt`` and ``f0/f0_std.txt``. ``byte`` writes
+the symbols of a byte voice (one byte token per phone, the phone's own byte
+``BYTES[p]``); ``se_units`` adds the corpus's speaker embedding
+``se/se.npy``, a seeded N(0, 1) vector of that size, for an SE voice.
 
 ``write_voc_corpus``: a vocoder corpus in the layout that
 ``data.dataset.VocDataset`` reads: ``wav/*.wav`` of harmonic tones and
@@ -39,6 +42,7 @@ from kantts_tpu_torch.utils.audio import save_wav
 PHONES = ("n_c", "i_c", "h_c", "ao_c", "sh_c", "in_c", "j_c", "ie_c", "b_c",
           "a_c", "d_c", "e_c", "g_c", "ai_c", "m_c", "en_c")
 TONES = ("tone1", "tone2", "tone3", "tone4", "tone5")
+BYTES = tuple(range(97, 97 + len(PHONES)))  # 'a'..'p': a byte per phone
 
 
 def write_mas_corpus(root: str, n_utts: int, symbols: Tuple[int, int],
@@ -51,7 +55,8 @@ def write_mas_corpus(root: str, n_utts: int, symbols: Tuple[int, int],
 def write_am_corpus(root: str, n_utts: int, symbols: Tuple[int, int],
                     frames: Tuple[int, int], n_mels: int = 80, seed: int = 0,
                     durations: bool = False, nsf: bool = False,
-                    sampling_rate: int = 16000) -> None:
+                    sampling_rate: int = 16000, byte: bool = False,
+                    se_units: int = 0) -> None:
     """Write ``n_utts`` utterances under ``root``, each with a symbol count
     and a frame count drawn uniformly from the inclusive ranges ``symbols``
     and ``frames``; ``audio_config.yaml`` carries the feature values of
@@ -84,8 +89,9 @@ def write_am_corpus(root: str, n_utts: int, symbols: Tuple[int, int],
         for j, p in enumerate(ids):
             flag = "s_begin" if j % 2 == 0 else "s_end"
             ws = "word_begin" if j % 2 == 0 else "word_end"
-            tokens.append(f"{{{PHONES[p]}${TONES[rng.randint(len(TONES))]}"
-                          f"${flag}${ws}$emotion_neutral$F7}}")
+            tone = TONES[rng.randint(len(TONES))]
+            tokens.append(f"{{{BYTES[p]}$emotion_neutral$F7}}" if byte else
+                          f"{{{PHONES[p]}${tone}${flag}${ws}$emotion_neutral$F7}}")
         lines.append(f"{utt}\t{' '.join(tokens)}")
         if nsf:
             uv = (rng.rand(n_sym) < 0.8).astype(np.float32)
@@ -94,6 +100,10 @@ def write_am_corpus(root: str, n_utts: int, symbols: Tuple[int, int],
             np.save(os.path.join(root, "frame_uv", f"{utt}.npy"), np.repeat(uv, durs))
     if nsf:
         _write_f0_stats(root, 150.0, 40.0)
+    if se_units:
+        os.makedirs(os.path.join(root, "se"), exist_ok=True)
+        np.save(os.path.join(root, "se", "se.npy"),
+                rng.randn(se_units).astype(np.float32))
     with open(os.path.join(root, "raw_metafile.txt"), "w", encoding="utf-8") as f:
         f.write("\n".join(lines) + "\n")
     audio = AUDIO[sampling_rate]

@@ -108,8 +108,12 @@ def _fft_block(tree, prefix, sd, torch_prefix):
 
 
 def _text_encoder(tree, prefix, sd, torch_prefix, cfg):
-    for name in ("sy_emb", "tone_emb", "syllable_flag_emb", "ws_emb"):
-        _embed(tree, f"{prefix}/{name}", sd, f"{torch_prefix}.{name}")
+    if cfg.get("using_byte", False):
+        _embed(tree, f"{prefix}/byte_index_emb", sd,
+               f"{torch_prefix}.byte_index_emb")
+    else:
+        for name in ("sy_emb", "tone_emb", "syllable_flag_emb", "ws_emb"):
+            _embed(tree, f"{prefix}/{name}", sd, f"{torch_prefix}.{name}")
     for i in range(cfg["encoder_num_layers"]):
         _fft_block(tree, f"{prefix}/ling_enc/fft_{i}", sd,
                    f"{torch_prefix}.ling_enc.fft.{i}")

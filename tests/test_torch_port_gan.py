@@ -33,6 +33,7 @@ from kantts_tpu.data.dataset import load_wav
 from kantts_tpu.models.hifigan.discriminators import MultiPeriodDiscriminator as JMPD
 from kantts_tpu.models.hifigan.discriminators import MultiScaleDiscriminator as JMSD
 from kantts_tpu.models.hifigan.generator import Generator as JGenerator
+from kantts_tpu.models.pqmf import PQMF as JPQMF
 from kantts_tpu.train.optim import optimizer_builder as j_optimizer_builder
 from kantts_tpu.train.states import GanTrainState
 from kantts_tpu.train.steps import make_gan_eval_step as j_make_gan_eval_step
@@ -46,6 +47,7 @@ from kantts_tpu_torch.losses import losses as tl
 from kantts_tpu_torch.models.builder import (
     build_sambert,
     hifigan_gan_builder,
+    hifigan_model_builder,
     init_parameters,
     load_checkpoint,
     save_checkpoint,
@@ -435,16 +437,26 @@ def test_eval_step_matches_jax():
 
 
 def test_builder_refuses_what_is_not_ported():
-    """bf16 is refused by name; NSF, PQMF and the MultiSpecDiscriminator build
-    (hifigan_v1_16k.yaml with a narrow generator, its MSD and MPD left out),
-    each with what it brings."""
-    base = get_config("hifigan_v1_16k")
+    """bf16 (``mixed_precision``) builds with float32 parameters and a bf16
+    output; bf16 with a multi-band generator is refused by name, as the JAX
+    package cannot run it (its PQMF synthesis fails on a bf16 signal); NSF,
+    PQMF and the MultiSpecDiscriminator build (hifigan_v1_16k.yaml with a
+    narrow generator, its MSD and MPD left out), each with what it brings."""
+    narrow = {"channels": 32, "resblock_kernel_sizes": [3], "resblock_dilations": [[1]]}
     cfg = get_config("hifigan_v1_16k")
     cfg.update(mixed_precision=True)
-    with pytest.raises(NotImplementedError, match="mixed_precision"):
-        hifigan_gan_builder(cfg)
-    assert base == get_config("hifigan_v1_16k")
-    narrow = {"channels": 32, "resblock_kernel_sizes": [3], "resblock_dilations": [[1]]}
+    cfg["Model"]["Generator"]["params"].update(narrow)
+    gen = hifigan_model_builder(cfg)
+    assert gen.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in gen.parameters())
+    with torch.no_grad():
+        assert gen(torch.randn(1, 4, 80)).dtype == torch.bfloat16
+    cfg["Model"]["Generator"]["params"].update(
+        out_channels=4, upsample_scales=[5, 5, 2], upsample_kernal_sizes=[10, 10, 4])
+    with pytest.raises(NotImplementedError, match="mixed_precision.*PQMF"):
+        hifigan_model_builder(cfg)
+    with pytest.raises(TypeError, match="bfloat16"):
+        JPQMF(subbands=4).synthesis(jnp.zeros((1, 8, 4), jnp.bfloat16))
     cases = {
         "NSF": lambda c: c["Model"]["Generator"]["params"].update(
             nsf_params={"nb_harmonics": 7, "sampling_rate": 16000}),
@@ -556,12 +568,31 @@ def test_train_hifigan_cli_resume_and_serve(tmp_path):
 
 
 def test_train_hifigan_refuses_what_it_cannot_do(tmp_path):
+    """bf16 trains (2 steps, float32 parameters and Adam moments after); bf16
+    with a multi-band generator is refused before the data loads; without a
+    card the default device raises."""
     data = str(tmp_path / "data")
     write_voc_corpus(data, 4, (0.3, 0.4), seed=1)
     stage = str(tmp_path / "s")
-    with pytest.raises(NotImplementedError, match="mixed_precision"):
-        train_hifigan.train(gan_config(stage, mixed_precision=True), data, stage,
-                            device="cpu")
+    trainer = train_hifigan.train(gan_config(stage, mixed_precision=True,
+                                             train_max_steps=2), data, stage,
+                                  device="cpu")
+    assert trainer.steps_taken == 2 and trainer.generator.dtype == torch.bfloat16
+    for module, opt in [(trainer.generator, trainer.gen_optimizer)] + [
+            (trainer.discriminators[n], trainer.disc_optimizers[n])
+            for n in trainer.discriminators]:
+        assert all(p.dtype == torch.float32 for p in module.parameters())
+        assert all(v.dtype == torch.float32 for s in opt.state.values()
+                   for v in s.values() if v.is_floating_point())
+    multiband = gan_config(str(tmp_path / "mb"), mixed_precision=True)
+    with open(multiband) as f:
+        cfg = yaml.safe_load(f)
+    cfg["Model"]["Generator"]["params"].update(
+        out_channels=4, upsample_scales=[5, 5, 2], upsample_kernal_sizes=[10, 10, 4])
+    with open(multiband, "w") as f:
+        yaml.safe_dump(cfg, f)
+    with pytest.raises(NotImplementedError, match="mixed_precision.*PQMF"):
+        train_hifigan.train(multiband, data, str(tmp_path / "mb"), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             train_hifigan.train(gan_config(stage), data, stage)

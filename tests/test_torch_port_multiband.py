@@ -40,7 +40,7 @@ from kantts_tpu_torch.models.builder import (
     hifigan_gan_builder,
     model_builder,
 )
-from kantts_tpu_torch.models.hifigan.discriminators import MultiSpecDiscriminator
+from kantts_tpu_torch.models.hifigan.discriminators import MultiSpecDiscriminator, NormConv
 from kantts_tpu_torch.models.hifigan.generator import Generator
 from kantts_tpu_torch.models.pqmf import PQMF
 from kantts_tpu_torch.train.optim import optimizer_builder
@@ -315,8 +315,7 @@ def test_train_hifigan_nsf_multiband_cli(tmp_path):
 MODEL_CONFIGS = sorted(os.path.basename(p)[:-len(".yaml")]
                        for p in glob.glob(os.path.join(CONFIGS, "*.yaml"))
                        if not os.path.basename(p).startswith("audio_config"))
-REFUSED = {"sambert_16k_MAS_byte": "using_byte", "sambert_fp_8k": "FP",
-           "sambert_se_nsf_global_16k": "SE", "sybert": "sybert"}
+REFUSED = {"sambert_fp_8k": "FP", "sybert": "sybert"}
 SLIM_GEN = {"channels": 32, "resblock_kernel_sizes": [3],
             "resblock_dilations": [[1, 3]]}
 SLIM_DISC = {"MultiScaleDiscriminator": {"channels": 16, "max_downsample_channels": 32,
@@ -343,15 +342,24 @@ def _slim(config):
 
 def test_config_matrix_counts():
     assert len(MODEL_CONFIGS) == 19
-    assert len(set(MODEL_CONFIGS) - set(REFUSED)) == 15
+    assert len(set(MODEL_CONFIGS) - set(REFUSED)) == 17
 
 
+def _all_float32(*modules):
+    return all(p.dtype == torch.float32 for m in modules for p in m.parameters())
+
+
+@pytest.mark.parametrize("mixed_precision", [False, True], ids=["f32", "bf16"])
 @pytest.mark.parametrize("name", MODEL_CONFIGS)
-def test_config_matrix(name):
+def test_config_matrix(name, mixed_precision):
     """Each model config of the JAX package builds in the port at small
-    widths, or raises NotImplementedError naming what is missing."""
+    widths, or raises NotImplementedError naming what is missing; with
+    ``mixed_precision`` it builds to compute in bf16 with float32
+    parameters (none of these configs is multi-band, the one combination
+    that bf16 refuses)."""
     with open(os.path.join(CONFIGS, f"{name}.yaml")) as f:
         config = _slim(yaml.safe_load(f))
+    config["mixed_precision"] = mixed_precision
     if name in REFUSED:
         with pytest.raises(NotImplementedError, match=REFUSED[name]):
             model_builder(config)
@@ -361,8 +369,18 @@ def test_config_matrix(name):
         params = config["Model"]["KanTtsSAMBERT"]["params"]
         assert model.d_mel == params["num_mels"]
         assert not params.get("NSF") or params["num_mels"] == 82
+        assert model.text_encoder.using_byte == params.get("using_byte", False)
+        assert model.se_enable == params.get("SE", False)
+        assert model.mel_decoder.dtype == (torch.bfloat16 if mixed_precision
+                                           else None)
+        assert _all_float32(model)
         return
     built = hifigan_gan_builder(config)
+    dtype = torch.bfloat16 if mixed_precision else None
+    assert built["generator"].dtype == dtype
+    assert all(c.dtype == dtype for d in built["discriminators"].values()
+               for c in d.modules() if isinstance(c, NormConv))
+    assert _all_float32(built["generator"], *built["discriminators"].values())
     gen_params = config["Model"]["Generator"]["params"]
     assert (built["generator"].nsf_params is not None) == ("nsf_params" in gen_params)
     assert built["pqmf"] is None

@@ -28,6 +28,7 @@ import torch
 from kantts_tpu.bin.infer_sambert import am_synthesis_batch as j_am_synthesis_batch
 from kantts_tpu_torch.bin import serve_tts, stream_tts
 from kantts_tpu_torch.models.builder import (
+    build_sambert,
     hifigan_model_builder,
     load_checkpoint,
     save_checkpoint,
@@ -276,10 +277,32 @@ def _nsf_checkpoints(slice_models, tmp_path):
 
 
 def test_from_checkpoints_refusals(slice_models, tmp_path):
+    """``se_file`` is ignored on a non-SE acoustic model (as in the JAX
+    package: the file is not even read) and used on an SE one, whose
+    service answers with the embedding it was given; int8 is refused; an
+    NSF pair cannot stream."""
     d = slice_models["ckpt_dir"]
     am, voc = str(d / "am.pt"), str(d / "voc.pt")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        TTSService.from_checkpoints(am, voc, se_file="se.npy", device="cpu")
+    svc = TTSService.from_checkpoints(am, voc, se_file=str(tmp_path / "absent.npy"),
+                                      device="cpu")
+    svc.close()
+    assert svc.se is None
+    payload = torch.load(am, map_location="cpu", weights_only=True)
+    se_cfg = copy.deepcopy(payload["config"])
+    se_cfg["Model"]["KanTtsSAMBERT"]["params"]["SE"] = True
+    se_am = str(tmp_path / "se_am.pt")
+    save_checkpoint(se_am, build_sambert(se_cfg, seed=0), se_cfg)
+    se = np.random.RandomState(0).randn(
+        se_cfg["Model"]["KanTtsSAMBERT"]["params"]["speaker_units"]).astype(np.float32)
+    np.save(tmp_path / "se.npy", se)
+    svc = TTSService.from_checkpoints(se_am, voc, se_file=str(tmp_path / "se.npy"),
+                                      frontend="pinyin", device="cpu")
+    try:
+        np.testing.assert_array_equal(svc.se, se)
+        sr, wav = svc.synthesize(TEXTS[0])
+        assert sr == 16000 and wav.size > 0 and np.isfinite(wav).all()
+    finally:
+        svc.close()
     with pytest.raises(NotImplementedError, match="item 11"):
         TTSService.from_checkpoints(am, voc, int8=True, device="cpu")
     svc = TTSService.from_checkpoints(*_nsf_checkpoints(slice_models, tmp_path),

@@ -13,6 +13,7 @@ import pytest
 import yaml
 
 from kantts_tpu import data as jdata
+from kantts_tpu.preprocess import script_convertor as j_script
 from kantts_tpu.text import lexicon_frontend as j_lexicon
 from kantts_tpu.text import pinyin_frontend as j_pinyin
 from kantts_tpu.text.ling_unit import KanTtsLinguisticUnit as JLingUnit
@@ -30,6 +31,7 @@ from kantts_tpu_torch.models.hifigan.discriminators import (
     MultiPeriodDiscriminator,
     MultiScaleDiscriminator,
 )
+from kantts_tpu_torch.preprocess import script_convertor as t_script
 from kantts_tpu_torch.text import lexicon_frontend as t_lexicon
 from kantts_tpu_torch.text import pinyin_frontend as t_pinyin
 from kantts_tpu_torch.text.ling_unit import KanTtsLinguisticUnit
@@ -72,7 +74,8 @@ def test_lexicon_frontend_symbols(line):
             == j_lexicon.make_frontend().text_to_symbols([line]))
 
 
-@pytest.mark.parametrize("name", ["sambert_16k_MAS", "sambert_sichuan_16k"])
+@pytest.mark.parametrize("name", ["sambert_16k_MAS", "sambert_sichuan_16k",
+                                  "sambert_16k_MAS_byte"])
 def test_ling_unit_vocabularies(name):
     cfg = jconfig.load_yaml(os.path.join(CONFIGS, f"{name}.yaml"))
     t_unit, j_unit = KanTtsLinguisticUnit(cfg), JLingUnit(cfg)
@@ -95,12 +98,34 @@ def test_load_merged_config(name, tmp_path):
                                   "hifigan_noncausal_nsf_v1_16k",
                                   "hifigan_noncausal_nsf_global_v1_16k",
                                   "sambert_nsf_16k", "sambert_nsf_24k",
-                                  "audio_config_24k"])
+                                  "sambert_16k_MAS_byte",
+                                  "sambert_se_nsf_global_16k", "audio_config_24k"])
 def test_config_copies_equal_the_originals(name):
     """The port's copies of the YAML configs that chip_smoke.py reads."""
     copy = os.path.join(ROOT, "kantts_tpu_torch", "resources", "configs", f"{name}.yaml")
     with open(copy, "rb") as f, open(os.path.join(CONFIGS, f"{name}.yaml"), "rb") as g:
         assert f.read() == g.read()
+
+
+def test_byte_symbols_and_ids(tmp_path):
+    """``turn_text_into_bytes`` on hanzi lines (and one ending in '?', which
+    gets no full stop), and the byte voice's ids of its output."""
+    text = tmp_path / "text.txt"
+    text.write_text("".join(f"{i}\t{line}\n" for i, line in
+                            enumerate(HANZI_LINES + ["ni hao?"])), encoding="utf-8")
+    outs = [tmp_path / "port.lst", tmp_path / "jax.lst"]
+    t_script.turn_text_into_bytes(str(text), str(outs[0]), "F7")
+    j_script.TextScriptConvertor.turn_text_into_bytes(str(text), str(outs[1]), "F7")
+    got = outs[0].read_text(encoding="utf-8")
+    assert got == outs[1].read_text(encoding="utf-8")
+    cfg = jconfig.load_yaml(os.path.join(CONFIGS, "sambert_16k_MAS_byte.yaml"))
+    t_unit, j_unit = KanTtsLinguisticUnit(cfg), JLingUnit(cfg)
+    assert t_unit.using_byte() and t_unit.get_unit_size() == j_unit.get_unit_size()
+    lines = got.splitlines()
+    assert len(lines) == 5 and lines[-1].endswith("{63$emotion_neutral$F7}")
+    for line in lines:
+        seq = line.split("\t")[1]
+        assert _ids(t_unit, seq) == _ids(j_unit, seq)
 
 
 def test_beta_binomial_prior():
@@ -199,9 +224,16 @@ def _round_trip(sd, back):
         np.testing.assert_array_equal(back[k].numpy(), v, err_msg=k)
 
 
-def test_convert_sambert_round_trip():
-    cfg = get_config("sambert_16k_MAS")
-    cfg["Model"]["KanTtsSAMBERT"]["params"] = dict(TINY, num_mels=80, MAS=True)
+@pytest.mark.parametrize("voice", ["phones", "byte", "se"])
+def test_convert_sambert_round_trip(voice):
+    """The forward converter and its inverse, for a phone MAS voice, a byte
+    voice (``byte_index_emb``) and an SE voice (no speaker table)."""
+    name = {"phones": "sambert_16k_MAS", "byte": "sambert_16k_MAS_byte",
+            "se": "sambert_se_nsf_global_16k"}[voice]
+    cfg = jconfig.load_yaml(os.path.join(CONFIGS, f"{name}.yaml"))
+    flags = {"phones": dict(MAS=True), "byte": dict(MAS=True, using_byte=True),
+             "se": dict(SE=True)}[voice]
+    cfg["Model"]["KanTtsSAMBERT"]["params"] = dict(TINY, num_mels=80, **flags)
     params = sambert_params(cfg)
     sd = _random_state_dict(build_sambert(cfg), 0)
     tree = jconvert.convert_sambert(sd, params)
