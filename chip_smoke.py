@@ -89,6 +89,23 @@ hifigan_v1_16k, with weights made from a seed:
      corpus, the forward card vs CPU; K1 must not launch there. Every bf16
      result on the card lies within e_ref of the CPU's, e_ref = max
      |bf16 - f32| of the same module on the card on the same inputs.
+ 11. FP and Textsy-BERT at the published widths of sybert.yaml and
+     sambert_fp_8k.yaml: (a) ``train_sybert`` on a 64-line synthetic symbol
+     corpus, 20 steps at B=32, a resume from step 10 to 12, the CLI for 2
+     steps in a subprocess with no ``--device``, one step timed with its
+     host syncs, and a step at B=4 card vs CPU (loss, error rate, gradient
+     norm, 1e-3 relative); (b) ``train_sambert`` on a synthetic 8 kHz FP
+     corpus (fillers at the start, in the middle and at the end), 20 steps
+     at B=16 warm-started from (a)'s checkpoint (every ``text_encoder``
+     tensor but ``ling_proj`` copied), a resume from 10 to 12, one step
+     timed with its host syncs and a profile, a forward and backward at
+     B=4 card vs CPU (total loss, ``fp_loss``, gradient norm); (c)
+     ``sambert_infer_fp`` at B=4 card vs CPU on (b)'s checkpoint and on the
+     voice at its seeded init (whose predictor places fillers): the FP
+     classes equal (the smallest top-1 minus top-2 margin printed), the
+     spliced lengths equal, mels within 1e-3; then ``text_to_wav`` with no
+     ``--device`` on the FP voice and a seeded hifigan_v1_8k (8 kHz wavs
+     of frames * 100 samples). K1 must not launch on this path.
 
 Each phase prints lines of its own and raises on failure. Before the last
 line it prints a JSON object on the kernels; the last line is
@@ -554,14 +571,18 @@ def phase_card_vs_cpu(am_ckpt: str, voc_ckpt: str):
         wav_max_abs_err=wav_err, tol=1e-3)
 
 
-def train_config(path: str, name: str = "sambert_16k_MAS", **keys) -> str:
-    """The port's copy of {name}.yaml with ``keys`` replaced, written to
-    ``path``."""
+def train_config(path: str, name: str = "sambert_16k_MAS", params=None,
+                 **keys) -> str:
+    """The port's copy of {name}.yaml with ``keys`` replaced (and the model's
+    ``params`` updated), written to ``path``."""
     import yaml
 
     with open(os.path.join(CONFIGS, f"{name}.yaml")) as f:
         cfg = yaml.safe_load(f)
     cfg.update(keys)
+    if params:
+        for section in cfg["Model"].values():
+            section["params"].update(params)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
@@ -1727,7 +1748,7 @@ def nsf_gan_train(tmp: str) -> None:
                                  **NSF_GAN_KEYS), data, stage, device="cuda")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    check_gan_run(trainer, stage, NSF_GAN_KEYS["train_max_steps"])
+    check_run(trainer, stage, NSF_GAN_KEYS["train_max_steps"])
     if trainer.generator.nsf_params is None or trainer.config["batch_size"] != GAN_SHAPE[0]:
         raise AssertionError("phase 9 did not train the published NSF vocoder")
     log("nsf_voc_train", steps=trainer.steps_taken, batch=trainer.config["batch_size"],
@@ -1739,14 +1760,14 @@ def nsf_gan_train(tmp: str) -> None:
     phase_gan_card_vs_cpu(trainer, "nsf_gan_card_vs_cpu")
 
 
-def check_gan_run(trainer, stage: str, steps: int) -> None:
+def check_run(trainer, stage: str, steps: int) -> None:
     """The run took ``steps`` steps with finite metrics and saved there."""
     if trainer.steps_taken != steps or not os.path.exists(ckpt_path(stage, steps)):
-        raise AssertionError(f"{trainer.steps_taken} GAN steps, expected {steps}")
+        raise AssertionError(f"{stage}: {trainer.steps_taken} steps, expected {steps}")
     for kind, at, means in trainer.history:
         bad = {k: v for k, v in means.items() if not np.isfinite(v)}
         if bad:
-            raise AssertionError(f"GAN {kind} metrics at step {at} not finite: {bad}")
+            raise AssertionError(f"{stage}: {kind} metrics at step {at} not finite: {bad}")
 
 
 def gan_losses(trainer) -> str:
@@ -1781,7 +1802,7 @@ def mb_gan_train(tmp: str) -> None:
     t0 = time.perf_counter()
     trainer = train(path, os.path.join(tmp, "voc_corpus"), stage, device="cuda")
     seconds = time.perf_counter() - t0
-    check_gan_run(trainer, stage, SHORT_KEYS["train_max_steps"])
+    check_run(trainer, stage, SHORT_KEYS["train_max_steps"])
     means = trainer.history[-1][2]
     if "train/sub_spectral_convergence_loss" not in means or \
             "MultiSpecDiscriminator" not in trainer.discriminators:
@@ -1996,7 +2017,7 @@ def bf16_gan(tmp: str) -> str:
     trainer = train(gan_config(os.path.join(stage, "model.yaml"), **BF16_GAN_KEYS),
                     os.path.join(tmp, "voc_corpus"), stage, device="cuda")
     seconds = time.perf_counter() - t0
-    check_gan_run(trainer, stage, BF16_GAN_KEYS["train_max_steps"])
+    check_run(trainer, stage, BF16_GAN_KEYS["train_max_steps"])
     all_float32([trainer.generator, *trainer.discriminators.values()],
                 [trainer.gen_optimizer, *trainer.disc_optimizers.values()])
     if trainer.generator.dtype != torch.bfloat16:
@@ -2405,6 +2426,343 @@ def phase_bf16_se_byte(tmp: str, voc_ckpt: str) -> dict:
             "vocoder": voc, "gan": gan, "am": am}
 
 
+FP_SR, FP_HOP = 8000, 100  # hifigan_v1_8k: prod(5, 5, 2, 2) samples a frame
+# the keys of sybert.yaml and sambert_fp_8k.yaml that phase 11 shortens
+FP_KEYS = dict(train_max_steps=20, save_interval_steps=10, eval_interval_steps=10,
+               log_interval_steps=10)
+# the FP voice's duration head starts at ~8 frames a phone, as phase 10's
+# seeded voices do: 20 steps in NoamLR's warmup leave it near its init
+FP_PARAMS = {"dur_pred_bias_init": 2.2}
+
+
+def resume_10_to_12(tmp: str, train, name: str, data: str, stage: str,
+                    params=None) -> float:
+    """A resume of ``stage``'s run of ``name`` from step 10 to 12 through
+    ``train``. -> seconds."""
+    resumed = os.path.join(tmp, f"{name}_resumed")
+    t0 = time.perf_counter()
+    again = train(train_config(os.path.join(resumed, "model.yaml"), name, params,
+                               **dict(FP_KEYS, train_max_steps=12)),
+                  data, resumed, resume_path=ckpt_path(stage, 10))
+    if (again.steps_taken != 2 or again.scheduler.last_epoch != 12
+            or not os.path.exists(ckpt_path(resumed, 12))):
+        raise AssertionError(f"{name} resume 10 -> 12: {again.steps_taken} steps, "
+                             f"schedule at {again.scheduler.last_epoch}")
+    return round(time.perf_counter() - t0, 3)
+
+
+def sybert_cli(tmp: str, data: str) -> float:
+    """2 steps of ``python -m kantts_tpu_torch.bin.train_sybert`` with no
+    --device. -> seconds."""
+    cli = os.path.join(tmp, "sybert_cli")
+    cfg = train_config(os.path.join(cli, "model.yaml"), "sybert",
+                       **dict(FP_KEYS, train_max_steps=2))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "kantts_tpu_torch.bin.train_sybert", "--model_config",
+         cfg, "--root_dir", data, "--stage_dir", cli],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0 or not os.path.exists(ckpt_path(cli, 2)):
+        raise RuntimeError(f"train_sybert exited {proc.returncode}:\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    return round(time.perf_counter() - t0, 3)
+
+
+def timed_step(name: str, step, batch, n: int = 10, profile: bool = False) -> float:
+    """``step(batch)``: 3 warmup calls, then n calls each between two
+    synchronizes; the host syncs of one call; with ``profile`` a profile of
+    3 warm calls. -> median ms."""
+    import torch
+
+    for _ in range(3):
+        step(batch)
+    torch.cuda.synchronize()
+    syncs = host_syncs(lambda: step(batch))
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    bad = {k: v.item() for k, v in metrics.items() if not torch.isfinite(v)}
+    if bad:
+        raise AssertionError(f"{name}: metrics not finite: {bad}")
+    ms = float(np.median(times)) * 1e3
+    fields = {}
+    if profile:
+        prof = profile_steps(lambda: step(batch), 3)
+        fields = dict(device_busy_ms_3_steps=round(prof["busy_ms"], 3),
+                      device_busy_share=round(prof["busy_ms"] / prof["wall_ms"], 4),
+                      device_ops_per_step=prof["device_ops"] // 3,
+                      top=json.dumps(prof["top"][:6]).replace(" ", ""))
+    log(name, shape="x".join(str(d) for d in batch["input_lings"].shape[:2]),
+        median_ms=round(ms, 3), min_ms=round(min(times) * 1e3, 3),
+        max_ms=round(max(times) * 1e3, 3),
+        peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 3),
+        host_syncs=len(syncs), sync_sites=",".join(
+            f"{site}x{k}" for site, k in collections.Counter(syncs).items()),
+        **fields)
+    return ms
+
+
+def rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def sybert_card_vs_cpu(config, batch_np) -> None:
+    """One forward and backward of the seeded Textsy-BERT (dropout 0) at
+    B=4 on the card and on the CPU: loss, error rate and global gradient
+    norm each within 1e-3 relative (float32, TF32 off; phase 6's rule)."""
+    import torch
+    from torch import nn
+
+    from kantts_tpu_torch.losses import criterion_builder
+    from kantts_tpu_torch.models.builder import build_sybert
+    from kantts_tpu_torch.train.optim import global_grad_norm
+    from kantts_tpu_torch.train.steps import sybert_losses
+    from kantts_tpu_torch.train.trainer import batch_to_device
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = build_sybert(config, seed=0).to(device)
+        for m in model.modules():
+            if isinstance(m, nn.Dropout):
+                m.p = 0.0
+        loss, metrics = sybert_losses(model.train(), criterion_builder(config),
+                                      batch_to_device(batch_np, torch.device(device)))
+        loss.backward()
+        out[device] = (loss.item(), metrics["error_rate"].item(),
+                       global_grad_norm(model.parameters()).item())
+    errs = [rel(a, b) for a, b in zip(out["cuda"], out["cpu"])]
+    log("sybert_card_vs_cpu", shape="x".join(map(str, batch_np["input_lings"].shape[:2])),
+        card=out["cuda"], cpu=out["cpu"], rel_err=errs, tol=1e-3)
+    if not (np.isfinite(out["cuda"]).all() and max(errs) <= 1e-3):
+        raise AssertionError(f"Textsy-BERT card vs CPU: {out}")
+
+
+def fp_card_vs_cpu(config, batch_np, fp_dict_lings) -> None:
+    """One forward and backward of the seeded FP SAM-BERT (dropout 0) at B=4
+    on the card and on the CPU: total loss and ``fp_loss`` rtol 1e-4, the
+    global gradient norm rtol 1e-3 (phase 4's rule)."""
+    import torch
+    from torch import nn
+
+    from kantts_tpu_torch.losses import criterion_builder
+    from kantts_tpu_torch.models.builder import build_sambert
+    from kantts_tpu_torch.train.optim import global_grad_norm
+    from kantts_tpu_torch.train.steps import sambert_losses
+    from kantts_tpu_torch.train.trainer import array_to_device, batch_to_device
+
+    out = {}
+    for device in (torch.device("cuda"), torch.device("cpu")):
+        model = build_sambert(config, seed=0).to(device)
+        for m in model.modules():
+            if isinstance(m, nn.Dropout):
+                m.p = 0.0
+        loss, metrics = sambert_losses(
+            model.train(), criterion_builder(config), batch_to_device(batch_np, device),
+            0, False, fp_dict_lings=array_to_device(fp_dict_lings, device))
+        loss.backward()
+        out[device.type] = (loss.item(), metrics["fp_loss"].item(),
+                            global_grad_norm(model.parameters()).item())
+    errs = [rel(a, b) for a, b in zip(out["cuda"], out["cpu"])]
+    log("fp_train_card_vs_cpu", shape="B={}xT_in={}xL={}xT_mel={}".format(
+        *batch_np["input_lings"].shape[:2], batch_np["durations"].shape[1],
+        batch_np["mel_targets"].shape[1]),
+        card=out["cuda"], cpu=out["cpu"], rel_err=errs, tol="1e-4,1e-4,1e-3")
+    if not (np.isfinite(out["cuda"]).all() and errs[0] <= 1e-4 and errs[1] <= 1e-4
+            and errs[2] <= 1e-3):
+        raise AssertionError(f"FP train card vs CPU: {out}")
+
+
+def fp_infer_card_vs_cpu(voice: str, am_ckpt: str, batch_np, fp_dict_lings) -> dict:
+    """``sambert_infer_fp`` at B=4 on the card and on the CPU. The FP classes
+    (argmax on the host) must agree; the smallest top-1 minus top-2 margin
+    over valid tokens says how near a tie came. Then the spliced lengths
+    must agree, and the mels within 1e-3 once both sides decode the same
+    rounded durations: where floor(d + 0.5) rounds a duration apart, both
+    re-decode the card's (the spliced hiddens through ``insert_fp`` and
+    ``sambert_infer``'s ``duration_override``)."""
+    import torch
+
+    from kantts_tpu_torch.models.builder import load_checkpoint
+    from kantts_tpu_torch.models.sambert.fp import fp_classes_from_predictions
+    from kantts_tpu_torch.models.sambert.sambert import sambert_infer, sambert_infer_fp
+    from kantts_tpu_torch.utils.mask import get_mask_from_lengths
+
+    L_in = batch_np["input_lings"].shape[1]
+    budget = L_in * 6
+    args = {dev: [torch.from_numpy(batch_np[k]).long().to(dev)
+                  for k in ("input_lings", "input_emotions", "input_speakers",
+                            "valid_input_lengths")]
+                 + [torch.from_numpy(fp_dict_lings).long().to(dev)]
+            for dev in ("cuda", "cpu")}
+    models = {dev: load_checkpoint(am_ckpt, torch.device(dev))[0] for dev in args}
+    res, seconds = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        res[dev] = {k: v.cpu() for k, v in
+                    sambert_infer_fp(models[dev], *args[dev], budget).items()}
+        seconds[dev] = round(time.perf_counter() - t0, 3)
+    masks = get_mask_from_lengths(args["cpu"][3], L_in).numpy()
+    classes = {dev: fp_classes_from_predictions(r["fp_predictions"].numpy(), masks)
+               for dev, r in res.items()}
+    top2 = np.sort(res["cuda"]["fp_predictions"].numpy(), axis=-1)[..., -2:]
+    margin = float((top2[..., 1] - top2[..., 0])[~masks].min())
+    same_classes = bool((classes["cuda"] == classes["cpu"]).all())
+    log("fp_infer_classes", voice=voice, shape=f"B=4xT_in={L_in}", budget=budget,
+        fillers_card=int((classes["cuda"] > 0).sum()),
+        fillers_cpu=int((classes["cpu"] > 0).sum()), classes_equal=same_classes,
+        min_top1_top2_margin=margin, seconds=json.dumps(seconds).replace(" ", ""))
+    if not same_classes:
+        raise AssertionError(f"FP classes differ card vs CPU (margin {margin})")
+    if not torch.equal(res["cuda"]["valid_inter_lengths"].long(),
+                       res["cpu"]["valid_inter_lengths"].long()):
+        raise AssertionError("spliced lengths differ card vs CPU")
+    durs = {dev: torch.floor(r["duration_predictions"] + 0.5) for dev, r in res.items()}
+    rounding_equal = bool(torch.equal(durs["cuda"], durs["cpu"]))
+    mel = {dev: r["postnet_outputs"] for dev, r in res.items()}
+    if not rounding_equal:
+        for dev in ("cuda", "cpu"):
+            m, (ling, emo, spk, lens, fpd) = models[dev], args[dev]
+            with torch.no_grad():
+                text_hid, _, _ = m.encode(ling, get_mask_from_lengths(lens, L_in))
+                plan = [torch.from_numpy(np.asarray(a)).to(dev) for a in
+                        _fp_plan(classes["cuda"], lens.cpu().numpy())]
+                hid, e, s = m.insert_fp(text_hid, emo, spk, plan, fpd)
+                mel[dev] = sambert_infer(m, ling, e, s, plan[3], budget,
+                                         text_hid_override=hid,
+                                         duration_override=durs["cuda"].to(dev)
+                                         )["postnet_outputs"].cpu()
+    err = (mel["cuda"] - mel["cpu"]).abs().max().item()
+    frames = res["cuda"]["LR_length_rounded"].tolist()
+    log("fp_infer_card_vs_cpu", voice=voice,
+        inter_lengths=res["cuda"]["valid_inter_lengths"].tolist(),
+        frames=frames, rounded_durations_equal=rounding_equal,
+        dur_max_abs_err=(res["cuda"]["duration_predictions"]
+                         - res["cpu"]["duration_predictions"]).abs().max().item(),
+        mel_max_abs_err=err, tol=1e-3)
+    if not (np.isfinite(mel["cuda"].numpy()).all() and err <= 1e-3):
+        raise AssertionError(f"sambert_infer_fp card vs CPU: mel {err} > 1e-3")
+    return {"margin": margin, "mel_max_abs_err": err, "seconds": seconds,
+            "fillers": int((classes["cuda"] > 0).sum())}
+
+
+def _fp_plan(classes, lengths):
+    from kantts_tpu_torch.models.sambert.fp import build_fp_insertion_plan
+
+    return build_fp_insertion_plan(classes, lengths)[:4]
+
+
+def phase_fp_sybert(tmp: str) -> dict:
+    """Phase 11, (a)-(c) above. -> K1's launches (0) and results."""
+    import torch
+
+    from kantts_tpu_torch.bin import train_sambert, train_sybert
+    from kantts_tpu_torch.models.builder import model_builder, save_checkpoint
+    from kantts_tpu_torch.ops.mas import b_mas_cuda
+    from kantts_tpu_torch.train.trainer import batch_to_device
+    from kantts_tpu_torch.utils.config import load_yaml
+    from kantts_tpu_torch.utils.corpus import write_fp_corpus, write_text_corpus
+
+    t_phase = time.perf_counter()
+    cuda = torch.device("cuda")
+    root = os.path.join(tmp, "fp")
+    b_mas_cuda.launches = 0
+
+    # (a) Textsy-BERT
+    text = os.path.join(root, "text_corpus")
+    write_text_corpus(text, 64, (60, 90), seed=0)
+    stage = os.path.join(root, "sybert")
+    t0 = time.perf_counter()
+    bert = train_sybert.train(train_config(os.path.join(stage, "model.yaml"), "sybert",
+                                           **FP_KEYS), text, stage)
+    seconds = {"sybert_train": round(time.perf_counter() - t0, 3)}
+    check_run(bert, stage, FP_KEYS["train_max_steps"])
+    losses = {f"{kind}@{at}": round(m[f"{kind}/loss"], 5) for kind, at, m in bert.history}
+    log("sybert_train", steps=bert.steps_taken, batch=bert.config["batch_size"],
+        seconds=seconds["sybert_train"], loss=json.dumps(losses).replace(" ", ""))
+    seconds["sybert_resume"] = resume_10_to_12(root, train_sybert.train, "sybert",
+                                               text, stage)
+    seconds["sybert_cli"] = sybert_cli(root, text)
+    ds = bert.train_loader.dataset
+    items = sorted((ds[i] for i in range(len(ds))), key=lambda x: -len(x[0]))
+    bert_batch = ds.collate_fn(items[:bert.config["batch_size"]])
+    sybert_step_ms = timed_step("sybert_step", bert.train_step_fn,
+                                batch_to_device(bert_batch, cuda))
+    sybert_card_vs_cpu(bert.config, ds.collate_fn(items[:4]))
+    bert_ckpt = ckpt_path(stage, FP_KEYS["train_max_steps"])
+    del bert
+
+    # (b) the warm start and FP training
+    data = os.path.join(root, "fp_corpus")
+    write_fp_corpus(data, 40, (40, 70), (300, 450), seed=0, sampling_rate=FP_SR)
+    stage = os.path.join(root, "fp_train")
+    t0 = time.perf_counter()
+    am = train_sambert.train(train_config(os.path.join(stage, "model.yaml"),
+                                          "sambert_fp_8k", FP_PARAMS, **FP_KEYS),
+                             data, stage, resume_bert_path=bert_ckpt)
+    seconds["fp_train"] = round(time.perf_counter() - t0, 3)
+    check_run(am, stage, FP_KEYS["train_max_steps"])
+    encoder = [k for k in am.model.state_dict() if k.startswith("text_encoder.")
+               and not k.startswith("text_encoder.ling_proj.")]
+    if sorted(am.warm_started) != sorted(encoder):
+        raise AssertionError(f"warm start copied {len(am.warm_started)} tensors, "
+                             f"expected {len(encoder)}")
+    fp_losses = {f"{kind}@{at}": round(m[f"{kind}/fp_loss"], 5)
+                 for kind, at, m in am.history}
+    log("fp_train", steps=am.steps_taken, batch=am.config["batch_size"],
+        seconds=seconds["fp_train"], warm_started_tensors=len(am.warm_started),
+        fp_loss=json.dumps(fp_losses).replace(" ", ""))
+    seconds["fp_resume"] = resume_10_to_12(root, train_sambert.train, "sambert_fp_8k",
+                                           data, stage, FP_PARAMS)
+    ds = am.train_loader.dataset
+    fp_dict = ds.fp_dict_lings
+    items = longest_items(am, am.config["batch_size"])
+    fp_step_ms = timed_step("fp_step", lambda b: am.train_step_fn(b, 0),
+                            batch_to_device(ds.collate_fn(items), cuda), profile=True)
+    fp_card_vs_cpu(am.config, ds.collate_fn(items[:4]), fp_dict)
+    am_ckpt = ckpt_path(stage, FP_KEYS["train_max_steps"])
+    infer_batch = ds.collate_fn(items[:4])
+    del am
+    torch.cuda.empty_cache()
+
+    # (c) FP inference (the trained voice, and the voice at its seeded init,
+    # whose predictor still places fillers), then text -> wav
+    seeded, fp_cfg = os.path.join(root, "fp_seeded.pt"), load_yaml(
+        os.path.join(stage, "config.yaml"))
+    save_checkpoint(seeded, model_builder(fp_cfg, seed=0), fp_cfg)
+    infer = {voice: fp_infer_card_vs_cpu(voice, ckpt, infer_batch, fp_dict)
+             for voice, ckpt in (("step_20", am_ckpt), ("seeded", seeded))}
+    if infer["seeded"]["fillers"] == 0:
+        raise AssertionError("the seeded FP voice spliced no filler: the splice "
+                             "did not run card vs CPU")
+    voc_cfg = load_yaml(os.path.join(CONFIGS, "hifigan_v1_8k.yaml"))
+    voc_cfg["audio_config"] = load_yaml(
+        os.path.join(CONFIGS, "audio_config_8k.yaml"))["audio_config"]
+    voc_ckpt = os.path.join(root, "voc_8k.pt")
+    save_checkpoint(voc_ckpt, model_builder(voc_cfg, seed=2), voc_cfg)
+    text_file = os.path.join(root, "text.txt")
+    with open(text_file, "w", encoding="utf-8") as f:
+        f.write("\n".join(TEXTS) + "\n")
+    out = os.path.join(root, "cli")
+    t0 = time.perf_counter()
+    stats = text_to_wav_cli(out, am_ckpt, voc_ckpt, "--txt", text_file, "--am_batch", "4")
+    seconds["text_to_wav"] = round(time.perf_counter() - t0, 3)
+    log("fp_text_to_wav_cli", sentences=check_wavs(out, FP_SR, FP_HOP),
+        am_frames=stats["am_frames"], audio_s=round(stats["audio_seconds"], 3))
+    if b_mas_cuda.launches != 0:
+        raise AssertionError(f"the FP and Textsy-BERT path launched K1 "
+                             f"{b_mas_cuda.launches} times")
+    log("fp_sybert", k1_launches=b_mas_cuda.launches,
+        seconds=json.dumps(seconds).replace(" ", ""),
+        phase_s=round(time.perf_counter() - t_phase, 3))
+    return {"k1_launches": b_mas_cuda.launches, "sybert_step_ms": sybert_step_ms,
+            "fp_step_ms": fp_step_ms, "infer": infer}
+
+
 def old_k1(src: str):
     """Build an earlier K1 source with the same nvcc flags; it has the first
     K1's C interface (the caller zeroes the output and passes a uint8
@@ -2499,6 +2857,7 @@ def main(argv) -> int:
         serve = phase_serve(tmp, am_ckpt, voc_ckpt)
         nsf = phase_nsf(tmp)
         bf16 = phase_bf16_se_byte(tmp, voc_ckpt)
+        fp = phase_fp_sybert(tmp)
     import torch
 
     train = k1["train"]
@@ -2511,7 +2870,8 @@ def main(argv) -> int:
         "launches_by_path": {"mas_forward": fwd_launches,
                              "train_sambert": train_launches,
                              "serve": serve["k1_launches"],
-                             "nsf": nsf["k1_launches"], **bf16["k1_launches"]},
+                             "nsf": nsf["k1_launches"], **bf16["k1_launches"],
+                             "fp_sybert": fp["k1_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
         "ms": train["ms"], "plain_ms": train["plain_ms"],
         "bound_ms": train["bound_ms"], "bound_by": train["bound_by"],

@@ -1,15 +1,16 @@
-"""Datasets, collate and loading for vocoder and acoustic-model training (a
-copy of the parts of ``kantts_tpu/data/dataset.py`` that the port trains
-with: the same metafile split, crops, buckets and batches for a seed).
+"""Datasets, collate and loading for vocoder, acoustic-model and
+Textsy-BERT training (a copy of ``kantts_tpu/data/dataset.py``: the same
+metafile split, crops, buckets, masks and batches for a seed).
 
 Input lengths round up to ``input_bucket`` and mel lengths to
 ``frame_bucket`` (a multiple of outputs_per_step), as in the JAX package;
 masked loss reductions divide by valid counts, so padding is invisible to
 training. Arrays are numpy; the DataLoader is a seeded shuffling iterator
 with per-process sharding. NSF configs append frame-level f0 and uv to the
-mel, as the JAX package does. Its FP, SE and byte-input branches and its
-Textsy-BERT dataset are not copied: the port's models refuse those
-configs.
+mel, as the JAX package does. An FP voice reads ``am_fprm_*.lst`` (the
+fillers removed) and the ``fpadd`` metafile beside it (the fillers kept,
+tagged ``emotion_disgust``): each item's FP labels come from the latter
+(``get_fp_label``), and the collate builds the insertion plan.
 """
 
 from __future__ import annotations
@@ -28,7 +29,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 from scipy.stats import betabinom
 
-from kantts_tpu_torch.text.ling_unit import KanTtsLinguisticUnit
+from kantts_tpu_torch.models.sambert.fp import build_fp_insertion_plan
+from kantts_tpu_torch.text.emotion_types import EMOTION_TYPES
+from kantts_tpu_torch.text.ling_unit import KanTtsLinguisticUnit, get_fpdict
 from kantts_tpu_torch.utils.audio import read_wav
 
 DATASET_RANDOM_SEED = 1234
@@ -243,17 +246,63 @@ def get_voc_datasets(config, root_dir, split_ratio=0.98):
             VocDataset(valid_meta, root_dir, config))
 
 
+# -------------------------------------------------------------- FP labeling
+
+
+def get_fp_label(aug_ling_txt: str) -> np.ndarray:
+    """Per-token FP class labels (one per token of the fillers-removed
+    sequence, EOS included) from the emotion tags of the fpadd metafile."""
+    tokens = aug_ling_txt.split(" ")
+    emo = [t.strip("{}").split("$")[4] for t in tokens]
+    syl = [t.strip("{}").split("$")[0] for t in tokens]
+    emo.append(EMOTION_TYPES[0])
+    syl.append("EOS")
+
+    if emo[0] != EMOTION_TYPES[3]:
+        emo[0] = EMOTION_TYPES[0]
+        emo[1] = EMOTION_TYPES[0]
+    for i in range(len(emo) - 2, 1, -1):
+        if emo[i] != EMOTION_TYPES[3] and emo[i - 1] != EMOTION_TYPES[3]:
+            emo[i] = EMOTION_TYPES[0]
+        elif emo[i] != EMOTION_TYPES[3] and emo[i - 1] == EMOTION_TYPES[3]:
+            emo[i] = EMOTION_TYPES[3]
+            if syl[i - 2] == "ga":
+                emo[i + 1] = EMOTION_TYPES[1]
+            elif syl[i - 2] == "ge" and syl[i - 1] == "en_c":
+                emo[i + 1] = EMOTION_TYPES[2]
+            else:
+                emo[i + 1] = EMOTION_TYPES[4]
+
+    label = []
+    for e in emo:
+        if e == EMOTION_TYPES[0]:
+            label.append(0)
+        elif e == EMOTION_TYPES[1]:
+            label.append(1)
+        elif e == EMOTION_TYPES[2]:
+            label.append(2)
+        elif e == EMOTION_TYPES[3]:
+            continue
+        elif e == EMOTION_TYPES[4]:
+            label.append(3)
+    return np.asarray(label)
+
+
 # -------------------------------------------------------------------- AM
 
 
 class AMDataset:
-    """(ling, mel, dur, f0, energy, prior, se) items with bucketed collate.
+    """(ling, mel, dur, f0, energy, prior, se, fp_label) items with bucketed
+    collate.
     With ``NSF`` the mel carries frame f0 and uv as its last two channels;
     the ``global`` norm type maps f0 from the corpus's mean and std onto
     [nsf_f0_global_minimum, nsf_f0_global_maximum] -> [0, 1]. With ``SE``
     every item carries its corpus's speaker embedding ``se/se.npy``, which
     the collate repeats over the item's tokens in place of speaker ids. A
-    byte voice has one linguistic track."""
+    byte voice has one linguistic track. An FP voice's durations, pitch and
+    energy are of the spliced sequence; the collate pads them to the plan's
+    length, which covers both the spliced lengths and the longest duration
+    array plus its EOS stash slot."""
 
     def __init__(self, config, metafile, root_dir, allow_cache=False,
                  input_bucket: int = 16, frame_bucket: int = 96):
@@ -265,6 +314,7 @@ class AMDataset:
         self.nsf_f0_global_maximum = params.get("nsf_f0_global_maximum", 730.0)
         self.mas_enable = params.get("MAS", False)
         self.se_enable = params.get("SE", False)
+        self.fp_enable = params.get("FP", False)
         self.r = params["outputs_per_step"]
         self.input_bucket = input_bucket
         self.frame_bucket = Padder.round_up(frame_bucket, self.r)
@@ -279,12 +329,21 @@ class AMDataset:
             self.meta.extend(self._load_meta(meta, data_dir))
 
         self.ling_unit = KanTtsLinguisticUnit(config)
+        if self.fp_enable:
+            fpd = get_fpdict(config)
+            self.fp_dict_lings = np.stack([fpd[1], fpd[2], fpd[3]]).astype(np.int32)
         self.allow_cache = allow_cache
         self.caches = [() for _ in self.meta] if allow_cache else []
 
     def _load_meta(self, metafile, data_dir):
         with open(metafile) as f:
             lines = [line.strip() for line in f if line.strip()]
+        aug_ling = {}
+        if self.fp_enable:
+            with open(metafile.replace("fprm", "fpadd")) as f:
+                for line in f:
+                    index, txt = line.split("\t")
+                    aug_ling[index] = txt
         dur_dir = os.path.join(data_dir, "duration")
         self.with_duration = (not self.mas_enable) and os.path.exists(dur_dir)
         items = []
@@ -299,6 +358,7 @@ class AMDataset:
                 os.path.join(data_dir, "frame_f0", index + ".npy"),
                 os.path.join(data_dir, "frame_uv", index + ".npy"),
                 os.path.join(data_dir, "se", "se.npy"),
+                aug_ling.get(index),
             ))
         return items
 
@@ -309,7 +369,7 @@ class AMDataset:
         if self.allow_cache and len(self.caches[idx]):
             return self.caches[idx]
         (ling_txt, mel_file, dur_file, f0_file, energy_file, frame_f0_file,
-         frame_uv_file, se_path) = self.meta[idx]
+         frame_uv_file, se_path, aug_ling_txt) = self.meta[idx]
         ling_data = self.ling_unit.encode_symbol_sequence(ling_txt)
         mel = np.load(mel_file)
         dur = np.load(dur_file) if dur_file is not None else None
@@ -326,8 +386,10 @@ class AMDataset:
             frame_uv = np.load(frame_uv_file).reshape(-1, 1)
             mel = np.concatenate([mel, frame_f0, frame_uv], axis=1)
         se = np.load(se_path) if self.se_enable else None
+        fp_label = (get_fp_label(aug_ling_txt)
+                    if self.fp_enable and aug_ling_txt is not None else None)
         item = (ling_data, mel, dur, np.load(f0_file), np.load(energy_file),
-                attn_prior, se)
+                attn_prior, se, fp_label)
         if self.allow_cache:
             self.caches[idx] = item
         return item
@@ -381,11 +443,27 @@ class AMDataset:
         L_mel = Padder.round_up(max_out, self.frame_bucket)
         data["mel_targets"] = Padder.stack_2d([x[1] for x in batch], L_mel, 0.0)
 
+        # FP: the host-built insertion plan (models/sambert/fp.py); its length
+        # L covers the spliced sequences and the duration arrays with their
+        # EOS stash slot, and pads durations, pitch and energy
+        L_feats = L_in
+        if self.fp_enable:
+            fp_label = Padder.stack_1d([x[7] for x in batch], L_in, 0).astype(np.int32)
+            lengths = data["valid_input_lengths"]
+            max_dur = max((len(x[2]) for x in batch if x[2] is not None), default=0)
+            inter_max = max(int(lengths[i]) + 3 * int((fp_label[i, :lengths[i]] > 0).sum())
+                            for i in range(len(batch)))
+            out_len = Padder.round_up(max(inter_max, max_dur + 1, 1), self.input_bucket)
+            src_idx, f_class, f_phase, inter_lengths, L_feats = build_fp_insertion_plan(
+                fp_label, lengths, out_len=out_len, bucket=self.input_bucket)
+            data["fp_label"] = fp_label
+            data["fp_plan"] = (src_idx, f_class, f_phase, inter_lengths)
+
         if self.with_duration:
             data["durations"] = np.stack([
-                Padder.pad_durations(x[2], L_in, L_mel) for x in batch
+                Padder.pad_durations(x[2], L_feats, L_mel) for x in batch
             ]).astype(np.float32)
-            feats_len = L_in
+            feats_len = L_feats
         else:
             data["durations"] = None
             feats_len = L_mel
@@ -407,12 +485,17 @@ class AMDataset:
 
 def get_am_datasets(metafile, root_dir, config, allow_cache=False,
                     split_ratio=0.98, se_enable=False, **dataset_kwargs):
+    """An FP voice reads ``am_fprm_{train,valid}.lst``, which the FP
+    preprocessing writes (with their ``am_fpadd_*`` twins)."""
     root_dir = root_dir if isinstance(root_dir, list) else [root_dir]
     metafile = metafile if isinstance(metafile, list) else [metafile]
+    fp_enable = config["Model"]["KanTtsSAMBERT"]["params"].get("FP", False)
+    train_fn = "am_fprm_train.lst" if fp_enable else "am_train.lst"
+    valid_fn = "am_fprm_valid.lst" if fp_enable else "am_valid.lst"
     train_meta, valid_meta = [], []
     for raw_metafile, data_dir in zip(metafile, root_dir):
-        tm = os.path.join(data_dir, "am_train.lst")
-        vm = os.path.join(data_dir, "am_valid.lst")
+        tm = os.path.join(data_dir, train_fn)
+        vm = os.path.join(data_dir, valid_fn)
         if not (os.path.exists(tm) and os.path.exists(vm)):
             AMDataset.gen_metafile(raw_metafile, data_dir, tm, vm,
                                    split_ratio=split_ratio, se_enable=se_enable)
@@ -420,6 +503,138 @@ def get_am_datasets(metafile, root_dir, config, allow_cache=False,
         valid_meta.append(vm)
     return (AMDataset(config, train_meta, root_dir, allow_cache, **dataset_kwargs),
             AMDataset(config, valid_meta, root_dir, allow_cache, **dataset_kwargs))
+
+
+# ---------------------------------------------------------------- sybert
+
+
+class MaskingActor:
+    """BERT-style masking: each position is picked with ``mask_ratio``; of
+    the picked, floor(80%) become the mask symbol and floor(10%) a random
+    symbol, the rest stay. Draws come from ``rng``."""
+
+    def __init__(self, mask_ratio: float = 0.15, rng: Optional[np.random.RandomState] = None):
+        self.mask_ratio = mask_ratio
+        self.rng = rng or np.random.RandomState()
+
+    def get_random_mask(self, length: int) -> np.ndarray:
+        return (self.rng.uniform(0, 1, length) < self.mask_ratio).astype(np.float64)
+
+    def input_bert_masking(self, seq: np.ndarray, nb_category: int,
+                           mask_symbol_id: int, mask: np.ndarray,
+                           p2=0.8, p3=0.1) -> np.ndarray:
+        out = seq.copy()
+        mask_id = np.where(mask == 1)[0]
+        order = self.rng.permutation(len(mask_id))
+        n2 = int(math.floor(len(mask_id) * p2))
+        n3 = int(math.floor(len(mask_id) * p3))
+        if n2 > 0:
+            out[mask_id[order[:n2]]] = mask_symbol_id
+        if n3 > 0:
+            out[mask_id[order[n2 : n2 + n3]]] = self.rng.randint(0, nb_category)
+        return out
+
+
+class BERTTextDataset:
+    """Textsy-BERT's items: the encoded linguistic tracks of each metafile
+    line. The masks are drawn in ``collate_fn``, which the DataLoader runs on
+    one thread in sampler order (its coordinator thread with workers), so
+    the draws are the same with and without workers; drawn in
+    ``__getitem__`` they would follow the order in which pool threads
+    finish."""
+
+    def __init__(self, config, metafile, root_dir, allow_cache=False,
+                 input_bucket: int = 16):
+        self.config = config
+        self.input_bucket = input_bucket
+        metafile = metafile if isinstance(metafile, list) else [metafile]
+        root_dir = root_dir if isinstance(root_dir, list) else [root_dir]
+        self.meta: List[str] = []
+        for meta, data_dir in zip(metafile, root_dir):
+            if not os.path.exists(meta):
+                raise ValueError(f"[BERTTextDataset] meta file not found: {meta}")
+            with open(meta) as f:
+                for line in f:
+                    line = line.strip()
+                    if line:
+                        self.meta.append(line.split("\t")[1])
+
+        self.ling_unit = KanTtsLinguisticUnit(config)
+        self.masking_actor = MaskingActor(
+            config["Model"]["KanTtsTextsyBERT"]["params"]["mask_ratio"])
+        self.allow_cache = allow_cache
+        self.caches = [() for _ in self.meta] if allow_cache else []
+
+    def __len__(self):
+        return len(self.meta)
+
+    def __getitem__(self, idx):
+        if self.allow_cache and len(self.caches[idx]):
+            return self.caches[idx][0]
+        ling_data = self.ling_unit.encode_symbol_sequence(self.meta[idx])
+        if self.allow_cache:
+            self.caches[idx] = (ling_data,)
+        return ling_data
+
+    def bert_masking(self, ling_data):
+        length = len(ling_data[0])
+        mask = self.masking_actor.get_random_mask(length)
+        mask[-1] = 0  # never mask EOS
+        sy_masked = self.masking_actor.input_bert_masking(
+            ling_data[0], self.ling_unit.get_unit_size()["sy"],
+            self.ling_unit.mask_id("sy"), mask)
+        return mask, sy_masked
+
+    @staticmethod
+    def gen_metafile(raw_meta_file, out_dir, split_ratio=0.98):
+        with open(raw_meta_file) as f:
+            lines = f.readlines()
+        train, valid = _split_metafile(lines, split_ratio)
+        with open(os.path.join(out_dir, "bert_train.lst"), "w") as f:
+            f.writelines(train)
+        with open(os.path.join(out_dir, "bert_valid.lst"), "w") as f:
+            f.writelines(valid)
+
+    def collate_fn(self, batch) -> Dict[str, Any]:
+        items = []
+        for ling_data in batch:
+            mask, sy_masked = self.bert_masking(ling_data)
+            items.append((ling_data, sy_masked, mask))
+        lu = self.ling_unit
+        types = lu.lfeat_type_list
+        L_in = Padder.round_up(max(len(x[0][0]) for x in items), self.input_bucket)
+        targets_sy = Padder.stack_1d([x[0][0] for x in items], L_in,
+                                     lu.pad_id(types[0])).astype(np.int32)
+        inputs_sy = Padder.stack_1d([x[1] for x in items], L_in,
+                                    lu.pad_id(types[0])).astype(np.int32)
+        tracks = [inputs_sy] + [
+            Padder.stack_1d([x[0][i] for x in items], L_in,
+                            lu.pad_id(types[i])).astype(np.int32)
+            for i in range(1, 4)]
+        return {
+            "input_lings": np.stack(tracks, axis=2),
+            "valid_input_lengths": np.asarray([len(x[0][0]) - 1 for x in items],
+                                              dtype=np.int32),
+            "targets": targets_sy,
+            "loss_masks": Padder.stack_1d([x[2] for x in items], L_in,
+                                          0.0).astype(np.float32),
+        }
+
+
+def get_bert_text_datasets(metafile, root_dir, config, allow_cache=False,
+                           split_ratio=0.98):
+    root_dir = root_dir if isinstance(root_dir, list) else [root_dir]
+    metafile = metafile if isinstance(metafile, list) else [metafile]
+    train_meta, valid_meta = [], []
+    for raw_metafile, data_dir in zip(metafile, root_dir):
+        tm = os.path.join(data_dir, "bert_train.lst")
+        vm = os.path.join(data_dir, "bert_valid.lst")
+        if not (os.path.exists(tm) and os.path.exists(vm)):
+            BERTTextDataset.gen_metafile(raw_metafile, data_dir, split_ratio)
+        train_meta.append(tm)
+        valid_meta.append(vm)
+    return (BERTTextDataset(config, train_meta, root_dir, allow_cache),
+            BERTTextDataset(config, valid_meta, root_dir, allow_cache))
 
 
 # ----------------------------------------------------------------- loading

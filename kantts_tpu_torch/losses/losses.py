@@ -5,9 +5,9 @@ SAM-BERT's reductions divide by the number of valid elements under the
 padding masks, so bucketed padding cannot change a loss value.
 ``criterion_builder`` keeps the config contract (per-loss
 ``enable``/``params``/``weights``); the sub-band STFT loss is a
-``MultiResolutionSTFTLoss`` on PQMF sub-bands (``train/steps.py``). The
-Textsy-BERT and FP losses are not ported yet and are refused by name when
-enabled.
+``MultiResolutionSTFTLoss`` on PQMF sub-bands (``train/steps.py``).
+``FpCELoss`` and ``SeqCELoss`` are the filled-pause and Textsy-BERT
+criteria.
 """
 
 from __future__ import annotations
@@ -72,6 +72,44 @@ class ProsodyReconLoss:
                                log_duration_predictions)
         return (dur_loss, masked_mean(pitch_targets, pitch_predictions),
                 masked_mean(energy_targets, energy_predictions))
+
+
+class FpCELoss:
+    """Class-weighted cross-entropy over the 4 FP classes, masked by the
+    input lengths. ``fp_pd`` (B, T, 4) holds probabilities: KAN-TTS feeds
+    its FP predictor's softmax output to a cross-entropy that takes
+    logits, so the loss is -w * log_softmax(p), a double softmax, not
+    -w * log(p). Kept as is."""
+
+    def __init__(self, loss_type: str = "ce", weight: Sequence[float] = (1, 4, 4, 8)):
+        self.weight = torch.tensor(weight, dtype=torch.float32)
+        self.weights = 1.0
+
+    def __call__(self, input_lengths, fp_pd, fp_label):
+        valid = ~get_mask_from_lengths(input_lengths, fp_label.shape[1])
+        logp = torch.log_softmax(fp_pd.float(), dim=-1)
+        label = fp_label.long()
+        if self.weight.device != logp.device:  # once: no copy in every step
+            self.weight = self.weight.to(logp.device)
+        ce = -logp.gather(-1, label[..., None])[..., 0] * self.weight[label]
+        return (ce * valid).sum() / valid.sum()
+
+
+class SeqCELoss:
+    """Masked cross-entropy of Textsy-BERT's logits against the sy targets,
+    and the error rate of their argmax, both over the masked positions."""
+
+    def __init__(self, loss_type: str = "ce"):
+        self.weights = 1.0
+
+    def __call__(self, logits, targets, masks):
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        ce = -logp.gather(-1, targets.long()[..., None])[..., 0]
+        masks = masks.float()
+        denom = masks.sum()
+        loss = (ce * masks).sum() / denom
+        err = ((logits.argmax(-1) != targets).float() * masks).sum() / denom
+        return loss, err
 
 
 class AttentionBinarizationLoss:
@@ -290,23 +328,20 @@ loss_dict = {
     "ProsodyReconLoss": ProsodyReconLoss,
     "AttentionBinarizationLoss": AttentionBinarizationLoss,
     "AttentionCTCLoss": AttentionCTCLoss,
+    "FpCELoss": FpCELoss,
+    "SeqCELoss": SeqCELoss,
 }
-
-# criteria of the JAX package that the port does not have yet
-NOT_PORTED = ("SeqCELoss", "FpCELoss")
 
 
 def criterion_builder(config: Dict[str, Any]) -> Dict[str, Any]:
     """The enabled criteria of ``config["Loss"]``, each carrying its
-    ``weights``. An enabled criterion that is not ported yet raises."""
+    ``weights``. An unknown criterion raises."""
     criterion = {}
     for key, value in config["Loss"].items():
-        if key not in loss_dict and key not in NOT_PORTED:
+        if key not in loss_dict:
             raise NotImplementedError(f"{key} is not implemented")
         if not value.get("enable", False):
             continue
-        if key in NOT_PORTED:
-            raise NotImplementedError(f"{key} is not ported to kantts_tpu_torch yet")
         crit = loss_dict[key](**value.get("params", {}))
         crit.weights = value.get("weights", 1.0)
         criterion[key] = crit

@@ -1,6 +1,6 @@
 """Model assembly from a config, with weights made from a seed, and the
-port's checkpoint format (counterpart of the sambert and hifigan builders
-in ``kantts_tpu/models/builder.py``).
+port's checkpoint format (counterpart of the sambert, sybert and hifigan
+builders in ``kantts_tpu/models/builder.py``).
 
 A checkpoint is ``torch.save({"model": state_dict, "config": config, ...})``:
 the config travels inside the file, so loading needs no YAML parser. A
@@ -27,18 +27,25 @@ from kantts_tpu_torch.models.hifigan.generator import Generator
 from kantts_tpu_torch.models.hifigan.layers import WeightNormParams
 from kantts_tpu_torch.models.pqmf import PQMF
 from kantts_tpu_torch.models.sambert.adaptors import VarRnnARPredictor
-from kantts_tpu_torch.models.sambert.sambert import KanTtsSAMBERT
+from kantts_tpu_torch.models.sambert.sambert import KanTtsSAMBERT, KanTtsTextsyBERT
 from kantts_tpu_torch.text.ling_unit import KanTtsLinguisticUnit
 from kantts_tpu_torch.train.optim import optimizer_builder
+
+
+def _unit_params(config: Dict[str, Any], section: str) -> Dict[str, Any]:
+    """The params of ``config["Model"][section]``, with the vocabulary sizes
+    of the config's linguistic unit filled in."""
+    params = dict(config["Model"][section]["params"])
+    if "linguistic_unit" in config:
+        params.update(KanTtsLinguisticUnit(config).get_unit_size())
+    return params
 
 
 def sambert_params(config: Dict[str, Any]) -> Dict[str, Any]:
     """The KanTtsSAMBERT params of a full config, with the vocabulary sizes
     of its linguistic unit filled in, and ``compute_dtype: bfloat16`` where
     the config sets ``mixed_precision`` (unless the params name one)."""
-    params = dict(config["Model"]["KanTtsSAMBERT"]["params"])
-    if "linguistic_unit" in config:
-        params.update(KanTtsLinguisticUnit(config).get_unit_size())
+    params = _unit_params(config, "KanTtsSAMBERT")
     if config.get("mixed_precision", False):
         params.setdefault("compute_dtype", "bfloat16")
     return params
@@ -102,19 +109,45 @@ def build_sambert(config: Dict[str, Any], seed: int = 0) -> KanTtsSAMBERT:
     return model.eval()
 
 
-def sambert_model_builder(config: Dict[str, Any], seed: int = 0,
-                          device: torch.device = torch.device("cpu")
-                          ) -> Dict[str, Any]:
-    """The model on ``device`` in train mode, with the optimizer, scheduler
-    and gradient clip of ``config`` (``Model.KanTtsSAMBERT.optimizer`` and
+def _trainable(model: nn.Module, config: Dict[str, Any], section: str,
+               device: torch.device) -> Dict[str, Any]:
+    """``model`` on ``device`` in train mode, with the optimizer, scheduler
+    and gradient clip of ``config`` (``Model.<section>.optimizer`` and
     ``.scheduler``, top-level ``grad_norm``)."""
-    model = build_sambert(config, seed).to(device).train()
-    section = config["Model"]["KanTtsSAMBERT"]
+    model = model.to(device).train()
+    part = config["Model"][section]
     optimizer, scheduler, clip = optimizer_builder(
-        model.parameters(), section["optimizer"], section.get("scheduler"),
+        model.parameters(), part["optimizer"], part.get("scheduler"),
         config.get("grad_norm"))
     return {"model": model, "optimizer": optimizer, "scheduler": scheduler,
             "clip": clip}
+
+
+def sambert_model_builder(config: Dict[str, Any], seed: int = 0,
+                          device: torch.device = torch.device("cpu")
+                          ) -> Dict[str, Any]:
+    """SAM-BERT for training: ``_trainable`` of ``Model.KanTtsSAMBERT``."""
+    return _trainable(build_sambert(config, seed), config, "KanTtsSAMBERT", device)
+
+
+def sybert_params(config: Dict[str, Any]) -> Dict[str, Any]:
+    """The KanTtsTextsyBERT params of a full config, with the vocabulary
+    sizes of its linguistic unit filled in. ``mixed_precision`` sets no
+    compute dtype here: the JAX package's sybert builder passes none."""
+    return _unit_params(config, "KanTtsTextsyBERT")
+
+
+def build_sybert(config: Dict[str, Any], seed: int = 0) -> KanTtsTextsyBERT:
+    model = KanTtsTextsyBERT(sybert_params(config))
+    init_parameters(model, seed)
+    return model.eval()
+
+
+def sybert_model_builder(config: Dict[str, Any], seed: int = 0,
+                         device: torch.device = torch.device("cpu")
+                         ) -> Dict[str, Any]:
+    """Textsy-BERT for training: ``_trainable`` of ``Model.KanTtsTextsyBERT``."""
+    return _trainable(build_sybert(config, seed), config, "KanTtsTextsyBERT", device)
 
 
 def vocoder_dtype(config: Dict[str, Any]) -> Optional[torch.dtype]:
@@ -186,13 +219,9 @@ def hifigan_gan_builder(config: Dict[str, Any], seed: int = 0,
 
 
 def model_builder(config: Dict[str, Any], seed: int = 0) -> nn.Module:
-    """Dispatch on ``config["model_type"]``; the model is in eval mode. A
-    model type the port has no builder for (``sybert``) raises
-    NotImplementedError."""
-    builders = {"sambert": build_sambert, "hifigan": hifigan_model_builder}
-    if config["model_type"] not in builders:
-        raise NotImplementedError(f"model_type {config['model_type']}: not ported "
-                                  "to kantts_tpu_torch yet")
+    """Dispatch on ``config["model_type"]``; the model is in eval mode."""
+    builders = {"sambert": build_sambert, "sybert": build_sybert,
+                "hifigan": hifigan_model_builder}
     return builders[config["model_type"]](config, seed)
 
 

@@ -3,7 +3,11 @@
 
 The teacher-forced ``forward`` is the training forward: the MAS branch
 (ConvAttention, then the hard alignment from ``mas_align``, kernel K1 on the
-card) and scheduled sampling; FP is not ported yet. A byte voice
+card), scheduled sampling, and filled pauses (``FP``): the FP predictor's
+four-class head over the encoder states, and with a host-built insertion
+plan the encoded filler syllables spliced into the text hiddens
+(``fp.py``), after which every per-token length is the spliced one
+(``valid_inter_lengths``). A byte voice
 (``using_byte``) embeds one byte id per token in place of the four
 linguistic tracks; an SE voice (``SE``) takes a float speaker embedding
 (B, T_in, speaker_units) as its speaker input, used as it is.
@@ -14,7 +18,9 @@ An NSF model (``NSF: true``) is the same model at ``num_mels`` 82: its
 last two output channels are the normalised f0 and uv, which inference
 denormalises on the host (``bin/infer_sambert.py::denorm_f0``).
 ``sambert_infer`` is the acoustic inference: the autoregressive duration
-loop and the PNCA decode are Python loops over steps.
+loop and the PNCA decode are Python loops over steps; ``sambert_infer_fp``
+predicts the filled pauses first and splices them in. ``KanTtsTextsyBERT``
+is the masked-LM pretrainer of the text encoder (Textsy-BERT).
 
 Shape contract, as in the JAX package: the mel length is a multiple of r,
 and in the teacher-forced pass durations sum to the padded mel length.
@@ -44,6 +50,11 @@ from kantts_tpu_torch.models.sambert.common import (
     masked_zero,
     torch_linear,
 )
+from kantts_tpu_torch.models.sambert.fp import (
+    apply_fp_insertion,
+    build_fp_insertion_plan,
+    fp_classes_from_predictions,
+)
 from kantts_tpu_torch.models.sambert.fsmn import FsmnEncoderV2
 from kantts_tpu_torch.models.sambert.lstm import LSTM
 from kantts_tpu_torch.models.sambert.pnca import MelPNCADecoder, pnca_decoder_infer
@@ -53,8 +64,6 @@ from kantts_tpu_torch.models.sambert.positions import (
 )
 from kantts_tpu_torch.utils.mask import get_mask_from_lengths
 from kantts_tpu_torch.utils.precision import Dtype
-
-UNSUPPORTED = ("FP",)
 
 
 class SelfAttentionEncoder(nn.Module):
@@ -84,9 +93,10 @@ class SelfAttentionEncoder(nn.Module):
 
 class TextFftEncoder(nn.Module):
     """Four summed linguistic embeddings (or, with ``using_byte``, one byte
-    embedding) -> encoder -> projection."""
+    embedding) -> encoder -> projection (Textsy-BERT's encoder has none:
+    ``use_projection=False``)."""
 
-    def __init__(self, cfg: Dict[str, Any]):
+    def __init__(self, cfg: Dict[str, Any], use_projection: bool = True):
         super().__init__()
         d_emb, d_model = cfg["embedding_dim"], cfg["encoder_num_units"]
         self.d_model = d_model
@@ -104,8 +114,8 @@ class TextFftEncoder(nn.Module):
             cfg["encoder_ffn_inner_dim"], cfg["encoder_dropout"],
             cfg["encoder_attention_dropout"], cfg["encoder_relu_dropout"],
             cfg["max_len"], compute_dtype(cfg))
-        self.ling_proj = torch_linear(d_model, cfg["encoder_projection_units"],
-                                      bias=False)
+        self.ling_proj = (torch_linear(d_model, cfg["encoder_projection_units"],
+                                       bias=False) if use_projection else None)
 
     def forward(self, inputs_ling, masks=None):
         """-> (text_hid, attns, MAS keys). The reference scales its encoder
@@ -120,8 +130,9 @@ class TextFftEncoder(nn.Module):
                               + self.syllable_flag_emb(inputs_ling[:, :, 2])
                               + self.ws_emb(inputs_ling[:, :, 3]))
         enc_output, attns = self.ling_enc(ling_embedding, masks)
-        return (self.ling_proj(enc_output), attns,
-                ling_embedding * math.sqrt(self.d_model))
+        if self.ling_proj is not None:
+            enc_output = self.ling_proj(enc_output)
+        return enc_output, attns, ling_embedding * math.sqrt(self.d_model)
 
 
 class PostNet(nn.Module):
@@ -140,6 +151,28 @@ class PostNet(nn.Module):
     def forward(self, x, mask=None):
         h, _ = self.lstm(self.fsmn(x, mask))
         return self.fc(h)
+
+
+class FP_Predictor(nn.Module):
+    """Four-class filled-pause head over the encoder states: conv k=3 ->
+    ReLU -> LN -> dropout -> conv k=1 -> ReLU -> LN -> dropout -> linear ->
+    softmax, in float32 whatever the compute dtype. ``fp_dropout`` (0.1 by
+    default, as KAN-TTS hardcodes) lets a parity check zero it."""
+
+    def __init__(self, cfg: Dict[str, Any]):
+        super().__init__()
+        d_in, d_hid = cfg["encoder_projection_units"], cfg["embedding_dim"] // 2
+        self.w_1 = conv1d_same(d_in, d_hid, 3)
+        self.layer_norm1 = nn.LayerNorm(d_hid, eps=1e-6)
+        self.w_2 = conv1d_same(d_hid, d_in, 1)
+        self.layer_norm2 = nn.LayerNorm(d_in, eps=1e-6)
+        self.fc = torch_linear(d_in, 4)
+        self.dropout = nn.Dropout(cfg.get("fp_dropout", 0.1))
+
+    def forward(self, x):
+        h = self.dropout(self.layer_norm1(torch.relu(self.w_1(x))))
+        h = self.dropout(self.layer_norm2(torch.relu(self.w_2(h))))
+        return torch.softmax(self.fc(h), dim=-1)
 
 
 class VarianceAdaptor(nn.Module):
@@ -185,9 +218,6 @@ class KanTtsSAMBERT(nn.Module):
     def __init__(self, config: Dict[str, Any]):
         super().__init__()
         cfg = dict(config)
-        on = [k for k in UNSUPPORTED if cfg.get(k, False)]
-        if on:
-            raise NotImplementedError(f"not ported yet: {', '.join(on)}")
         self.config = cfg
         self.r, self.d_mel = cfg["outputs_per_step"], cfg["num_mels"]
         self.text_encoder = TextFftEncoder(cfg)
@@ -209,6 +239,9 @@ class KanTtsSAMBERT(nn.Module):
         if self.mas_enable:
             self.align_attention = ConvAttention(
                 cfg["num_mels"], cfg["embedding_dim"], cfg["num_mels"])
+        self.fp_enable = cfg.get("FP", False)
+        if self.fp_enable:
+            self.FP_predictor = FP_Predictor(cfg)
 
     # ----------------------------------------------------------- sub-passes
 
@@ -243,6 +276,22 @@ class KanTtsSAMBERT(nn.Module):
             torch.log(shifted + 1.0)[..., None], dur_cond, masks=masks)
         return log_dur
 
+    def insert_fp(self, text_hid, inputs_emotion, inputs_speaker, fp_plan,
+                  fp_dict_lings):
+        """Splice the encoded filler triples into ``text_hid`` by the plan
+        ``(src_idx, filler_class, filler_phase, plan_lengths)``, and extend
+        emotion and speaker (ids, or an SE voice's (B, T_in, units)
+        embeddings) to the spliced length by wrap-around. The filler bank
+        is ``fp_dict_lings`` (3, 3, 4) encoded without a mask. -> (text_hid,
+        inputs_emotion, inputs_speaker) of length L."""
+        src_idx, filler_class, filler_phase, _ = fp_plan
+        filler_bank, _, _ = self.encode(fp_dict_lings, None)
+        text_hid = apply_fp_insertion(text_hid, filler_bank, src_idx,
+                                      filler_class, filler_phase)
+        wrap = torch.arange(text_hid.shape[1], device=text_hid.device) % \
+            inputs_emotion.shape[1]
+        return text_hid, inputs_emotion[:, wrap], inputs_speaker[:, wrap]
+
     def build_memory(self, LR_text, LR_emo, LR_spk):
         """Regroup frames by r and concatenate the decoder memory."""
         B, T_mel, _ = LR_text.shape
@@ -274,10 +323,17 @@ class KanTtsSAMBERT(nn.Module):
     def forward(self, inputs_ling, inputs_emotion, inputs_speaker,
                 input_lengths, output_lengths, mel_targets,
                 duration_targets=None, pitch_targets=None, energy_targets=None,
-                attn_priors=None, ss_prob: Optional[float] = None,
+                attn_priors=None, fp_plan=None, fp_dict_lings=None,
+                ss_prob: Optional[float] = None,
                 generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         """Teacher-forced forward, as the training step runs it (no loss).
         Dropout follows the module's ``train()``/``eval()`` mode.
+
+        An FP model predicts its filled-pause classes from the encoder
+        states (``fp_predictions``); with ``fp_plan`` (the collate's
+        insertion plan) and ``fp_dict_lings`` it splices the fillers in
+        (``insert_fp``), and the durations, pitch and energy targets are
+        then of the plan's length, masked by its lengths.
 
         ``ss_prob`` turns on scheduled sampling: a first decoder pass without
         gradient makes the model's own coarse frames, and the previous-frame
@@ -291,6 +347,15 @@ class KanTtsSAMBERT(nn.Module):
         input_masks = get_mask_from_lengths(input_lengths, T_in)
         text_hid, enc_attns, ling_emb = self.encode(inputs_ling, input_masks)
         res: Dict[str, Any] = {"enc_slf_attn_lst": enc_attns}
+
+        inter_lengths, fp_p = input_lengths, None
+        if self.fp_enable:
+            fp_p = self.FP_predictor(text_hid)
+            if fp_plan is not None:
+                text_hid, inputs_emotion, inputs_speaker = self.insert_fp(
+                    text_hid, inputs_emotion, inputs_speaker, fp_plan,
+                    fp_dict_lings)
+                inter_lengths = fp_plan[3]
 
         if self.mas_enable:
             attn_soft, attn_logprob = self.align_attention(
@@ -308,17 +373,18 @@ class KanTtsSAMBERT(nn.Module):
                        attn_logprob=attn_logprob)
 
         emo_hid, spk_hid = self.tokenize(inputs_emotion, inputs_speaker)
+        inter_masks = get_mask_from_lengths(inter_lengths, text_hid.shape[1])
         output_masks = get_mask_from_lengths(output_lengths, T_mel)
         pitch_pred, energy_pred, text_aug, dur_cond = self.variance_pre(
-            text_hid, emo_hid, spk_hid, input_masks, pitch_targets,
+            text_hid, emo_hid, spk_hid, inter_masks, pitch_targets,
             energy_targets)
         log_dur_pred = self.duration_teacher(duration_targets, dur_cond,
-                                             input_masks)
+                                             inter_masks)
         LR_text, LR_emo, LR_spk, LR_length = self._regulate(
             text_aug, emo_hid, spk_hid, duration_targets, T_mel, output_masks)
         memory = self.build_memory(LR_text, LR_emo, LR_spk)
 
-        masked_dur = duration_targets.float().masked_fill(input_masks, 0.0)
+        masked_dur = duration_targets.float().masked_fill(inter_masks, 0.0)
         band_width = torch.floor(masked_dur.max() / r + 0.5).to(torch.int32)
         lfr_masks = get_mask_from_lengths((output_lengths + r - 1) // r, T_mel // r)
         dec_in = mel_targets
@@ -342,28 +408,81 @@ class KanTtsSAMBERT(nn.Module):
             log_duration_predictions=log_dur_pred,
             pitch_predictions=pitch_pred, energy_predictions=energy_pred,
             duration_targets=duration_targets, pitch_targets=pitch_targets,
-            energy_targets=energy_targets, valid_inter_lengths=input_lengths,
+            energy_targets=energy_targets, fp_predictions=fp_p,
+            valid_inter_lengths=inter_lengths,
             LR_text_outputs=LR_text, LR_emo_outputs=LR_emo,
             LR_spk_outputs=LR_spk)
         return res
 
 
+class KanTtsTextsyBERT(nn.Module):
+    """Textsy-BERT: the masked-LM over the sy track that pretrains the text
+    encoder. ``TextFftEncoder`` without its projection, then ``fc`` to the
+    sy vocabulary. Its builder sets no compute dtype, whatever
+    ``mixed_precision`` says, as the JAX package's does."""
+
+    def __init__(self, config: Dict[str, Any]):
+        super().__init__()
+        cfg = dict(config)
+        self.config = cfg
+        self.text_encoder = TextFftEncoder(cfg, use_projection=False)
+        self.fc = torch_linear(cfg["encoder_num_units"], cfg["sy"])
+
+    def forward(self, inputs_ling, input_lengths) -> Dict[str, Any]:
+        input_masks = get_mask_from_lengths(input_lengths, inputs_ling.shape[1])
+        text_hid, attns, _ = self.text_encoder(inputs_ling, input_masks)
+        return {"logits": self.fc(text_hid), "enc_slf_attn_lst": attns}
+
+
+@torch.no_grad()
+def sambert_infer_fp(model: KanTtsSAMBERT, inputs_ling, inputs_emotion,
+                     inputs_speaker, input_lengths, fp_dict_lings,
+                     max_output_len: int) -> Dict[str, torch.Tensor]:
+    """FP inference: predict the filled-pause classes, take their argmax on
+    the host (zeroed on padding), build the insertion plan, splice the
+    encoded filler triples in, then run ``sambert_infer`` on the spliced
+    text hiddens at the spliced lengths. Adds ``fp_predictions`` and
+    ``valid_inter_lengths`` to its result."""
+    device = inputs_ling.device
+    input_masks = get_mask_from_lengths(input_lengths, inputs_ling.shape[1])
+    text_hid, _, _ = model.encode(inputs_ling, input_masks)
+    fp_p = model.FP_predictor(text_hid)
+    fp_classes = fp_classes_from_predictions(fp_p.cpu().numpy(),
+                                             input_masks.cpu().numpy())
+    src_idx, f_class, f_phase, inter_lengths, _ = build_fp_insertion_plan(
+        fp_classes, input_lengths.cpu().numpy())
+    plan = [torch.from_numpy(a).to(device)
+            for a in (src_idx, f_class, f_phase, inter_lengths)]
+    text_hid, emo, spk = model.insert_fp(text_hid, inputs_emotion, inputs_speaker,
+                                         plan, fp_dict_lings)
+    res = sambert_infer(model, inputs_ling, emo, spk, plan[3], max_output_len,
+                        text_hid_override=text_hid)
+    res["fp_predictions"] = fp_p
+    res["valid_inter_lengths"] = plan[3]
+    return res
+
+
 @torch.no_grad()
 def sambert_infer(model: KanTtsSAMBERT, inputs_ling, inputs_emotion,
                   inputs_speaker, input_lengths, max_output_len: int,
+                  text_hid_override: Optional[torch.Tensor] = None,
                   duration_override: Optional[torch.Tensor] = None
                   ) -> Dict[str, torch.Tensor]:
     """Acoustic inference: symbols -> mel at a frame budget of
     ``max_output_len`` (a multiple of r); the valid length is
-    ``LR_length_rounded``. ``duration_override`` (B, T_in) frames per phone
-    replaces the decoded durations; the duration head still runs and its
-    predictions are still returned."""
+    ``LR_length_rounded``. ``text_hid_override`` (B, T, D) is an encoded
+    text-hidden sequence that takes the encoder's place (the FP path),
+    ``input_lengths`` then being its lengths. ``duration_override`` (B, T_in)
+    frames per phone replaces the decoded durations; the duration head
+    still runs and its predictions are still returned."""
     r = model.r
     if max_output_len % r:
         raise ValueError(f"max_output_len {max_output_len} is not a multiple of r={r}")
-    B, T_in = inputs_ling.shape[:2]
+    text_hid = text_hid_override
+    B, T_in = (inputs_ling if text_hid is None else text_hid).shape[:2]
     input_masks = get_mask_from_lengths(input_lengths, T_in)
-    text_hid, _, _ = model.encode(inputs_ling, input_masks)
+    if text_hid is None:
+        text_hid, _, _ = model.encode(inputs_ling, input_masks)
     emo_hid, spk_hid = model.tokenize(inputs_emotion, inputs_speaker)
     pitch_pred, energy_pred, text_aug, dur_cond = model.variance_pre(
         text_hid, emo_hid, spk_hid, input_masks)

@@ -1,6 +1,6 @@
-"""KanTtsLinguisticUnit — the linguistic symbol codec (a copy of the encoding
-half of ``kantts_tpu/text/ling_unit.py``; the port decodes no ids and has no
-FP path, so ``decode_*``, ``mask_id`` and ``get_fpdict`` are left out).
+"""KanTtsLinguisticUnit — the linguistic symbol codec (a copy of
+``kantts_tpu/text/ling_unit.py``), and ``get_fpdict``, the filled-pause
+syllable triples of an FP voice.
 
 Encoding contract, as in KAN-TTS:
 - Each linguistic feature ("lfeat") type has its own vocab, ending with the
@@ -56,6 +56,7 @@ class _Vocab:
     def __init__(self, symbols: List[str]):
         self.symbols = list(symbols)
         self.to_id = {s: i for i, s in enumerate(self.symbols)}
+        self.to_symbol = {i: s for i, s in enumerate(self.symbols)}
 
     def __len__(self) -> int:
         return len(self.symbols)
@@ -170,5 +171,47 @@ class KanTtsLinguisticUnit:
                 logging.warning("Dropping unknown phone symbol: %s", p)
         return ids
 
+    def decode_symbol_sequence(self, sequence: List[np.ndarray]) -> List[str]:
+        result = []
+        for i, lfeat_type in enumerate(self._lfeat_type_list):
+            ids = np.asarray(sequence[i]).tolist()
+            syms = " ".join(self.decode_id(j, lfeat_type) for j in ids)
+            result.append(f"{lfeat_type}:{syms}")
+        return result
+
+    def decode_id(self, idx: int, lfeat_type: str) -> str:
+        s = self.vocabs[lfeat_type].to_symbol[idx]
+        if lfeat_type in ("sy", "byte_index") and len(s) > 1 and s[0] == "@":
+            s = s[1:]
+        return s
+
     def pad_id(self, lfeat_type: str) -> int:
         return self.vocabs[lfeat_type].to_id[PAD]
+
+    def eos_id(self, lfeat_type: str) -> int:
+        return self.vocabs[lfeat_type].to_id[EOS]
+
+    def mask_id(self, lfeat_type: str) -> int:
+        return self.vocabs[lfeat_type].to_id[MASK]
+
+
+def get_fpdict(config: Dict[str, Any]) -> Dict[int, np.ndarray]:
+    """Encoded filled-pause syllable triples ("en"/"a"/"e"), keyed by FP
+    class: each is three symbols (onset, coda, #3 break) of the first
+    speaker of ``speaker_list``, as a (3, 4) [sy, tone, syllable_flag, ws]
+    array."""
+    default_sp = config["linguistic_unit"]["speaker_list"].split(",")[0]
+
+    def triple(onset: str, coda: str) -> str:
+        return (
+            f"{{{onset}$tone5$s_begin$word_begin$emotion_neutral${default_sp}}} "
+            f"{{{coda}$tone5$s_end$word_end$emotion_neutral${default_sp}}} "
+            f"{{#3$tone_none$s_none$word_none$emotion_neutral${default_sp}}}"
+        )
+
+    ling_unit = KanTtsLinguisticUnit(config)
+    out = {}
+    for label, (onset, coda) in {1: ("ge", "en_c"), 2: ("ga", "a_c"), 3: ("ge", "e_c")}.items():
+        lings = ling_unit.encode_symbol_sequence(triple(onset, coda))
+        out[label] = np.stack(lings, axis=1)[:3, :4]
+    return out

@@ -1,9 +1,12 @@
-"""Train and eval steps of SAM-BERT and of the HiFi-GAN GAN (counterparts
-of ``make_sambert_step``, ``make_gan_step`` and ``make_gan_eval_step`` in
+"""Train and eval steps of SAM-BERT, Textsy-BERT and the HiFi-GAN GAN
+(counterparts of ``make_sambert_step``, ``make_sybert_step``,
+``make_gan_step`` and ``make_gan_eval_step`` in
 ``kantts_tpu/train/steps.py``).
 
 SAM-BERT: one optimizer; the total is mel(dec) + mel(postnet) + duration +
-pitch + energy, plus CTC and the binarization KL with MAS. The GAN step:
+pitch + energy, plus CTC and the binarization KL with MAS, plus the FP
+cross-entropy with FP. Textsy-BERT: the masked cross-entropy divided by
+the sy vocabulary size, as KAN-TTS divides it before backward. The GAN step:
 generator losses and update, the fake regenerated by the updated generator,
 then the discriminator losses and one update per discriminator family.
 Steps take device tensors and return their metrics as detached device
@@ -21,27 +24,33 @@ from torch import nn
 Metrics = Dict[str, torch.Tensor]
 
 
-def sambert_forward(model: nn.Module, batch: Dict[str, torch.Tensor],
+def sambert_forward(model: nn.Module, batch: Dict[str, Any],
                     ss_prob: Optional[float] = None,
-                    generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
-    """The teacher-forced forward on a batch with the dataset's keys."""
+                    generator: Optional[torch.Generator] = None,
+                    fp_dict_lings: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+    """The teacher-forced forward on a batch with the dataset's keys; an FP
+    batch's ``fp_plan`` splices in the filler triples ``fp_dict_lings``
+    (the dataset's, (3, 3, 4))."""
     return model(
         batch["input_lings"], batch["input_emotions"], batch["input_speakers"],
         batch["valid_input_lengths"], batch["valid_output_lengths"],
         batch["mel_targets"], duration_targets=batch.get("durations"),
         pitch_targets=batch["pitch_contours"],
         energy_targets=batch["energy_contours"],
-        attn_priors=batch.get("attn_priors"), ss_prob=ss_prob,
-        generator=generator)
+        attn_priors=batch.get("attn_priors"), fp_plan=batch.get("fp_plan"),
+        fp_dict_lings=fp_dict_lings, ss_prob=ss_prob, generator=generator)
 
 
 def sambert_losses(model: nn.Module, criterion: Dict[str, Any],
-                   batch: Dict[str, torch.Tensor], epoch: int, with_mas: bool,
+                   batch: Dict[str, Any], epoch: int, with_mas: bool,
                    ss_prob: Optional[float] = None,
-                   generator: Optional[torch.Generator] = None
+                   generator: Optional[torch.Generator] = None,
+                   fp_dict_lings: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Metrics]:
-    """Forward and criteria in the model's current mode -> (total, metrics)."""
-    res = sambert_forward(model, batch, ss_prob, generator)
+    """Forward and criteria in the model's current mode -> (total, metrics).
+    The prosody losses are masked by ``valid_inter_lengths`` (the spliced
+    lengths of an FP batch), the FP loss by the input lengths."""
+    res = sambert_forward(model, batch, ss_prob, generator, fp_dict_lings)
     mel_loss_, mel_loss = criterion["MelReconLoss"](
         batch["valid_output_lengths"], batch["mel_targets"],
         res["dec_outputs"], res["postnet_outputs"])
@@ -57,6 +66,11 @@ def sambert_losses(model: nn.Module, criterion: Dict[str, Any],
         "x_band_width": res["x_band_width"].float(),
         "h_band_width": res["h_band_width"].float(),
     }
+    if getattr(model, "fp_enable", False):
+        fp_loss = criterion["FpCELoss"](batch["valid_input_lengths"],
+                                        res["fp_predictions"], batch["fp_label"])
+        total = total + fp_loss
+        metrics["fp_loss"] = fp_loss
     if with_mas:
         ctc = criterion["AttentionCTCLoss"](
             res["attn_logprob"], batch["valid_input_lengths"],
@@ -75,7 +89,8 @@ def make_sambert_step(model: nn.Module, criterion: Dict[str, Any],
                       scheduler: torch.optim.lr_scheduler.LRScheduler,
                       clip: Optional[Callable[[], torch.Tensor]], with_mas: bool,
                       train: bool = True,
-                      generator: Optional[torch.Generator] = None
+                      generator: Optional[torch.Generator] = None,
+                      fp_dict_lings: Optional[torch.Tensor] = None
                       ) -> Callable[[Dict[str, torch.Tensor], int], Metrics]:
     """-> step(batch, epoch) -> metrics. ``clip`` is the global-norm clip of
     ``optimizer_builder`` (None: no clip). The train step runs in ``train()``
@@ -86,7 +101,8 @@ def make_sambert_step(model: nn.Module, criterion: Dict[str, Any],
     (the largest replacement probability; 0 is off) and
     ``scheduled_sampling_ramp_steps`` (the updates over which it ramps up
     linearly from 0); the update count is the scheduler's, so it resumes
-    with it. Its draws come from ``generator``."""
+    with it. Its draws come from ``generator``. An FP model's steps splice
+    in ``fp_dict_lings``."""
     cfg = getattr(model, "config", {}) or {}
     ss_max = float(cfg.get("scheduled_sampling_prob", 0.0))
     ss_ramp = float(cfg.get("scheduled_sampling_ramp_steps", 10_000))
@@ -95,7 +111,8 @@ def make_sambert_step(model: nn.Module, criterion: Dict[str, Any],
         @torch.no_grad()
         def eval_step(batch, epoch):
             model.eval()
-            return sambert_losses(model, criterion, batch, epoch, with_mas)[1]
+            return sambert_losses(model, criterion, batch, epoch, with_mas,
+                                  fp_dict_lings=fp_dict_lings)[1]
 
         return eval_step
 
@@ -106,8 +123,57 @@ def make_sambert_step(model: nn.Module, criterion: Dict[str, Any],
             ss_prob = ss_max * min(scheduler.last_epoch / ss_ramp, 1.0)
         optimizer.zero_grad(set_to_none=True)
         total, metrics = sambert_losses(model, criterion, batch, epoch, with_mas,
-                                        ss_prob, generator)
+                                        ss_prob, generator, fp_dict_lings)
         total.backward()
+        if clip is not None:
+            clip()
+        optimizer.step()
+        scheduler.step()
+        return metrics
+
+    return train_step
+
+
+# ------------------------------------------------------------ Textsy-BERT
+
+
+def sybert_losses(model: nn.Module, criterion: Dict[str, Any],
+                  batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Metrics]:
+    """Textsy-BERT's forward and ``SeqCELoss`` in the model's current mode ->
+    (loss, metrics). The loss is divided by the sy vocabulary size (the
+    logits' last axis) before backward, as KAN-TTS divides it in train and
+    eval: the scale changes the gradients and how hard ``grad_norm`` clips
+    them."""
+    res = model(batch["input_lings"], batch["valid_input_lengths"])
+    loss, err = criterion["SeqCELoss"](res["logits"], batch["targets"],
+                                       batch["loss_masks"])
+    loss = loss / res["logits"].shape[-1]
+    return loss, {"loss": loss.detach(), "error_rate": err.detach()}
+
+
+def make_sybert_step(model: nn.Module, criterion: Dict[str, Any],
+                     optimizer: torch.optim.Optimizer,
+                     scheduler: torch.optim.lr_scheduler.LRScheduler,
+                     clip: Optional[Callable[[], torch.Tensor]],
+                     train: bool = True
+                     ) -> Callable[[Dict[str, torch.Tensor]], Metrics]:
+    """-> step(batch) -> metrics ("loss", "error_rate"). The train step runs
+    in ``train()`` mode: zero the gradients, forward, backward, clip,
+    update, advance the schedule; the eval step in ``eval()`` mode without
+    gradients."""
+    if not train:
+        @torch.no_grad()
+        def eval_step(batch):
+            model.eval()
+            return sybert_losses(model, criterion, batch)[1]
+
+        return eval_step
+
+    def train_step(batch):
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        loss, metrics = sybert_losses(model, criterion, batch)
+        loss.backward()
         if clip is not None:
             clip()
         optimizer.step()

@@ -1,5 +1,7 @@
 """Training loop, checkpoints and eval artifacts (counterpart of ``Trainer``,
-``SambertTrainer`` and ``GanTrainer`` in ``kantts_tpu/train/trainer.py``).
+``SambertTrainer``, ``GanTrainer`` and ``TextsyBertTrainer`` in
+``kantts_tpu/train/trainer.py``), and the Textsy-BERT warm start of a
+SAM-BERT text encoder (``load_sambert_encoder_from_sybert``).
 
 The loop is step-driven with eval, save and log intervals. ``steps`` is the
 next step to run, counting from 1, so ``train_max_steps: N`` runs exactly N
@@ -19,7 +21,7 @@ import logging
 import os
 import time
 from collections import defaultdict
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,10 +60,12 @@ def array_to_device(value: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def batch_to_device(batch: Dict[str, Any], device: torch.device
-                    ) -> Dict[str, torch.Tensor]:
-    """A collated numpy batch -> tensors on ``device``; entries that are
-    None are dropped."""
-    return {key: array_to_device(value, device)
+                    ) -> Dict[str, Any]:
+    """A collated numpy batch -> tensors on ``device`` (a tuple of arrays,
+    such as an FP batch's ``fp_plan``, -> a tuple of tensors); entries that
+    are None are dropped."""
+    return {key: (tuple(array_to_device(v, device) for v in value)
+                  if isinstance(value, tuple) else array_to_device(value, device))
             for key, value in batch.items() if value is not None}
 
 
@@ -202,12 +206,14 @@ class Trainer:
 
 
 class SambertTrainer(Trainer):
-    """One-optimizer acoustic-model trainer."""
+    """One-optimizer acoustic-model trainer. An FP model's intermediate
+    results splice in ``fp_dict_lings``, as its steps do."""
 
     def __init__(self, config, model: torch.nn.Module,
                  optimizer: torch.optim.Optimizer, scheduler,
                  train_step_fn: Callable, eval_step_fn: Callable, train_loader,
-                 valid_loader, save_dir: str, device: torch.device, **kwargs):
+                 valid_loader, save_dir: str, device: torch.device,
+                 fp_dict_lings: Optional[torch.Tensor] = None, **kwargs):
         super().__init__(config, train_loader, valid_loader, save_dir, device,
                          **kwargs)
         self.model = model
@@ -215,6 +221,8 @@ class SambertTrainer(Trainer):
         self.scheduler = scheduler
         self.train_step_fn = train_step_fn
         self.eval_step_fn = eval_step_fn
+        self.fp_dict_lings = fp_dict_lings
+        self.warm_started: List[str] = []  # tensors a warm start copied
 
     def train_step(self, batch):
         self.accumulate(self.total_train_loss,
@@ -231,7 +239,7 @@ class SambertTrainer(Trainer):
         out_dir = os.path.join(self.save_dir, f"intermediate_results_{self.steps}")
         os.makedirs(out_dir, exist_ok=True)
         self.model.eval()
-        res = sambert_forward(self.model, batch)
+        res = sambert_forward(self.model, batch, fp_dict_lings=self.fp_dict_lings)
         lengths = batch["valid_output_lengths"].tolist()
         post = res["postnet_outputs"].cpu().numpy()
         n = min(self.config.get("num_save_intermediate_results", 4), len(lengths))
@@ -351,3 +359,35 @@ class GanTrainer(Trainer):
                 self.disc_optimizers[name].load_state_dict(opt["discriminator"][name])
                 self.disc_schedulers[name].load_state_dict(sched["discriminator"][name])
             self.steps = int(payload["steps"]) + 1
+
+
+class TextsyBertTrainer(SambertTrainer):
+    """Textsy-BERT's masked-LM trainer: one optimizer, steps that take the
+    batch alone (``make_sybert_step``), and no intermediate results."""
+
+    def train_step(self, batch):
+        self.accumulate(self.total_train_loss, self.train_step_fn(batch), "train")
+
+    def eval_step(self, batch):
+        self.accumulate(self.total_eval_loss, self.eval_step_fn(batch), "eval")
+
+    def generate_and_save_intermediate_result(self, batch):
+        pass
+
+
+def load_sambert_encoder_from_sybert(model: torch.nn.Module, sybert_ckpt: str
+                                     ) -> List[str]:
+    """Warm-start a SAM-BERT text encoder from a Textsy-BERT checkpoint: copy
+    every ``text_encoder.*`` tensor of the checkpoint whose name and shape
+    match one of ``model``'s (strict=False semantics; ``ling_proj``, which
+    Textsy-BERT lacks, stays as it is). -> the names copied."""
+    bert = torch.load(sybert_ckpt, map_location="cpu", weights_only=True)["model"]
+    own = model.state_dict()
+    copied = []
+    with torch.no_grad():
+        for name, value in bert.items():
+            if (name.startswith("text_encoder.") and name in own
+                    and own[name].shape == value.shape):
+                own[name].copy_(value)
+                copied.append(name)
+    return copied

@@ -28,13 +28,14 @@ from kantts_tpu_torch.models.hifigan.discriminators import (
     MultiSpecDiscriminator,
 )
 from kantts_tpu_torch.models.hifigan.generator import Generator
-from kantts_tpu_torch.models.sambert.sambert import KanTtsSAMBERT
+from kantts_tpu_torch.models.sambert.sambert import KanTtsSAMBERT, KanTtsTextsyBERT
 from kantts_tpu_torch.utils.torch_convert import (
     _wnconv_raw,
     convert_hifigan_generator,
     convert_mpd,
     convert_msd,
     convert_sambert,
+    convert_sybert,
 )
 
 
@@ -82,6 +83,16 @@ def sambert_state_dict_from_jax(params_np: Mapping, cfg: Dict[str, Any]
     with torch.device("meta"):
         template = KanTtsSAMBERT(cfg).state_dict()
     return _invert(convert_sambert, template, params_np, cfg)
+
+
+def sybert_state_dict_from_jax(params_np: Mapping, cfg: Dict[str, Any]
+                               ) -> Dict[str, torch.Tensor]:
+    """JAX KanTtsTextsyBERT params (numpy leaves) -> a state dict that
+    ``KanTtsTextsyBERT(cfg)`` loads with ``strict=True``. ``cfg`` is the
+    model's params dict."""
+    with torch.device("meta"):
+        template = KanTtsTextsyBERT(cfg).state_dict()
+    return _invert(convert_sybert, template, params_np, cfg)
 
 
 def hifigan_state_dict_from_jax(params_np: Mapping, cfg: Dict[str, Any]

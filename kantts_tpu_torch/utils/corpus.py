@@ -17,6 +17,17 @@ the symbols of a byte voice (one byte token per phone, the phone's own byte
 ``BYTES[p]``); ``se_units`` adds the corpus's speaker embedding
 ``se/se.npy``, a seeded N(0, 1) vector of that size, for an SE voice.
 
+``write_fp_corpus``: a filled-pause (FP) corpus with durations, in the
+layout that the FP preprocessing leaves: ``fpadd_metafile.txt`` (the
+filler syllables kept and tagged ``emotion_disgust``, their ``#3`` break
+untagged, as ``preprocess/fp_processor.py`` tags them), ``fprm_metafile.txt``
+(the fillers removed), both split into ``am_fp{add,rm}_{train,valid}.lst``,
+and durations, pitch and energy over the fpadd tokens, whose audio holds
+the fillers.
+
+``write_text_corpus``: a Textsy-BERT corpus, ``raw_metafile.txt`` of
+symbol sequences alone (``data.dataset.BERTTextDataset`` reads no audio).
+
 ``write_voc_corpus``: a vocoder corpus in the layout that
 ``data.dataset.VocDataset`` reads: ``wav/*.wav`` of harmonic tones and
 their ``mel/*.npy``, made by the port's ``MelSpectrogramExtractor`` at the
@@ -120,6 +131,100 @@ def _write_f0_stats(root: str, mean: float, std: float) -> None:
     np.savetxt(os.path.join(root, "f0", "f0_std.txt"), [std])
 
 
+def write_text_corpus(root: str, n_utts: int, symbols: Tuple[int, int],
+                      seed: int = 0) -> None:
+    """Write ``raw_metafile.txt`` of ``n_utts`` symbol sequences under
+    ``root``, each of a length drawn from the inclusive range ``symbols``,
+    and an empty ``audio_config.yaml``."""
+    rng = np.random.RandomState(seed)
+    os.makedirs(root, exist_ok=True)
+    lines = []
+    for i in range(n_utts):
+        n_sym = rng.randint(symbols[0], symbols[1] + 1)
+        tokens = [f"{{{PHONES[rng.randint(len(PHONES))]}${TONES[rng.randint(len(TONES))]}$"
+                  f"{'s_begin' if j % 2 == 0 else 's_end'}$"
+                  f"{'word_begin' if j % 2 == 0 else 'word_end'}$emotion_neutral$F7}}"
+                  for j in range(n_sym)]
+        lines.append(f"utt{i:04d}\t{' '.join(tokens)}\n")
+    with open(os.path.join(root, "raw_metafile.txt"), "w", encoding="utf-8") as f:
+        f.writelines(lines)
+    with open(os.path.join(root, "audio_config.yaml"), "w", encoding="utf-8") as f:
+        yaml.safe_dump({"audio_config": {}}, f)
+
+
+FILLERS = (("ga", "a_c"), ("ge", "en_c"), ("ge", "e_c"))
+
+
+def write_fp_corpus(root: str, n_utts: int, symbols: Tuple[int, int],
+                    frames: Tuple[int, int], n_mels: int = 80, seed: int = 0,
+                    sampling_rate: int = 8000) -> None:
+    """Write ``n_utts`` utterances under ``root``: symbol and frame counts
+    drawn from the inclusive ranges (the frames cover the fillers too).
+    Utterance i has a filler at the start (i % 3 == 0), in the middle
+    (1) or at the end (2), and every second one another in the middle;
+    the three filler syllable pairs take turns."""
+    from kantts_tpu_torch.data.dataset import AMDataset
+
+    rng = np.random.RandomState(seed)
+    for sub in ("mel", "f0", "energy", "duration"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    templates = rng.randn(len(PHONES) + 3, n_mels).astype(np.float32)
+    fpadd, fprm = [], []
+    for i in range(n_utts):
+        n_sym = rng.randint(symbols[0], symbols[1] + 1)
+        ids = rng.randint(0, len(PHONES), n_sym)
+        base = [f"{{{PHONES[p]}${TONES[rng.randint(len(TONES))]}$"
+                f"{'s_begin' if j % 2 == 0 else 's_end'}$"
+                f"{'word_begin' if j % 2 == 0 else 'word_end'}$emotion_neutral$F7}}"
+                for j, p in enumerate(ids)]
+        places = [(0, n_sym // 2, n_sym)[i % 3]] + (
+            [rng.randint(1, n_sym)] if i % 2 else [])
+        tokens, units = [], []
+        for j in range(n_sym + 1):
+            for _ in range(places.count(j)):
+                k = rng.randint(len(FILLERS))
+                onset, coda = FILLERS[k]
+                tokens += [f"{{{onset}$tone5$s_begin$word_begin$emotion_disgust$F7}}",
+                           f"{{{coda}$tone5$s_end$word_end$emotion_disgust$F7}}",
+                           "{#3$tone_none$s_none$word_none$emotion_neutral$F7}"]
+                units += [len(PHONES) + k] * 3
+            if j < n_sym:
+                tokens.append(base[j])
+                units.append(ids[j])
+        n_tok = len(tokens)
+        n_frames = max(rng.randint(frames[0], frames[1] + 1), n_tok)
+        durs = 1 + rng.multinomial(n_frames - n_tok, np.full(n_tok, 1.0 / n_tok))
+        mel = (np.repeat(templates[units], durs, axis=0)
+               + 0.1 * rng.randn(n_frames, n_mels)).astype(np.float32)
+        utt = f"utt{i:04d}"
+        np.save(os.path.join(root, "mel", f"{utt}.npy"), mel)
+        np.save(os.path.join(root, "duration", f"{utt}.npy"), durs)
+        for sub in ("f0", "energy"):
+            np.save(os.path.join(root, sub, f"{utt}.npy"),
+                    (rng.rand(n_tok) + 0.5).astype(np.float32))
+        fpadd.append(f"{utt}\t{' '.join(tokens)}\n")
+        fprm.append(f"{utt}\t{' '.join(base)}\n")
+    for name, lines in (("fpadd", fpadd), ("fprm", fprm)):
+        meta = os.path.join(root, f"{name}_metafile.txt")
+        with open(meta, "w", encoding="utf-8") as f:
+            f.writelines(lines)
+        AMDataset.gen_metafile(meta, root, os.path.join(root, f"am_{name}_train.lst"),
+                               os.path.join(root, f"am_{name}_valid.lst"))
+    with open(os.path.join(root, "raw_metafile.txt"), "w", encoding="utf-8") as f:
+        f.writelines(fpadd)
+    audio = AUDIO[sampling_rate]
+    with open(os.path.join(root, "audio_config.yaml"), "w", encoding="utf-8") as f:
+        yaml.safe_dump({"audio_config": {
+            "sampling_rate": sampling_rate, "hop_length": audio["hop_length"],
+            "win_length": audio["win_length"], "n_fft": audio["n_fft"],
+            "n_mels": n_mels}}, f)
+
+
+# the feature values of kantts_tpu/configs/audio_config_8k.yaml
+AUDIO_8K = {"sampling_rate": 8000, "n_fft": 2048, "hop_length": 100,
+            "win_length": 600, "n_mels": 80, "fmin": 0.0, "fmax": 4000.0,
+            "max_norm": 1.0, "min_level_db": -100.0, "ref_level_db": 20,
+            "symmetric": False}
 # the feature values of kantts_tpu/configs/audio_config_16k.yaml
 AUDIO_16K = {"sampling_rate": 16000, "n_fft": 2048, "hop_length": 200,
              "win_length": 1000, "n_mels": 80, "fmin": 0.0, "fmax": 8000.0,
@@ -130,7 +235,7 @@ AUDIO_24K = {"sampling_rate": 24000, "n_fft": 1024, "hop_length": 240,
              "win_length": 1024, "n_mels": 80, "fmin": 50.0, "fmax": 8000.0,
              "max_norm": 1.0, "min_level_db": -100.0, "ref_level_db": 20,
              "symmetric": False}
-AUDIO = {16000: AUDIO_16K, 24000: AUDIO_24K}
+AUDIO = {8000: AUDIO_8K, 16000: AUDIO_16K, 24000: AUDIO_24K}
 
 
 def write_voc_corpus(root: str, n_utts: int, seconds: Tuple[float, float],

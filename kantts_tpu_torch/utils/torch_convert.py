@@ -1,7 +1,7 @@
 """KAN-TTS torch state dict -> JAX param tree, the direction that
 ``utils/convert.py`` inverts (a copy of the parts of
-``kantts_tpu/utils/torch_convert.py`` for the models the port has: SAM-BERT
-without FP or byte inputs, the non-NSF generator, MPD and MSD).
+``kantts_tpu/utils/torch_convert.py``: SAM-BERT, Textsy-BERT, the
+generator, MPD and MSD).
 
 Tensor layout conventions:
 - torch Linear weight (out, in)            -> Dense kernel (in, out): W.T
@@ -107,7 +107,7 @@ def _fft_block(tree, prefix, sd, torch_prefix):
     _conv1d(tree, f"{prefix}/pos_ffn/w_2", sd, f"{torch_prefix}.pos_ffn.w_2")
 
 
-def _text_encoder(tree, prefix, sd, torch_prefix, cfg):
+def _text_encoder(tree, prefix, sd, torch_prefix, cfg, with_proj=True):
     if cfg.get("using_byte", False):
         _embed(tree, f"{prefix}/byte_index_emb", sd,
                f"{torch_prefix}.byte_index_emb")
@@ -118,8 +118,9 @@ def _text_encoder(tree, prefix, sd, torch_prefix, cfg):
         _fft_block(tree, f"{prefix}/ling_enc/fft_{i}", sd,
                    f"{torch_prefix}.ling_enc.fft.{i}")
     _layernorm(tree, f"{prefix}/ling_enc/ln", sd, f"{torch_prefix}.ling_enc.ln")
-    _linear(tree, f"{prefix}/ling_proj", sd, f"{torch_prefix}.ling_proj",
-            bias=False)
+    if with_proj:
+        _linear(tree, f"{prefix}/ling_proj", sd, f"{torch_prefix}.ling_proj",
+                bias=False)
 
 
 def convert_sambert(sd: Dict[str, np.ndarray], cfg: Dict[str, Any]
@@ -181,6 +182,15 @@ def convert_sambert(sd: Dict[str, np.ndarray], cfg: Dict[str, Any]
         _conv1d(tree, f"{att}/query_proj_0", sd, f"{att}.query_proj.0.conv")
         _conv1d(tree, f"{att}/query_proj_1", sd, f"{att}.query_proj.2.conv")
         _conv1d(tree, f"{att}/query_proj_2", sd, f"{att}.query_proj.4.conv")
+
+    if cfg.get("FP", False):
+        _conv1d(tree, "FP_predictor/w_1", sd, "FP_predictor.w_1")
+        _conv1d(tree, "FP_predictor/w_2", sd, "FP_predictor.w_2")
+        _layernorm(tree, "FP_predictor/layer_norm1", sd,
+                   "FP_predictor.layer_norm1")
+        _layernorm(tree, "FP_predictor/layer_norm2", sd,
+                   "FP_predictor.layer_norm2")
+        _linear(tree, "FP_predictor/fc", sd, "FP_predictor.fc")
 
     return tree
 
@@ -265,4 +275,16 @@ def convert_msd(sd: Dict[str, np.ndarray], scales=3, n_downs=5,
     if has_dwt_aux:
         for i in range(scales - 1):
             _wnconv_raw(tree, f"aux_convs_{i}", sd, f"aux_convs.{i}", ndim=3)
+    return tree
+
+
+def convert_sybert(sd: Dict[str, np.ndarray], cfg: Dict[str, Any]
+                   ) -> Dict[str, Any]:
+    """KanTtsTextsyBERT state dict -> JAX param tree: the text encoder
+    without its projection, and the sy-vocabulary ``fc`` head."""
+    sd = {k: np.asarray(v) for k, v in sd.items()}
+    tree: Dict[str, Any] = {}
+    _text_encoder(tree, "text_encoder", sd, "text_encoder", cfg,
+                  with_proj=False)
+    _linear(tree, "fc", sd, "fc")
     return tree

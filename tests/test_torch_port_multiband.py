@@ -315,7 +315,7 @@ def test_train_hifigan_nsf_multiband_cli(tmp_path):
 MODEL_CONFIGS = sorted(os.path.basename(p)[:-len(".yaml")]
                        for p in glob.glob(os.path.join(CONFIGS, "*.yaml"))
                        if not os.path.basename(p).startswith("audio_config"))
-REFUSED = {"sambert_fp_8k": "FP", "sybert": "sybert"}
+REFUSED = {}  # every config builds
 SLIM_GEN = {"channels": 32, "resblock_kernel_sizes": [3],
             "resblock_dilations": [[1, 3]]}
 SLIM_DISC = {"MultiScaleDiscriminator": {"channels": 16, "max_downsample_channels": 32,
@@ -332,6 +332,9 @@ def _slim(config):
         params = model["KanTtsSAMBERT"]["params"]
         model["KanTtsSAMBERT"]["params"] = dict(
             TINY, **{k: params[k] for k in SAMBERT_FLAGS if k in params})
+    elif config["model_type"] == "sybert":
+        params = model["KanTtsTextsyBERT"]["params"]
+        params.update({k: TINY[k] for k in params if k in TINY})
     elif config["model_type"] == "hifigan":
         model["Generator"]["params"].update(SLIM_GEN)
         for name, widths in SLIM_DISC.items():
@@ -342,7 +345,7 @@ def _slim(config):
 
 def test_config_matrix_counts():
     assert len(MODEL_CONFIGS) == 19
-    assert len(set(MODEL_CONFIGS) - set(REFUSED)) == 17
+    assert len(set(MODEL_CONFIGS) - set(REFUSED)) == 19
 
 
 def _all_float32(*modules):
@@ -373,6 +376,17 @@ def test_config_matrix(name, mixed_precision):
         assert model.se_enable == params.get("SE", False)
         assert model.mel_decoder.dtype == (torch.bfloat16 if mixed_precision
                                            else None)
+        assert _all_float32(model)
+        assert model.fp_enable == params.get("FP", False)
+        if model.fp_enable:  # the FP head computes in float32 either way
+            assert all(m.compute_dtype is None for m in model.FP_predictor.modules()
+                       if hasattr(m, "compute_dtype"))
+        return
+    if config["model_type"] == "sybert":  # float32 whatever mixed_precision says
+        model = model_builder(config)
+        assert not model.text_encoder.using_byte and model.text_encoder.ling_proj is None
+        assert all(m.compute_dtype is None for m in model.modules()
+                   if hasattr(m, "compute_dtype"))
         assert _all_float32(model)
         return
     built = hifigan_gan_builder(config)

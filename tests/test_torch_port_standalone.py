@@ -17,6 +17,7 @@ from kantts_tpu.preprocess import script_convertor as j_script
 from kantts_tpu.text import lexicon_frontend as j_lexicon
 from kantts_tpu.text import pinyin_frontend as j_pinyin
 from kantts_tpu.text.ling_unit import KanTtsLinguisticUnit as JLingUnit
+from kantts_tpu.text.ling_unit import get_fpdict as j_get_fpdict
 from kantts_tpu.utils import config as jconfig
 from kantts_tpu.utils import torch_convert as jconvert
 from kantts_tpu_torch.bin.train_hifigan import VocLoader
@@ -24,8 +25,10 @@ from kantts_tpu_torch.configs import get_config
 from kantts_tpu_torch.data import dataset as tdata
 from kantts_tpu_torch.models.builder import (
     build_sambert,
+    build_sybert,
     hifigan_model_builder,
     sambert_params,
+    sybert_params,
 )
 from kantts_tpu_torch.models.hifigan.discriminators import (
     MultiPeriodDiscriminator,
@@ -34,7 +37,7 @@ from kantts_tpu_torch.models.hifigan.discriminators import (
 from kantts_tpu_torch.preprocess import script_convertor as t_script
 from kantts_tpu_torch.text import lexicon_frontend as t_lexicon
 from kantts_tpu_torch.text import pinyin_frontend as t_pinyin
-from kantts_tpu_torch.text.ling_unit import KanTtsLinguisticUnit
+from kantts_tpu_torch.text.ling_unit import KanTtsLinguisticUnit, get_fpdict
 from kantts_tpu_torch.utils import config as tconfig
 from kantts_tpu_torch.utils import convert as tconvert
 from kantts_tpu_torch.utils import torch_convert as tconvert_fwd
@@ -85,6 +88,27 @@ def test_ling_unit_vocabularies(name):
         assert t_unit.vocabs[lfeat].symbols == j_unit.vocabs[lfeat].symbols
 
 
+@pytest.mark.parametrize("name", ["sambert_16k_MAS", "sambert_fp_8k", "sybert",
+                                  "sambert_16k_MAS_byte"])
+def test_ling_unit_decode_mask_and_fpdict(name):
+    """The decoding half, the special ids and the FP filler triples."""
+    cfg = jconfig.load_yaml(os.path.join(CONFIGS, f"{name}.yaml"))
+    t_unit, j_unit = KanTtsLinguisticUnit(cfg), JLingUnit(cfg)
+    for lfeat in t_unit.lfeat_type_list:
+        assert (t_unit.eos_id(lfeat), t_unit.mask_id(lfeat)) == (
+            j_unit.eos_id(lfeat), j_unit.mask_id(lfeat))
+    seq = ("{63$emotion_neutral$F7} {97$emotion_neutral$F7}" if t_unit.using_byte()
+           else "{ni_c$tone3$s_begin$word_begin$emotion_neutral$F7} "
+                "{#1$tone_none$s_none$word_none$emotion_happy$F7}")
+    ids = t_unit.encode_symbol_sequence(seq)
+    assert t_unit.decode_symbol_sequence(ids) == j_unit.decode_symbol_sequence(ids)
+    if not t_unit.using_byte():
+        got, want = get_fpdict(cfg), j_get_fpdict(cfg)
+        assert got.keys() == want.keys()
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+
+
 @pytest.mark.parametrize("name", ["sambert_16k_MAS", "hifigan_v1_16k"])
 def test_load_merged_config(name, tmp_path):
     write_mas_corpus(str(tmp_path), 2, (3, 4), (8, 10), seed=0)
@@ -99,7 +123,9 @@ def test_load_merged_config(name, tmp_path):
                                   "hifigan_noncausal_nsf_global_v1_16k",
                                   "sambert_nsf_16k", "sambert_nsf_24k",
                                   "sambert_16k_MAS_byte",
-                                  "sambert_se_nsf_global_16k", "audio_config_24k"])
+                                  "sambert_se_nsf_global_16k", "audio_config_24k",
+                                  "sambert_fp_8k", "sybert", "hifigan_v1_8k",
+                                  "audio_config_8k"])
 def test_config_copies_equal_the_originals(name):
     """The port's copies of the YAML configs that chip_smoke.py reads."""
     copy = os.path.join(ROOT, "kantts_tpu_torch", "resources", "configs", f"{name}.yaml")
@@ -224,21 +250,34 @@ def _round_trip(sd, back):
         np.testing.assert_array_equal(back[k].numpy(), v, err_msg=k)
 
 
-@pytest.mark.parametrize("voice", ["phones", "byte", "se"])
+@pytest.mark.parametrize("voice", ["phones", "byte", "se", "fp"])
 def test_convert_sambert_round_trip(voice):
     """The forward converter and its inverse, for a phone MAS voice, a byte
-    voice (``byte_index_emb``) and an SE voice (no speaker table)."""
+    voice (``byte_index_emb``), an SE voice (no speaker table) and an FP
+    voice (``FP_predictor``)."""
     name = {"phones": "sambert_16k_MAS", "byte": "sambert_16k_MAS_byte",
-            "se": "sambert_se_nsf_global_16k"}[voice]
+            "se": "sambert_se_nsf_global_16k", "fp": "sambert_fp_8k"}[voice]
     cfg = jconfig.load_yaml(os.path.join(CONFIGS, f"{name}.yaml"))
     flags = {"phones": dict(MAS=True), "byte": dict(MAS=True, using_byte=True),
-             "se": dict(SE=True)}[voice]
+             "se": dict(SE=True), "fp": dict(FP=True)}[voice]
     cfg["Model"]["KanTtsSAMBERT"]["params"] = dict(TINY, num_mels=80, **flags)
     params = sambert_params(cfg)
     sd = _random_state_dict(build_sambert(cfg), 0)
     tree = jconvert.convert_sambert(sd, params)
     _trees_equal(tconvert_fwd.convert_sambert(sd, params), tree)
     _round_trip(sd, tconvert.sambert_state_dict_from_jax(tree, params))
+
+
+def test_convert_sybert_round_trip():
+    """Textsy-BERT: the text encoder without ``ling_proj``, and ``fc``."""
+    cfg = jconfig.load_yaml(os.path.join(CONFIGS, "sybert.yaml"))
+    params = cfg["Model"]["KanTtsTextsyBERT"]["params"]
+    params.update({k: TINY[k] for k in params if k in TINY})
+    sd = _random_state_dict(build_sybert(cfg), 6)
+    tree = jconvert.convert_sybert(sd, sybert_params(cfg))
+    _trees_equal(tconvert_fwd.convert_sybert(sd, sybert_params(cfg)), tree)
+    assert "ling_proj" not in tree["text_encoder"] and "fc" in tree
+    _round_trip(sd, tconvert.sybert_state_dict_from_jax(tree, sybert_params(cfg)))
 
 
 def test_convert_hifigan_generator_round_trip():

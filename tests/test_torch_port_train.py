@@ -130,9 +130,11 @@ def test_criterion_builder():
     assert set(crit) == set(MAS_LOSSES)
     assert crit["MelReconLoss"].weights == 2.0
     assert crit["AttentionCTCLoss"].weights == 1.0
-    for key in ("SeqCELoss", "FpCELoss"):
-        with pytest.raises(NotImplementedError, match=key):
-            criterion_builder({"Loss": {key: {"enable": True}}})
+    fp_seq = criterion_builder({"Loss": {
+        "FpCELoss": {"enable": True, "params": {"weight": [1, 4, 4, 8]}},
+        "SeqCELoss": {"enable": True, "weights": 0.5}}})
+    assert isinstance(fp_seq["FpCELoss"], tl.FpCELoss)
+    assert fp_seq["SeqCELoss"].weights == 0.5
     with pytest.raises(NotImplementedError, match="NoSuchLoss"):
         criterion_builder({"Loss": {"NoSuchLoss": {"enable": False}}})
 
@@ -447,9 +449,9 @@ def test_train_refuses_what_it_cannot_do(tmp_path):
     data = str(tmp_path / "data")
     write_mas_corpus(data, 4, (3, 4), (12, 15), seed=1)
     cfg = train_config(str(tmp_path / "s"))
-    with pytest.raises(NotImplementedError, match="Textsy-BERT"):
+    with pytest.raises(FileNotFoundError, match="bert.ckpt"):  # it is read now
         train_sambert.train(cfg, data, str(tmp_path / "s"),
-                            resume_bert_path="bert.ckpt", device="cpu")
+                            resume_bert_path=str(tmp_path / "bert.ckpt"), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             train_sambert.train(cfg, data, str(tmp_path / "s"))
