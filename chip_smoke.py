@@ -106,6 +106,24 @@ hifigan_v1_16k, with weights made from a seed:
      spliced lengths equal, mels within 1e-3; then ``text_to_wav`` with no
      ``--device`` on the FP voice and a seeded hifigan_v1_8k (8 kHz wavs
      of frames * 100 samples). K1 must not launch on this path.
+ 12. preprocessing: (a) a synthetic raw voice of 200 utterances of 2-6 s at
+     16 kHz (``write_voice_dir``, seed 0: harmonic finals on tone contours,
+     noise initials, pauses, near-silent edges, a spread of loudness) with
+     its prosody and interval files, and a seeded D-TDNN ``se.model`` at
+     the reference's default widths; (b) ``python -m
+     kantts_tpu_torch.bin.process_data`` on it with the SE audio config and
+     no ``--device``: each stage's wall seconds and audio seconds per
+     second, a small badlist, every kept utterance with its mel, f0, frame
+     f0/uv, energy, durations and speaker embedding, durations summing to
+     the mel frames; (c) ``process_data`` on a 16-utterance subset on the
+     card and on the CPU: wavs, f0, uv, durations, metafiles, splits and
+     the badlist equal, mels within 1e-5 / std, energy 1e-5 relative,
+     speaker embeddings 1e-4 of their largest; (d) the full-width D-TDNN on
+     one utterance, ms per call by CUDA events and card vs CPU; (e)
+     ``train_sambert`` (sambert_16k_MAS, 4 steps at B=16 on 64 utterances of
+     (b)'s am_train.lst, K1 in each) and ``train_hifigan`` (hifigan_v1_16k,
+     4 steps at 16 x 9600) on (b)'s output. K1 launches in (e)'s acoustic
+     training only.
 
 Each phase prints lines of its own and raises on failure. Before the last
 line it prints a JSON object on the kernels; the last line is
@@ -2763,6 +2781,351 @@ def phase_fp_sybert(tmp: str) -> dict:
             "fp_step_ms": fp_step_ms, "infer": infer}
 
 
+# Phase 12: preprocessing. The corpus: 200 synthetic utterances of 2-6 s at
+# 16 kHz with interval files (write_voice_dir, seed 0); the keys of
+# sambert_16k_MAS.yaml and hifigan_v1_16k.yaml that its training shortens.
+VOICE_UTTS, VOICE_SECONDS, SUBSET_UTTS = 200, (2.0, 6.0), 16
+PRE_KEYS = dict(train_max_steps=4, save_interval_steps=4, eval_interval_steps=4,
+                log_interval_steps=4)
+PRE_AM_BATCH = 16
+# the acoustic model trains on this many of (b)'s am_train.lst: on all 195
+# the loader's prefetch built ~73 s of beta-binomial priors for 4 steps
+PRE_AM_UTTS = 64
+STAGES = ("amp_normalize", "duration", "trim", "mel", "calibration", "pitch",
+          "energy", "speaker_embedding", "metafiles")
+
+
+def audio_seconds(wav_dir: str) -> float:
+    from scipy.io import wavfile
+
+    total = 0.0
+    for path in glob.glob(os.path.join(wav_dir, "*.wav")):
+        sr, data = wavfile.read(path, mmap=True)
+        total += len(data) / sr
+    return total
+
+
+def check_processed(out: str) -> list:
+    """Every utterance not in the badlist has its features and speaker
+    embedding, the corpus has its mean embedding, the durations sum to the
+    mel frames, and the frame-level f0, uv and energy have the mel's
+    length. -> the badlist."""
+    with open(os.path.join(out, "badlist.txt")) as f:
+        bad = [line.strip() for line in f if line.strip()]
+    utts = sorted(os.path.splitext(os.path.basename(p))[0]
+                  for p in glob.glob(os.path.join(out, "wav", "*.wav")))
+    kept = [u for u in utts if u not in bad]
+    subs = ["mel", "f0", "frame_f0", "frame_uv", "energy", "frame_energy",
+            "duration", "se"]
+    for utt in kept:
+        missing = [s for s in subs if not os.path.exists(os.path.join(out, s, utt + ".npy"))]
+        if missing:
+            raise AssertionError(f"{utt} lacks {missing}")
+        frames = np.load(os.path.join(out, "mel", utt + ".npy")).shape[0]
+        durs = np.load(os.path.join(out, "duration", utt + ".npy"))
+        if int(durs.sum()) != frames:
+            raise AssertionError(f"{utt}: durations sum to {durs.sum()}, mel has {frames}")
+        for sub in ("frame_f0", "frame_uv", "frame_energy"):
+            n = len(np.load(os.path.join(out, sub, utt + ".npy")))
+            if n != frames:
+                raise AssertionError(f"{utt}: {sub} has {n} frames, mel {frames}")
+    if not os.path.exists(os.path.join(out, "se", "se.npy")):
+        raise AssertionError("no se/se.npy")
+    return bad
+
+
+def subset_voice(voice: str, sub: str, n: int) -> None:
+    """The first n utterances of ``voice`` as a voice of their own."""
+    import shutil
+
+    for d in ("wav", "interval", "prosody"):
+        os.makedirs(os.path.join(sub, d), exist_ok=True)
+    utts = [f"utt{i:04d}" for i in range(n)]
+    for utt in utts:
+        shutil.copy(os.path.join(voice, "wav", utt + ".wav"), os.path.join(sub, "wav"))
+        shutil.copy(os.path.join(voice, "interval", utt + ".interval"),
+                    os.path.join(sub, "interval"))
+    with open(os.path.join(voice, "prosody", "prosody.txt"), encoding="utf-8") as f:
+        lines = f.readlines()
+    with open(os.path.join(sub, "prosody", "prosody.txt"), "w", encoding="utf-8") as f:
+        f.writelines(lines[:2 * n])
+
+
+def mel_float64(wav: np.ndarray, audio: dict) -> tuple:
+    """The feature-extraction mel of ``wav`` in float64 (numpy), from the
+    float32 window and filterbank: the value that the float32 extractors
+    round; and each element's bound for a float32 extractor: the mel rule's
+    1e-5 plus a float32 FFT's rounding, ~eps * log2(n_fft) of the frame's
+    largest coefficient, carried through the mel's log and normalisation
+    (a bin far below its frame's largest gets a wider bound)."""
+    from kantts_tpu_torch.dsp.mel import mel_filterbank
+    from kantts_tpu_torch.dsp.stft import hann_window, pad_center
+
+    n_fft, hop = audio["n_fft"], audio["hop_length"]
+    window = pad_center(hann_window(audio["win_length"]), n_fft).astype(np.float64)
+    x = np.pad(wav.astype(np.float64), n_fft // 2, mode="reflect")
+    frames = np.lib.stride_tricks.sliding_window_view(x, n_fft)[::hop]
+    spec = np.abs(np.fft.rfft(frames * window, axis=1))
+    fb = mel_filterbank(audio["sampling_rate"], n_fft, audio["n_mels"], audio["fmin"],
+                        audio["fmax"]).astype(np.float64)
+    mel = spec @ fb.T
+    S = 20.0 * np.log10(np.maximum(mel, 1e-5)) - audio["ref_level_db"]
+    max_norm, min_db = audio["max_norm"], audio["min_level_db"]
+    scale = (2 if audio["symmetric"] else 1) * max_norm / -min_db
+    kappa = spec.max(axis=1, keepdims=True) * fb.sum(axis=1) / np.maximum(mel, 1e-5)
+    bound = 1e-5 + scale * 20.0 / np.log(10.0) * np.log2(n_fft) * np.finfo(
+        np.float32).eps * kappa
+    if audio["symmetric"]:
+        return np.clip(scale * (S - min_db) - max_norm, -max_norm, max_norm), bound
+    return np.clip(scale * (S - min_db), 0, max_norm), bound
+
+
+def am_subset(data: str, dst: str, n: int) -> str:
+    """``data`` with its ``am_train.lst`` cut to the first n lines (the
+    features linked, not copied). -> ``dst``."""
+    os.makedirs(dst, exist_ok=True)
+    for name in os.listdir(data):
+        if name != "am_train.lst":
+            os.symlink(os.path.join(data, name), os.path.join(dst, name))
+    with open(os.path.join(data, "am_train.lst"), encoding="utf-8") as f:
+        lines = f.readlines()[:n]
+    with open(os.path.join(dst, "am_train.lst"), "w", encoding="utf-8") as f:
+        f.writelines(lines)
+    return dst
+
+
+def preprocess_card_vs_cpu(sub: str, tmp: str, se_model: str) -> dict:
+    """(c) ``process_data`` with no device (the card) and with the CPU on the
+    subset: exact where the host computes. Where the device computes: the
+    mels of the processed wavs on each side within ``mel_float64``'s bound
+    of their float64 value (the feature-extraction mel's 1e-5 and a float32
+    FFT's rounding), so card and CPU within twice that; the written
+    (normalised) mels within that and the statistics' 2e-6 carried through
+    the normalisation; energy 1e-5 relative; speaker embeddings 1e-4 of
+    their largest. -> the gaps (the mels' as shares of their bounds)."""
+    import filecmp
+
+    import torch
+
+    from kantts_tpu_torch.bin.process_data import process_data
+    from kantts_tpu_torch.dsp.mel import MelSpectrogramExtractor
+    from kantts_tpu_torch.utils.audio import read_wav
+    from kantts_tpu_torch.utils.config import load_yaml
+
+    config = os.path.join(CONFIGS, "audio_config_se_16k.yaml")
+    outs = {"card": os.path.join(tmp, "card"), "cpu": os.path.join(tmp, "cpu")}
+    seconds = {}
+    for side, out in outs.items():
+        t0 = time.perf_counter()
+        if side == "card":
+            process_data(sub, out, config, "F7", se_model=se_model)
+        else:
+            process_data(sub, out, config, "F7", se_model=se_model, device="cpu")
+        seconds[side] = round(time.perf_counter() - t0, 3)
+    card, cpu = outs["card"], outs["cpu"]
+    exact = ["raw_metafile.txt", "Script.xml", "train.lst", "valid.lst", "am_train.lst",
+             "am_valid.lst", "badlist.txt"]
+    for sub_dir in ("wav", "f0", "frame_f0", "frame_uv", "duration", "raw_duration"):
+        exact += [os.path.join(sub_dir, n) for n in sorted(os.listdir(os.path.join(cpu, sub_dir)))
+                  if not n.endswith(".txt") or sub_dir == "f0"]
+    for rel_path in exact:
+        if not filecmp.cmp(os.path.join(card, rel_path), os.path.join(cpu, rel_path),
+                           shallow=False):
+            raise AssertionError(f"card and CPU differ on {rel_path}")
+    audio = load_yaml(config)["audio_config"]
+    args = [audio[k] for k in ("sampling_rate", "n_fft", "hop_length", "win_length",
+                               "n_mels", "max_norm", "min_level_db", "ref_level_db",
+                               "fmin", "fmax", "symmetric")]
+    extract = {"card": MelSpectrogramExtractor(*args, device="cuda"),
+               "cpu": MelSpectrogramExtractor(*args)}
+    gaps = {"mel_card_f64": 0.0, "mel_cpu_f64": 0.0, "mel": 0.0, "mel_abs": 0.0,
+            "written_mel": 0.0, "energy_rel": 0.0, "se_rel": 0.0}
+    gaps["mel_stats"] = max(float(np.abs(np.loadtxt(os.path.join(card, "mel", n))
+                                         - np.loadtxt(os.path.join(cpu, "mel", n))).max())
+                            for n in ("mel_mean.txt", "mel_std.txt"))
+    std = np.loadtxt(os.path.join(cpu, "mel", "mel_std.txt"))
+    stats = {side: [np.loadtxt(os.path.join(out, "energy", f"energy_{s}.txt"))
+                    for s in ("mean", "std")] for side, out in outs.items()}
+    for path in sorted(glob.glob(os.path.join(cpu, "mel", "utt*.npy"))):
+        name = os.path.basename(path)
+        wav = read_wav(os.path.join(cpu, "wav", name[:-4] + ".wav"))[1]
+        mels = {side: e(wav) for side, e in extract.items()}
+        f64, bound = mel_float64(wav, audio)
+        for side, key in (("card", "mel_card_f64"), ("cpu", "mel_cpu_f64")):
+            gaps[key] = max(gaps[key], float((np.abs(mels[side] - f64) / bound).max()))
+        diff = np.abs(mels["card"] - mels["cpu"])
+        gaps["mel"] = max(gaps["mel"], float((diff / (2 * bound)).max()))
+        gaps["mel_abs"] = max(gaps["mel_abs"], float(diff.max()))
+        a, b = np.load(path), np.load(os.path.join(card, "mel", name))
+        if not np.array_equal(np.isnan(a), np.isnan(b)):
+            raise AssertionError(f"mel {name}: NaN positions differ")
+        # a written mel is (mel - mean) / std: the mels' error and the
+        # statistics' error carried through the normalisation
+        ratio = np.abs(a - b) * std / (2 * bound + 2e-6 * (1.0 + np.abs(a)))
+        gaps["written_mel"] = max(gaps["written_mel"], float(np.nanmax(ratio)))
+        for sub_dir in ("energy", "frame_energy"):
+            raw = []
+            for side, out in outs.items():
+                x = np.load(os.path.join(out, sub_dir, name))
+                mean, e_std = stats[side]
+                raw.append(np.where(x == 0.0, 0.0, x * e_std + mean))
+            gaps["energy_rel"] = max(gaps["energy_rel"], float(
+                (np.abs(raw[0] - raw[1]) / (np.abs(raw[1]) + 0.1)).max()))
+    for name in sorted(os.listdir(os.path.join(cpu, "se"))):
+        a, b = (np.load(os.path.join(out, "se", name)) for out in (cpu, card))
+        gaps["se_rel"] = max(gaps["se_rel"], float(np.abs(a - b).max() / np.abs(a).max()))
+    del extract
+    torch.cuda.empty_cache()
+    bounds = {"mel_card_f64": 1.0, "mel_cpu_f64": 1.0, "mel": 1.0, "written_mel": 1.0,
+              "energy_rel": 1e-5, "se_rel": 1e-4, "mel_stats": 2e-6}
+    log("preprocess_card_vs_cpu", utts=SUBSET_UTTS, exact_files=len(exact),
+        seconds=json.dumps(seconds).replace(" ", ""),
+        gaps=json.dumps({k: float(f"{v:.3g}") for k, v in gaps.items()}).replace(" ", ""),
+        bounds=json.dumps(bounds).replace(" ", ""))
+    over = {k: v for k, v in gaps.items() if v > bounds.get(k, np.inf)}
+    if over:
+        raise AssertionError(f"card vs CPU preprocessing gaps over their bounds: {over}")
+    return gaps
+
+
+def dtdnn_times(model_sd, wav_path: str) -> dict:
+    """(d) The full-width D-TDNN on the fbank of an utterance's first 3 s: ms
+    per call on the card by CUDA events, and the card against the CPU."""
+    import torch
+
+    from kantts_tpu_torch.preprocess.se_processor import DTDNN, kaldi_fbank
+    from kantts_tpu_torch.utils.audio import read_wav
+
+    sr, wav = read_wav(wav_path)
+    wav = wav[:3 * sr]
+    feat = kaldi_fbank(wav, sr, num_mel_bins=80)
+    feat = torch.from_numpy((feat - feat.mean(axis=0, keepdims=True))[None])
+    card, cpu = DTDNN(model_sd).cuda(), DTDNN(model_sd)
+    x = feat.cuda()
+    with torch.no_grad():
+        ms = cuda_ms(lambda: card(x), 20)
+        prof = profile_steps(lambda: card(x), 3)
+        a, b = card(x).cpu().numpy(), cpu(feat).numpy()
+    gap = float(np.abs(a - b).max() / np.abs(b).max())
+    if gap > 1e-4:
+        raise AssertionError(f"D-TDNN card vs CPU {gap} of max |embedding|")
+    log("dtdnn", seconds_of_audio=round(len(wav) / sr, 3), frames=feat.shape[1],
+        ms_per_call=round(ms, 4), card_vs_cpu_rel=float(f"{gap:.3g}"),
+        device_busy_ms_3_calls=round(prof["busy_ms"], 3),
+        device_ops_per_call=prof["device_ops"] // 3,
+        top=json.dumps(prof["top"][:5]).replace(" ", ""))
+    return {"ms": ms, "gap": gap, "frames": int(feat.shape[1])}
+
+
+def phase_preprocess(tmp: str) -> dict:
+    """Phase 12, (a)-(e) above. -> K1's launches on this path and results."""
+    import torch
+
+    from kantts_tpu_torch.bin import train_hifigan, train_sambert
+    from kantts_tpu_torch.ops.mas import b_mas_cuda
+    from kantts_tpu_torch.preprocess.se_processor import DTDNN
+    from kantts_tpu_torch.utils.corpus import dtdnn_state_dict, write_voice_dir
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "preprocess")
+    b_mas_cuda.launches = 0
+
+    # (a) the raw voice and a seeded full-width D-TDNN
+    voice = os.path.join(root, "voice")
+    t0 = time.perf_counter()
+    write_voice_dir(voice, VOICE_UTTS, VOICE_SECONDS, seed=0)
+    se_model = os.path.join(root, "se.model")
+    sd = dtdnn_state_dict(0)
+    torch.save(sd, se_model)
+    audio_s = audio_seconds(os.path.join(voice, "wav"))
+    log("voice", utts=VOICE_UTTS, audio_s=round(audio_s, 3),
+        seconds=round(time.perf_counter() - t0, 3),
+        dtdnn_params=sum(p.numel() for p in DTDNN(sd).parameters()))
+
+    # (b) the CLI with no --device
+    out = os.path.join(root, "data")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "kantts_tpu_torch.bin.process_data",
+         "--voice_input_dir", voice, "--voice_output_dir", out, "--audio_config",
+         os.path.join(CONFIGS, "audio_config_se_16k.yaml"), "--speaker", "F7",
+         "--se_model", se_model],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"process_data exited {proc.returncode}:\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    with open(os.path.join(out, "data_process_stdout.log")) as f:
+        logged = f.read()
+    stage_line = [ln for ln in logged.splitlines() if "Stage seconds: " in ln][-1]
+    stages = {k: float(v) for k, v in (kv.split("=") for kv in
+                                       stage_line.split("Stage seconds: ")[1].split())}
+    if tuple(stages) != STAGES:
+        raise AssertionError(f"stages {tuple(stages)}, expected {STAGES}")
+    if "Badlist:" not in logged:
+        raise AssertionError("process_data logged no badlist")
+    bad = check_processed(out)
+    if len(bad) > VOICE_UTTS // 20:
+        raise AssertionError(f"{len(bad)} of {VOICE_UTTS} utterances in the badlist: {bad}")
+    with open(os.path.join(out, "am_train.lst")) as f:
+        am_train = f.read().splitlines()
+    log("process_data", wall_s=round(wall, 3), audio_s=round(audio_s, 3),
+        audio_s_per_s=round(audio_s / wall, 2), badlist=json.dumps(bad).replace(" ", ""),
+        am_train=len(am_train),
+        stage_s=json.dumps({k: round(v, 3) for k, v in stages.items()}).replace(" ", ""),
+        stage_audio_s_per_s=json.dumps({k: round(audio_s / max(v, 1e-9), 1)
+                                        for k, v in stages.items()}).replace(" ", ""))
+
+    # (c) card against CPU on a subset; (d) the D-TDNN alone
+    sub = os.path.join(root, "subset")
+    subset_voice(voice, sub, SUBSET_UTTS)
+    gaps = preprocess_card_vs_cpu(sub, root, se_model)
+    dtdnn = dtdnn_times(sd, os.path.join(voice, "wav", "utt0000.wav"))
+    if b_mas_cuda.launches != 0:
+        raise AssertionError(f"preprocessing launched K1 {b_mas_cuda.launches} times")
+
+    # (e) both trainers on (b)'s output
+    seconds = {}
+    stage = os.path.join(root, "am_train")
+    t0 = time.perf_counter()
+    am_data = am_subset(out, os.path.join(root, "am_data"), PRE_AM_UTTS)
+    am = train_sambert.train(train_config(os.path.join(stage, "model.yaml"),
+                                          batch_size=PRE_AM_BATCH, **PRE_KEYS), am_data,
+                             stage)
+    torch.cuda.synchronize()
+    seconds["am_train"] = round(time.perf_counter() - t0, 3)
+    check_run(am, stage, PRE_KEYS["train_max_steps"])
+    am_launches = b_mas_cuda.launches
+    if am_launches < PRE_KEYS["train_max_steps"]:
+        raise AssertionError(f"K1 launched {am_launches} times in "
+                             f"{PRE_KEYS['train_max_steps']} steps")
+    log("preprocess_am_train", steps=am.steps_taken, batch=am.config["batch_size"],
+        seconds=seconds["am_train"], k1_launches=am_launches,
+        train_items=len(am.train_loader.dataset),
+        total_loss=json.dumps({f"{kind}@{at}": round(m[f"{kind}/TotalLoss"], 4)
+                               for kind, at, m in am.history}).replace(" ", ""))
+    del am
+    stage = os.path.join(root, "voc_train")
+    t0 = time.perf_counter()
+    voc = train_hifigan.train(gan_config(os.path.join(stage, "model.yaml"), **PRE_KEYS),
+                              out, stage, device="cuda")
+    torch.cuda.synchronize()
+    seconds["voc_train"] = round(time.perf_counter() - t0, 3)
+    check_run(voc, stage, PRE_KEYS["train_max_steps"])
+    log("preprocess_voc_train", steps=voc.steps_taken, batch=voc.config["batch_size"],
+        crop=voc.config["batch_max_steps"], seconds=seconds["voc_train"],
+        train_items=len(voc.train_loader.dataset), losses=gan_losses(voc))
+    del voc
+    torch.cuda.empty_cache()
+    if b_mas_cuda.launches != am_launches:
+        raise AssertionError("K1 launched outside the acoustic training")
+    log("preprocess", k1_launches=b_mas_cuda.launches,
+        seconds=json.dumps(seconds).replace(" ", ""),
+        phase_s=round(time.perf_counter() - t_phase, 3))
+    return {"k1_launches": b_mas_cuda.launches, "stages": stages, "wall": wall,
+            "audio_s": audio_s, "gaps": gaps, "dtdnn": dtdnn}
+
+
 def old_k1(src: str):
     """Build an earlier K1 source with the same nvcc flags; it has the first
     K1's C interface (the caller zeroes the output and passes a uint8
@@ -2858,6 +3221,7 @@ def main(argv) -> int:
         nsf = phase_nsf(tmp)
         bf16 = phase_bf16_se_byte(tmp, voc_ckpt)
         fp = phase_fp_sybert(tmp)
+        pre = phase_preprocess(tmp)
     import torch
 
     train = k1["train"]
@@ -2866,12 +3230,13 @@ def main(argv) -> int:
         "source": "kantts_tpu_torch/csrc/mas.cu",
         "replaces": "kantts_tpu/ops/mas_pallas.py:91",
         "launches": (fwd_launches + train_launches
-                     + sum(bf16["k1_launches"].values())),
+                     + sum(bf16["k1_launches"].values()) + pre["k1_launches"]),
         "launches_by_path": {"mas_forward": fwd_launches,
                              "train_sambert": train_launches,
                              "serve": serve["k1_launches"],
                              "nsf": nsf["k1_launches"], **bf16["k1_launches"],
-                             "fp_sybert": fp["k1_launches"]},
+                             "fp_sybert": fp["k1_launches"],
+                             "preprocess": pre["k1_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
         "ms": train["ms"], "plain_ms": train["plain_ms"],
         "bound_ms": train["bound_ms"], "bound_by": train["bound_by"],

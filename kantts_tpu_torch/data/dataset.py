@@ -396,7 +396,10 @@ class AMDataset:
 
     @staticmethod
     def gen_metafile(raw_meta_file, out_dir, train_meta_file, valid_meta_file,
-                     split_ratio=0.98, se_enable=False):
+                     badlist=None, split_ratio=0.98, se_enable=False):
+        """Split ``raw_meta_file`` into the train and valid metafiles, keeping
+        the lines whose mel (and, where the corpus has them, duration and
+        speaker embedding) exist and whose utterance is not in ``badlist``."""
         with open(raw_meta_file) as f:
             lines = f.readlines()
         train, valid = _split_metafile(lines, split_ratio)
@@ -406,6 +409,8 @@ class AMDataset:
             with open(path, "w") as f:
                 for line in subset:
                     index = line.split("\t")[0]
+                    if badlist is not None and index in badlist:
+                        continue
                     if not os.path.exists(os.path.join(mel_dir, index + ".npy")):
                         continue
                     if os.path.exists(duration_dir) and not os.path.exists(

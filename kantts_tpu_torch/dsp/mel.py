@@ -83,6 +83,10 @@ def amp_to_db(x: torch.Tensor, clip_val: float = 1e-5) -> torch.Tensor:
     return 20.0 * torch.log10(x.clamp(min=clip_val))
 
 
+def db_to_amp(x: torch.Tensor) -> torch.Tensor:
+    return torch.pow(10.0, x * 0.05)
+
+
 def normalize_db(S: torch.Tensor, max_norm: float = 1.0,
                  min_level_db: float = -100.0, symmetric: bool = False
                  ) -> torch.Tensor:
@@ -94,16 +98,28 @@ def normalize_db(S: torch.Tensor, max_norm: float = 1.0,
                        0, max_norm)
 
 
+def denormalize_db(D: torch.Tensor, max_norm: float = 1.0,
+                   min_level_db: float = -100.0, symmetric: bool = False
+                   ) -> torch.Tensor:
+    """The inverse of ``normalize_db`` inside its range."""
+    if symmetric:
+        return ((torch.clamp(D, -max_norm, max_norm) + max_norm)
+                * -min_level_db / (2 * max_norm)) + min_level_db
+    return (torch.clamp(D, 0, max_norm) * -min_level_db / max_norm) + min_level_db
+
+
 class MelSpectrogramExtractor:
     """Feature-extraction mel: wav (..., T) -> (..., frames, n_mels), the
-    transform that training mel targets are made with."""
+    transform that training mel targets are made with, computed on
+    ``device``."""
 
     def __init__(self, sampling_rate: int, n_fft: int = 1024,
                  hop_length: int = 256, win_length: int = 1024,
                  n_mels: int = 80, max_norm: float = 1.0,
                  min_level_db: float = -100.0, ref_level_db: float = 20.0,
                  fmin: float = 50.0, fmax: float = 8000.0,
-                 symmetric: bool = False):
+                 symmetric: bool = False, device="cpu"):
+        self.device = torch.device(device)
         self.n_fft = n_fft
         self.hop_length = hop_length
         self.win_length = win_length
@@ -112,8 +128,9 @@ class MelSpectrogramExtractor:
         self.ref_level_db = ref_level_db
         self.symmetric = symmetric
         self.melmat = torch.from_numpy(
-            mel_filterbank(sampling_rate, n_fft, n_mels, fmin, fmax))
-        self.window = torch.from_numpy(pad_center(hann_window(win_length), n_fft))
+            mel_filterbank(sampling_rate, n_fft, n_mels, fmin, fmax)).to(self.device)
+        self.window = torch.from_numpy(
+            pad_center(hann_window(win_length), n_fft)).to(self.device)
 
     def transform(self, x: torch.Tensor) -> torch.Tensor:
         spec = stft_complex(x, self.n_fft, self.hop_length, self.win_length,
@@ -124,10 +141,10 @@ class MelSpectrogramExtractor:
 
     def __call__(self, wav: np.ndarray) -> np.ndarray:
         """numpy wav (T,) or (..., T) -> numpy mel (..., frames, n_mels),
-        computed on the CPU."""
+        computed on the extractor's device."""
         with torch.no_grad():
-            x = torch.as_tensor(np.asarray(wav, dtype=np.float32))
-            return self.transform(x).numpy()
+            x = torch.as_tensor(np.asarray(wav, dtype=np.float32), device=self.device)
+            return self.transform(x).cpu().numpy()
 
 
 class LossMelSpectrogram:

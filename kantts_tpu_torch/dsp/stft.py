@@ -68,3 +68,30 @@ def stft_magnitude(x: torch.Tensor, n_fft: int, hop_length: int,
                         pad_mode)
     power = spec.real ** 2 + spec.imag ** 2
     return torch.sqrt(power.clamp(min=min_power))
+
+
+def istft(spec: torch.Tensor, n_fft: int, hop_length: int,
+          win_length: Optional[int] = None, window: Optional[np.ndarray] = None,
+          length: Optional[int] = None) -> torch.Tensor:
+    """Inverse STFT by overlap-add with window-square normalisation:
+    complex (..., num_frames, n_fft // 2 + 1) -> (..., T). Assumes the
+    forward's centre padding of n_fft // 2, which is trimmed here; ``length``
+    cuts the result (default: the unpadded length of the frames)."""
+    win_length = win_length or n_fft
+    window = pad_center(hann_window(win_length) if window is None
+                        else np.asarray(window), n_fft)
+    window = torch.from_numpy(window).to(device=spec.device, dtype=spec.real.dtype)
+    frames = torch.fft.irfft(spec, n=n_fft, dim=-1) * window
+    lead, num_frames = frames.shape[:-2], frames.shape[-2]
+    total = n_fft + hop_length * (num_frames - 1)
+
+    def overlap_add(x):  # (B, num_frames, n_fft) -> (B, total)
+        return F.fold(x.transpose(1, 2), (1, total), (1, n_fft),
+                      stride=(1, hop_length))[:, 0, 0]
+
+    y = overlap_add(frames.reshape(-1, num_frames, n_fft))
+    wsq = overlap_add((window ** 2).expand(1, num_frames, n_fft))
+    y = y / torch.where(wsq > 1e-10, wsq, torch.ones_like(wsq))
+    pad = n_fft // 2
+    y = y[:, pad:pad + length] if length is not None else y[:, pad:total - pad]
+    return y.reshape(*lead, y.shape[-1])

@@ -31,6 +31,7 @@ from typing import List
 
 from kantts_tpu_torch.preprocess.script_convertor import (
     Language,
+    PhoneSet,
     ScriptItem,
     SpokenWord,
     Syllable,
@@ -47,16 +48,19 @@ _ONE_SYL = re.compile(_SYL)
 
 
 @lru_cache(maxsize=8)
-def _formatter(lang: str):
-    return make_formatter(Language.parse(lang),
-                          dict(load_language_resource(lang)["sy2ph"]))
+def _resources(lang: str):
+    res = load_language_resource(lang)
+    phoneset = PhoneSet(lang)
+    formatter = make_formatter(Language.parse(lang), dict(res["sy2ph"]),
+                               dict(res.get("f2t", {})))
+    return phoneset, formatter
 
 
 def pinyin_to_syllables(word_text: str, lang: str = "PinYin"
                         ) -> List[Syllable]:
     """One prosodic word of concatenated pinyin -> Syllable list.
     Raises ValueError on unknown syllables (typo-level feedback)."""
-    formatter = _formatter(lang)
+    phoneset, formatter = _resources(lang)
     syllables: List[Syllable] = []
     for m in _ONE_SYL.finditer(word_text):
         pron = m.group(0)
@@ -73,7 +77,7 @@ def pinyin_to_syllables(word_text: str, lang: str = "PinYin"
                 and pron.rstrip("0123456789") not in getattr(
                     formatter, "sy2ph", {})):
             pron = pron.replace("u", "v", 1)
-        if not formatter.format(pron, syllables):
+        if not formatter.format(phoneset, pron, syllables):
             raise ValueError(f"unknown pinyin syllable: {m.group(0)!r} "
                              f"(word {word_text!r})")
     return syllables

@@ -55,9 +55,15 @@ def load_merged_config(root_dir: str, model_config_path: str) -> Dict[str, Any]:
     return merge_configs(audio_config, load_yaml(model_config_path))
 
 
-def stamp_and_dump(config: Dict[str, Any], stage_dir: str) -> Dict[str, Any]:
+def stamp_config(config: Dict[str, Any]) -> Dict[str, Any]:
+    """A copy of ``config`` with ``create_time`` and ``git_revision_hash``."""
     config = dict(config)
     config["create_time"] = time.strftime("%Y-%m-%d %H:%M:%S", time.localtime())
     config["git_revision_hash"] = git_revision_hash()
+    return config
+
+
+def stamp_and_dump(config: Dict[str, Any], stage_dir: str) -> Dict[str, Any]:
+    config = stamp_config(config)
     dump_yaml(config, os.path.join(stage_dir, "config.yaml"))
     return config

@@ -294,3 +294,250 @@ def write_voc_corpus(root: str, n_utts: int, seconds: Tuple[float, float],
             np.save(os.path.join(root, "frame_uv", f"{utt}.npy"), uv)
     with open(os.path.join(root, "audio_config.yaml"), "w", encoding="utf-8") as f:
         yaml.safe_dump({"audio_config": dict(audio)}, f)
+
+
+# the syllables of the synthetic voices: a hanzi and its toneless pinyin
+SYLLABLES = (("你", "ni"), ("好", "hao"), ("世", "shi"), ("界", "jie"),
+             ("这", "zhe"), ("测", "ce"), ("句", "jv"), ("子", "zi"),
+             ("我", "wo"), ("们", "men"), ("公", "gong"), ("散", "san"),
+             ("步", "bu"), ("天", "tian"), ("气", "qi"), ("很", "hen"),
+             ("北", "bei"), ("京", "jing"), ("欢", "huan"), ("迎", "ying"),
+             ("来", "lai"), ("到", "dao"), ("大", "da"), ("家", "jia"),
+             ("学", "xve"), ("生", "sheng"), ("人", "ren"), ("国", "guo"),
+             ("中", "zhong"), ("文", "wen"), ("音", "yin"), ("和", "he"),
+             ("成", "cheng"), ("的", "de"), ("谢", "xie"), ("在", "zai"),
+             ("说", "shuo"), ("一", "yi"), ("遍", "bian"), ("个", "ge"),
+             ("爱", "ai"), ("妈", "ma"), ("花", "hua"), ("山", "shan"),
+             ("水", "shui"), ("风", "feng"), ("星", "xing"), ("春", "chun"),
+             ("夏", "xia"), ("秋", "qiu"), ("冬", "dong"), ("请", "qing"))
+FILLER_SYLLABLES = (("嗯", "en"), ("啊", "a"), ("呃", "e"))
+# onsets of zero-initial syllables: symbols without an interval of their own
+ZERO_ONSETS = ("ga", "ge", "go")
+# f0 contours of the four tones, as multiples of the speaker's base f0
+TONE_CONTOURS = {1: (1.2, 1.2, 1.2), 2: (0.9, 1.0, 1.25), 3: (1.0, 0.8, 1.0),
+                 4: (1.3, 1.1, 0.85)}
+
+
+def _word_segments(rng, pinyins, sy2ph):
+    """(phone, frames, tone) of a word's phones: an initial is unvoiced for
+    4-8 frames, a final voiced for 8-16; zero-initial onsets take none."""
+    segs = []
+    for py in pinyins:
+        phones, tone = sy2ph[py[:-1]], int(py[-1])
+        for j, phone in enumerate(phones):
+            if phone in ZERO_ONSETS:
+                continue
+            initial = len(phones) == 2 and j == 0
+            segs.append((phone, rng.randint(4, 9) if initial else rng.randint(8, 17),
+                         None if initial else tone))
+    return segs
+
+
+def _interval_text(segs, frame_s: float) -> str:
+    total = sum(n for _, n, _ in segs) * frame_s
+    lines = ['File type = "ooTextFile short"', '"TextGrid"', "", "0", f"{total:.4f}",
+             "<exists>", "1", '"IntervalTier"', '"phones"', "0", f"{total:.4f}",
+             str(len(segs))]
+    at = 0
+    for phone, n, _ in segs:
+        lines += [f"{at * frame_s:.4f}", f"{(at + n) * frame_s:.4f}", f'"{phone}"']
+        at += n
+    return "\n".join(lines) + "\n"
+
+
+def _voice_wav(rng, segs, sr: int, hop: int, base_f0: float, gain: float):
+    """Harmonic finals on their tone's f0 contour, noise initials, near
+    silence at ``sil`` and ``sp``; peak ``gain``."""
+    n = sum(k for _, k, _ in segs) * hop
+    f0 = np.zeros(n)
+    amp = np.zeros(n)
+    noise_amp = np.full(n, 0.003)
+    at = 0
+    for phone, k, tone in segs:
+        span = slice(at * hop, (at + k) * hop)
+        m = k * hop
+        ramp = np.minimum(1.0, np.minimum(np.arange(m), np.arange(m)[::-1]) / (0.01 * sr))
+        if tone is not None:
+            contour = base_f0 * np.array(TONE_CONTOURS.get(tone, (1.0, 1.0, 1.0)))
+            f0[span] = np.interp(np.linspace(0, 2, m), [0, 1, 2], contour)
+            amp[span] = rng.uniform(0.6, 1.0) * ramp
+        elif phone not in ("sil", "sp"):
+            noise_amp[span] = rng.uniform(0.1, 0.3) * ramp
+        at += k
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    tone = sum(np.sin(h * phase + rng.uniform(0, 6.3)) / h for h in range(1, 7))
+    wav = amp * tone + noise_amp * rng.randn(n)
+    return (gain * wav / np.abs(wav).max()).astype(np.float32)
+
+
+def write_voice_dir(root: str, n_utts: int, seconds: Tuple[float, float],
+                    seed: int = 0, interval: bool = True, mode: str = "prosody",
+                    sampling_rate: int = 16000) -> None:
+    """Write a raw voice directory, the input of ``bin/process_data.py``:
+    ``wav/`` of ``n_utts`` utterances, each of a length drawn from the
+    range ``seconds``, and their text. Each utterance is a sentence of 1-3
+    syllable words from ``SYLLABLES`` with random tones and breaks (#1 to
+    #3); its audio holds near-silent edges of 0.1-0.3 s, a noise burst for
+    each initial, a harmonic final on its tone's f0 contour around a base
+    of 100-240 Hz, pauses at some #2/#3 breaks, a noise floor, and a peak
+    drawn log-uniformly from [0.05, 0.9] so that the corpus spreads in
+    loudness. ``mode``:
+
+    - ``"prosody"``: ``prosody/prosody.txt``, a text line with its breaks
+      and a tone-numbered pinyin line per utterance;
+    - ``"fp"``: the same with one or two filled pauses (``FILLER_SYLLABLES``)
+      per utterance, and the FP annotation block after each text line: the
+      FP/N label of each syllable, two annotation lines that the parsers
+      skip, then the pinyin line;
+    - ``"byte"``: ``text/text.txt``, the hanzi sentence with a comma at
+      pauses and a full stop at its end (a byte voice has no phones, so it
+      takes no ``interval``).
+
+    ``interval`` writes ``interval/<utt>.interval``, TextGrid-style frame
+    aligned intervals in the format of ``parse_interval_file``: ``sil`` at
+    both edges, ``sp`` at the pauses, and each phone symbol of the metafile
+    but the zero-initial onsets ``ZERO_ONSETS``, which calibration gives no
+    frames."""
+    from kantts_tpu_torch.text.lang_symbols import load_language_resource
+
+    if mode not in ("prosody", "fp", "byte"):
+        raise ValueError(f"mode must be prosody, fp or byte, got {mode}")
+    if mode == "byte" and interval:
+        raise ValueError("a byte voice has no phone intervals: pass interval=False")
+    sy2ph = load_language_resource("PinYin")["sy2ph"]
+    hop = AUDIO[sampling_rate]["hop_length"]
+    rng = np.random.RandomState(seed)
+    subs = ["wav", "text" if mode == "byte" else "prosody"] + (
+        ["interval"] if interval else [])
+    for sub in subs:
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    lines = []
+    for i in range(n_utts):
+        utt = f"utt{i:04d}"
+        edges = [rng.randint(8, 25), rng.randint(8, 25)]
+        target = int(rng.uniform(*seconds) * sampling_rate / hop) - sum(edges)
+        words, frames = [], 0
+        while frames < target or not words:
+            chars = [SYLLABLES[k] for k in rng.randint(0, len(SYLLABLES),
+                                                       rng.randint(1, 4))]
+            pinyins = [f"{py}{rng.randint(1, 5)}" for _, py in chars]
+            segs = _word_segments(rng, pinyins, sy2ph)
+            words.append(["".join(c for c, _ in chars), pinyins, segs, False])
+            frames += sum(n for _, n, _ in segs)
+        if mode == "fp":
+            for _ in range(1 + rng.randint(2)):
+                char, py = FILLER_SYLLABLES[rng.randint(len(FILLER_SYLLABLES))]
+                pinyins = [f"{py}{rng.randint(1, 5)}"]
+                words.insert(rng.randint(len(words) + 1),
+                             [char, pinyins, _word_segments(rng, pinyins, sy2ph), True])
+        segs, text, bytes_text = [("sil", edges[0], None)], "", ""
+        for w, (chars, _, word_segs, _) in enumerate(words):
+            segs += word_segs
+            text += chars
+            bytes_text += chars
+            if w == len(words) - 1:
+                break
+            level = (1, 1, 1, 2, 3)[rng.randint(5)]
+            text += f"#{level}"
+            if level > 1 and rng.rand() < 0.7:
+                segs.append(("sp", rng.randint(8, 21), None))
+                bytes_text += "，"
+        segs.append(("sil", edges[1], None))
+        wav = _voice_wav(rng, segs, sampling_rate, hop, rng.uniform(100, 240),
+                         float(np.exp(rng.uniform(np.log(0.05), np.log(0.9)))))
+        save_wav(wav, os.path.join(root, "wav", f"{utt}.wav"), sampling_rate)
+        if interval:
+            with open(os.path.join(root, "interval", f"{utt}.interval"), "w") as f:
+                f.write(_interval_text(segs, hop / sampling_rate))
+        pinyin_line = "\t" + " ".join(py for _, pys, _, _ in words for py in pys)
+        if mode == "byte":
+            lines.append(f"{utt}\t{bytes_text}。")
+        elif mode == "fp":
+            labels = " ".join(("FP" if fp else "N") for _, pys, _, fp in words
+                              for _ in pys)
+            lines += [f"{utt}\t{text}", labels, labels.replace("FP", "N"),
+                      labels.replace("FP", "N"), pinyin_line]
+        else:
+            lines += [f"{utt}\t{text}", pinyin_line]
+    path = (os.path.join(root, "text", "text.txt") if mode == "byte"
+            else os.path.join(root, "prosody", "prosody.txt"))
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+# the widths of KAN-TTS's D-TDNN speaker embedder at its defaults
+DTDNN_WIDTHS = {"n_mels": 80, "head": 32, "tdnn": 128, "growth": 32,
+                "bottleneck": 128, "se_reduction": 2, "embedding": 192}
+
+
+def dtdnn_state_dict(seed: int = 0, widths=None) -> dict:
+    """A seeded D-TDNN state dict with the keys of KAN-TTS's ``se.model``
+    (``preprocess/se_processor.py::DTDNN`` reads its widths from the
+    shapes): ``widths`` updates ``DTDNN_WIDTHS``. Convolutions are He-scaled
+    normals (a quarter of that in the SE gates, whose input is a sum of a
+    mean and a maximum, so that the gates do not saturate); BatchNorm
+    running means lie in [-0.5, 0.5] and variances in
+    [0.5, 2], affine scales in [0.5, 1.5] and shifts in [-0.2, 0.2], so no
+    layer is an identity; every BatchNorm carries ``num_batches_tracked``,
+    as a trained checkpoint does."""
+    import torch
+
+    w = dict(DTDNN_WIDTHS, **(widths or {}))
+    rng = np.random.RandomState(seed)
+    sd = {}
+
+    def conv(prefix, c_out, c_in, *kernel, bias=False, gain=1.0):
+        fan_in = c_in * int(np.prod(kernel))
+        sd[f"{prefix}.weight"] = rng.randn(c_out, c_in, *kernel) * (
+            gain * np.sqrt(2.0 / fan_in))
+        if bias:
+            sd[f"{prefix}.bias"] = 0.1 * rng.randn(c_out)
+
+    def bn(prefix, c, affine=True):
+        if affine:
+            sd[f"{prefix}.weight"] = rng.uniform(0.5, 1.5, c)
+            sd[f"{prefix}.bias"] = rng.uniform(-0.2, 0.2, c)
+        sd[f"{prefix}.running_mean"] = rng.uniform(-0.5, 0.5, c)
+        sd[f"{prefix}.running_var"] = rng.uniform(0.5, 2.0, c)
+        sd[f"{prefix}.num_batches_tracked"] = np.array(1000)
+
+    c = w["head"]
+    conv("head.conv1", c, 1, 3, 3)
+    bn("head.bn1", c)
+    for layer in ("layer1", "layer2"):
+        for i in range(2):
+            p = f"head.{layer}.{i}"
+            conv(f"{p}.conv1", c, c, 3, 3)
+            bn(f"{p}.bn1", c)
+            conv(f"{p}.conv2", c, c, 3, 3)
+            bn(f"{p}.bn2", c)
+            if i == 0:  # the stride-2 block
+                conv(f"{p}.shortcut.0", c, c, 1, 1)
+                bn(f"{p}.shortcut.1", c)
+    conv("head.conv2", c, c, 3, 3)
+    bn("head.bn2", c)
+    freq = w["n_mels"]
+    for _ in range(3):  # three stride-2 (pad 1, kernel 3) convs over frequency
+        freq = (freq - 1) // 2 + 1
+    conv("xvector.tdnn.linear", w["tdnn"], c * freq, 5)
+    bn("xvector.tdnn.nonlinear.batchnorm", w["tdnn"])
+    width, bottleneck = w["tdnn"], w["bottleneck"]
+    hidden = bottleneck // w["se_reduction"]
+    for bi, n_layers in enumerate((12, 24, 16), start=1):
+        for li in range(1, n_layers + 1):
+            p = f"xvector.block{bi}.tdnnd{li}"
+            bn(f"{p}.nonlinear1.batchnorm", width)
+            conv(f"{p}.linear1", bottleneck, width, 1)
+            bn(f"{p}.nonlinear2.batchnorm", bottleneck)
+            conv(f"{p}.se.linear_stem", w["growth"], bottleneck, 3)
+            conv(f"{p}.se.linear1", hidden, bottleneck, 1, bias=True, gain=0.25)
+            conv(f"{p}.se.linear2", w["growth"], hidden, 1, bias=True, gain=0.25)
+            width += w["growth"]
+        bn(f"xvector.transit{bi}.nonlinear.batchnorm", width)
+        conv(f"xvector.transit{bi}.linear", width // 2, width, 1)
+        width //= 2
+    bn("bn", width)
+    conv("xvector.dense.linear", w["embedding"], 2 * width, 1)
+    bn("xvector.dense.nonlinear.batchnorm", w["embedding"], affine=False)
+    return {k: torch.from_numpy(np.asarray(v, dtype=np.int64 if k.endswith(
+        "num_batches_tracked") else np.float32)) for k, v in sd.items()}

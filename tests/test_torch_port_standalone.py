@@ -7,21 +7,28 @@ identically.
 """
 
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 import yaml
 
 from kantts_tpu import data as jdata
+from kantts_tpu.data import data_types as j_types
+from kantts_tpu.preprocess import audio_utils as j_au
+from kantts_tpu.preprocess import se_processor as j_se
 from kantts_tpu.preprocess import script_convertor as j_script
 from kantts_tpu.text import lexicon_frontend as j_lexicon
 from kantts_tpu.text import pinyin_frontend as j_pinyin
 from kantts_tpu.text.ling_unit import KanTtsLinguisticUnit as JLingUnit
 from kantts_tpu.text.ling_unit import get_fpdict as j_get_fpdict
 from kantts_tpu.utils import config as jconfig
+from kantts_tpu.utils import metrics as j_metrics
 from kantts_tpu.utils import torch_convert as jconvert
 from kantts_tpu_torch.bin.train_hifigan import VocLoader
 from kantts_tpu_torch.configs import get_config
+from kantts_tpu_torch.data import data_types as t_types
 from kantts_tpu_torch.data import dataset as tdata
 from kantts_tpu_torch.models.builder import (
     build_sambert,
@@ -34,14 +41,22 @@ from kantts_tpu_torch.models.hifigan.discriminators import (
     MultiPeriodDiscriminator,
     MultiScaleDiscriminator,
 )
+from kantts_tpu_torch.preprocess import audio_utils as t_au
 from kantts_tpu_torch.preprocess import script_convertor as t_script
+from kantts_tpu_torch.preprocess import se_processor as t_se
 from kantts_tpu_torch.text import lexicon_frontend as t_lexicon
 from kantts_tpu_torch.text import pinyin_frontend as t_pinyin
 from kantts_tpu_torch.text.ling_unit import KanTtsLinguisticUnit, get_fpdict
 from kantts_tpu_torch.utils import config as tconfig
 from kantts_tpu_torch.utils import convert as tconvert
+from kantts_tpu_torch.utils import metrics as t_metrics
 from kantts_tpu_torch.utils import torch_convert as tconvert_fwd
-from kantts_tpu_torch.utils.corpus import write_mas_corpus, write_voc_corpus
+from kantts_tpu_torch.utils.audio import save_wav
+from kantts_tpu_torch.utils.corpus import (
+    write_mas_corpus,
+    write_voc_corpus,
+    write_voice_dir,
+)
 from test_sambert import TINY
 from test_torch_port_hifigan import small_generator_cfg
 
@@ -125,7 +140,8 @@ def test_load_merged_config(name, tmp_path):
                                   "sambert_16k_MAS_byte",
                                   "sambert_se_nsf_global_16k", "audio_config_24k",
                                   "sambert_fp_8k", "sybert", "hifigan_v1_8k",
-                                  "audio_config_8k"])
+                                  "audio_config_8k", "audio_config_16k",
+                                  "audio_config_se_16k"])
 def test_config_copies_equal_the_originals(name):
     """The port's copies of the YAML configs that chip_smoke.py reads."""
     copy = os.path.join(ROOT, "kantts_tpu_torch", "resources", "configs", f"{name}.yaml")
@@ -312,3 +328,152 @@ def test_convert_discriminators_round_trip():
     tree = jconvert.convert_msd(sd, scales, n_msd, msd.dwt)
     _trees_equal(tconvert_fwd.convert_msd(sd, scales, n_msd, msd.dwt), tree)
     _round_trip(sd, tconvert.msd_state_dict_from_jax(tree, MSD_CFG))
+
+
+def test_pitch_source_is_a_byte_copy():
+    with open(os.path.join(ROOT, "kantts_tpu_torch", "native", "pitch.cpp"), "rb") as f, \
+            open(os.path.join(ROOT, "kantts_tpu", "native", "pitch.cpp"), "rb") as g:
+        assert f.read() == g.read()
+
+
+def _equal(got, want):
+    if isinstance(want, (tuple, list)):
+        assert type(got) is type(want) and len(got) == len(want)
+        for a, b in zip(got, want):
+            _equal(a, b)
+    elif isinstance(want, np.ndarray):
+        assert isinstance(got, np.ndarray) and got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert got == want
+
+
+def _interval_file(tmp_path):
+    write_voice_dir(str(tmp_path / "voice"), 1, (2.0, 2.5), seed=3)
+    return str(tmp_path / "voice" / "interval" / "utt0000.interval")
+
+
+AUDIO_UTILS_CASES = {
+    "trim_silence": lambda mod, rng, tmp: mod.trim_silence(
+        np.concatenate([np.zeros(3000), 0.4 * rng.randn(9000), 1e-4 * rng.randn(2500)]
+                       ).astype(np.float32), 40, 200, 1000),
+    "trim_silence_with_interval": lambda mod, rng, tmp: [mod.trim_silence_with_interval(
+        rng.randn(4000).astype(np.float32), d, 200) for d in
+        (np.array([3, 5, 2]), np.array([0, 5, 0]), None)],
+    "interp_f0": lambda mod, rng, tmp: mod.interp_f0(
+        np.where(rng.rand(50) < 0.3, 0.0, rng.uniform(80, 300, 50)).astype(np.float32)),
+    "smooth": lambda mod, rng, tmp: [mod.smooth(rng.randn(40), w) for w in (4, 5)],
+    "align_length": lambda mod, rng, tmp: [mod.align_length(
+        rng.randn(n, 1), np.zeros((100, 80)), "u") for n in (90, 100, 113, 121)],
+    "compute_mean_std": lambda mod, rng, tmp: mod.compute_mean_std(
+        [rng.randn(30, 4), None, rng.randn(7, 4) + 2], dims=4),
+    "norm_mean_std": lambda mod, rng, tmp: [
+        mod.f0_norm_mean_std(np.where(rng.rand(20, 1) < 0.3, 0.0, rng.randn(20, 1)),
+                             np.array([[0.5]]), np.array([[2.0]])),
+        mod.norm_mean_std(rng.randn(6, 3), rng.randn(1, 3), rng.rand(1, 3) + 0.5)],
+    "parse_interval_file": lambda mod, rng, tmp: mod.parse_interval_file(
+        _interval_file(tmp), 16000, 200),
+    "average_by_duration": lambda mod, rng, tmp: [mod.average_by_duration(
+        np.where(rng.rand(30) < 0.2, 0.0, rng.randn(30)), np.array([4, 0, 10, 16])),
+        mod.average_by_duration(None, np.array([1]))],
+    "encode_16bits": lambda mod, rng, tmp: [mod.encode_16bits(
+        (0.5 * rng.randn(100)).clip(-0.99, 0.99)), mod.encode_16bits(rng.randn(5) * 3)],
+}
+
+
+@pytest.mark.parametrize("case", sorted(AUDIO_UTILS_CASES))
+def test_audio_utils_copy_is_exact(case, tmp_path):
+    results = [AUDIO_UTILS_CASES[case](mod, np.random.RandomState(11), tmp_path)
+               for mod in (t_au, j_au)]
+    _equal(*results)
+
+
+def test_volume_normalize_copy_is_exact(tmp_path):
+    """The corpus RMS histogram matched to the anchor table: the same int16
+    samples, and the same amplitude statistics."""
+    rng = np.random.RandomState(12)
+    src = tmp_path / "src"
+    src.mkdir()
+    for i in range(7):
+        save_wav(np.exp(rng.uniform(-3, -0.5)) * np.sin(np.arange(8000) * 0.05 * (i + 1)),
+                 str(src / f"u{i}.wav"), 16000)
+    for mod, out in ((t_au, "port"), (j_au, "jax")):
+        assert mod.volume_normalize(str(src), str(tmp_path / out), 2)
+    for i in range(7):
+        infos = [mod.amp_info(str(tmp_path / out / f"u{i}.wav"))
+                 for mod, out in ((t_au, "port"), (j_au, "jax"))]
+        assert infos[0] == infos[1]
+        with open(tmp_path / "port" / f"u{i}.wav", "rb") as f, \
+                open(tmp_path / "jax" / f"u{i}.wav", "rb") as g:
+            assert f.read() == g.read()
+
+
+def test_data_types_copy_is_exact(tmp_path):
+    rng = np.random.RandomState(13)
+    (tmp_path / "a.txt").write_text("x y\nz\n", encoding="utf-8")
+    save_wav(0.3 * rng.randn(500), str(tmp_path / "a.wav"), 16000)
+    np.save(tmp_path / "a.npy", rng.randn(3, 4))
+    rng.randn(9).astype(np.float32).tofile(tmp_path / "a.bin")
+    assert sorted(t_types.DATA_TYPE_DICT) == sorted(j_types.DATA_TYPE_DICT)
+    for ext in t_types.DATA_TYPE_DICT:
+        path = str(tmp_path / f"a.{ext}")
+        _equal(t_types.get_loader(ext)(path), j_types.get_loader(ext)(path))
+    for mod in (t_types, j_types):
+        with pytest.raises(KeyError, match="no loader registered for .flac"):
+            mod.get_loader("flac")
+
+
+def test_metrics_numpy_copy_is_exact():
+    rng = np.random.RandomState(14)
+    a, b = rng.randn(23, 80), rng.randn(31, 80)
+    _equal(t_metrics.mel_cepstrum(a, 13), j_metrics.mel_cepstrum(a, 13))
+    cost = rng.rand(9, 12)
+    _equal(t_metrics.dtw_path(cost), j_metrics.dtw_path(cost))
+    for dtw in (True, False):
+        assert (t_metrics.mel_cepstral_distortion(a, b, 10, dtw)
+                == j_metrics.mel_cepstral_distortion(a, b, 10, dtw))
+
+
+@pytest.mark.parametrize("sr,bins,n", [(16000, 80, 4000), (8000, 40, 1234),
+                                       (16000, 80, 300)])
+def test_kaldi_fbank_copy_is_exact(sr, bins, n):
+    wav = (0.3 * np.random.RandomState(n).randn(n)).astype(np.float32)
+    _equal(t_se.kaldi_fbank(wav, sr, bins), j_se.kaldi_fbank(wav, sr, bins))
+
+
+@pytest.mark.parametrize("voice", ["erhua", "fp", "prosody"])
+def test_text_script_convertor(voice, tmp_path):
+    """Script.xml and the metafile from a prosody file: lines with erhua,
+    a neutral tone and '/' word groups, a voice with FP annotation blocks,
+    and a plain synthetic voice."""
+    prosody = tmp_path / "prosody.txt"
+    if voice == "erhua":
+        prosody.write_text("utt001\t这儿#2你好#4\n\tzher4 ni3 hao3\n"
+                           "utt002\t这是#1测试#3句子\n\tzhe4 shi4 / ce4 shi4 / jv4 zi5\n",
+                           encoding="utf-8")
+    else:
+        write_voice_dir(str(tmp_path / "voice"), 4, (2.0, 3.0), seed=15, mode=voice)
+        prosody = tmp_path / "voice" / "prosody" / "prosody.txt"
+    outs = []
+    for side, mod in (("port", t_script), ("jax", j_script)):
+        tsc = mod.TextScriptConvertor("PinYin", "EnUS", None, "F7")
+        xml, meta = tmp_path / f"{side}.xml", tmp_path / f"{side}.txt"
+        tsc.process(str(prosody), str(xml), str(meta))
+        outs.append((xml.read_bytes(), meta.read_text(encoding="utf-8")))
+    assert outs[0] == outs[1]
+    assert len(outs[0][1].splitlines()) == (2 if voice == "erhua" else 4)
+
+
+def test_new_modules_import_without_jax():
+    """The preprocessing modules import with JAX and the JAX package made
+    unimportable."""
+    code = ("import sys\n"
+            "for name in ('jax', 'flax', 'optax', 'kantts_tpu'):\n"
+            "    sys.modules[name] = None\n"
+            "import kantts_tpu_torch.bin.process_data, kantts_tpu_torch.data.data_types\n"
+            "import kantts_tpu_torch.dsp.griffin_lim, kantts_tpu_torch.native.pitch\n"
+            "import kantts_tpu_torch.preprocess.se_processor\n"
+            "import kantts_tpu_torch.utils.metrics\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
