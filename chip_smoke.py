@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --k1-before OLD/mas.cu   # K1 before/after only
+    python3 chip_smoke.py --ddp-worker RANK PORT OUT   # one rank of phase 13 (b)
 
 Builds kernel K1 (the MAS Viterbi, kantts_tpu_torch/csrc/mas.cu) from the
 checkout and drives the port at the full width of sambert_16k_MAS and
@@ -124,6 +125,22 @@ hifigan_v1_16k, with weights made from a seed:
      (b)'s am_train.lst, K1 in each) and ``train_hifigan`` (hifigan_v1_16k,
      4 steps at 16 x 9600) on (b)'s output. K1 launches in (e)'s acoustic
      training only.
+ 13. data parallelism: (a) ``train_sambert`` for 8 steps at B=32 on phase
+     4's corpus, three runs side by side: twice plain and once under
+     ``python -m torch.distributed.run --standalone --nproc_per_node 1``
+     (NCCL, world size 1), the torchrun run's parameters within twice the
+     plain runs' gap (on them when that is 0); (b) two ranks on cuda:0
+     over gloo with CUDA tensors (``--ddp-worker`` processes): a full-width
+     MAS step on 16 of 32 ragged items each, padded to the lengths the
+     ranks agree on, and a hifigan_v1_16k GAN step on 8 of 16 x 9600 each,
+     the ranks' states bit-equal after, and rank 0 holding each against the
+     one-process step on the global batch (metrics 1e-4, gradients 1e-5 of
+     their norm, parameters atol 2e-5 / rtol 1e-4 but for entries whose
+     gradient is within that rule of zero, which Adam's first step may move
+     by ~lr: reported); (c) this process at world size 1 on NCCL: the AM
+     step at 32 x 96 x 576 and the GAN step at 16 x 9600 beside the plain
+     steps, in turns, with the collectives' ms a step, the gradient bytes
+     and the host syncs. K1 launches in (b) and (c).
 
 Each phase prints lines of its own and raises on failure. Before the last
 line it prints a JSON object on the kernels; the last line is
@@ -3195,7 +3212,451 @@ def phase_k1_before(src: str) -> list:
     return rows
 
 
+# ---------------------------------------------------------- phase 13: ddp
+
+DDP_KEYS = dict(train_max_steps=8, save_interval_steps=8, eval_interval_steps=8,
+                log_interval_steps=4)
+DDP_AM = (32, 96, 576)  # the global MAS batch of (b) and (c): B, T_in, T_mel
+DDP_TIMED = 6  # timed steps in each of (c)'s four blocks
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def torchrun_env(rank: int, world: int, port: int, local_rank: int) -> dict:
+    return dict(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(local_rank),
+                MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+
+
+def state_gap(a: dict, b: dict) -> float:
+    """Largest |a - b| over the floating tensors of two nested state dicts."""
+    import torch
+
+    gap = 0.0
+    for k, v in a.items():
+        if isinstance(v, dict):
+            gap = max(gap, state_gap(v, b[k]))
+        elif torch.is_tensor(v) and v.is_floating_point():
+            gap = max(gap, float((v - b[k]).abs().max()))
+        elif torch.is_tensor(v) and not torch.equal(v, b[k]):
+            raise AssertionError(f"{k} differs")
+    return gap
+
+
+def ddp_cli(tmp: str) -> dict:
+    """(a) train_sambert for 8 steps at B=32 on phase 4's corpus, three runs
+    side by side on the card: twice plain and once under torchrun (NCCL,
+    world size 1); the step-8 checkpoints of the plain runs against each
+    other give the card's own gap, and the torchrun run must lie within
+    twice it of the first (exactly on it when the gap is 0)."""
+    import torch
+
+    data = os.path.join(tmp, "corpus")
+    steps = DDP_KEYS["train_max_steps"]
+    procs = {}
+    t0 = time.perf_counter()
+    for name, launcher in (("plain_1", []), ("plain_2", []),
+                           ("torchrun", ["-m", "torch.distributed.run", "--standalone",
+                                         "--nproc_per_node", "1"])):
+        stage = os.path.join(tmp, f"ddp_cli_{name}")
+        cfg = train_config(os.path.join(stage, "model.yaml"), **DDP_KEYS)
+        procs[name] = (stage, subprocess.Popen(
+            [sys.executable, *launcher, "-m", "kantts_tpu_torch.bin.train_sambert",
+             "--model_config", cfg, "--root_dir", data, "--stage_dir", stage],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    runs = {}
+    try:
+        for name, (stage, proc) in procs.items():
+            out = proc.communicate(timeout=300)[0]
+            if proc.returncode != 0 or not os.path.exists(ckpt_path(stage, steps)):
+                raise RuntimeError(f"{name} train_sambert exited {proc.returncode}:\n"
+                                   f"{out[-4000:]}")
+            with open(os.path.join(stage, "stdout.log")) as f:
+                group = [ln.split("] ", 1)[1].strip() for ln in f if "data parallel:" in ln]
+            runs[name] = dict(seconds=round(time.perf_counter() - t0, 3), group=group,
+                              model=torch.load(ckpt_path(stage, steps), map_location="cpu",
+                                               weights_only=True)["model"])
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if runs["torchrun"]["group"] != ["data parallel: rank 0 of 1 over nccl"]:
+        raise AssertionError(f"torchrun run's group: {runs['torchrun']['group']}")
+    plain_gap = state_gap(runs["plain_1"]["model"], runs["plain_2"]["model"])
+    ddp_gap = state_gap(runs["torchrun"]["model"], runs["plain_1"]["model"])
+    log("ddp_cli", steps=DDP_KEYS["train_max_steps"], batch=32,
+        seconds=json.dumps({k: r["seconds"] for k, r in runs.items()}).replace(" ", ""),
+        plain_vs_plain_max_abs=plain_gap, torchrun_vs_plain_max_abs=ddp_gap,
+        rule="torchrun <= 2 x plain (0 when plain is 0)")
+    if not (ddp_gap <= 2.0 * plain_gap):
+        raise AssertionError(f"torchrun run {ddp_gap} from plain, plain runs {plain_gap}")
+    return {"plain_gap": plain_gap, "ddp_gap": ddp_gap}
+
+
+def ddp_am_items(B: int, T_in: int, T_mel: int, seed: int = 0) -> list:
+    """B MAS items of ragged lengths (the first at T_in x T_mel), as the AM
+    dataset gives them to ``padded_batch``."""
+    from kantts_tpu_torch.models.builder import sambert_params
+
+    import yaml
+
+    with open(os.path.join(CONFIGS, "sambert_16k_MAS.yaml")) as f:
+        unit = sambert_params(yaml.safe_load(f))
+    rng = np.random.RandomState(seed)
+    items = []
+    for b in range(B):
+        n = T_in if b == 0 else int(rng.randint(T_in // 2, T_in))
+        m = T_mel if b == 0 else int(rng.randint(T_mel // 6, T_mel // 3 + 1)) * 3
+        prior = np.abs(rng.randn(m, n)).astype(np.float32) + 0.1
+        items.append(dict(
+            ling=np.stack([rng.randint(1, unit[k], n) for k in
+                           ("sy", "tone", "syllable_flag", "word_segment")], -1),
+            emo=rng.randint(1, unit["emotion"], n), spk=rng.randint(1, unit["speaker"], n),
+            mel=rng.randn(m, 80).astype(np.float32),
+            pitch=np.abs(rng.randn(m)).astype(np.float32),
+            energy=np.abs(rng.randn(m)).astype(np.float32),
+            prior=prior / prior.sum(-1, keepdims=True)))
+    return items
+
+
+def padded_batch(items: list, lengths) -> dict:
+    """A MAS batch of ``items``, zero-padded to ``lengths`` (T_in, T_mel), on
+    the card."""
+    import torch
+
+    T_in, T_mel = lengths
+
+    def pad(arrays, length):
+        return np.stack([np.pad(a, [(0, length - len(a))] + [(0, 0)] * (a.ndim - 1))
+                         for a in arrays])
+
+    arrays = dict(
+        input_lings=pad([it["ling"] for it in items], T_in),
+        input_emotions=pad([it["emo"] for it in items], T_in),
+        input_speakers=pad([it["spk"] for it in items], T_in),
+        valid_input_lengths=np.array([len(it["emo"]) for it in items]),
+        valid_output_lengths=np.array([len(it["mel"]) for it in items]),
+        mel_targets=pad([it["mel"] for it in items], T_mel),
+        pitch_contours=pad([it["pitch"] for it in items], T_mel),
+        energy_contours=pad([it["energy"] for it in items], T_mel),
+        attn_priors=np.stack([np.pad(it["prior"], ((0, T_mel - len(it["prior"])),
+                                                   (0, T_in - it["prior"].shape[1])))
+                              for it in items]))
+    return {k: torch.from_numpy(v).cuda() for k, v in arrays.items()}
+
+
+def am_lengths(items) -> tuple:
+    return (max(len(it["emo"]) for it in items),
+            -(-max(len(it["mel"]) for it in items) // 3) * 3)
+
+
+def ddp_gan_batch(B: int, T: int, seed: int = 1):
+    """B tone crops of T samples and random mels of T / 200 frames."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    t = np.arange(T) / 16000.0
+    f0 = rng.uniform(100, 300, (B, 1))
+    wav = (0.5 * np.sin(2 * np.pi * f0 * t) + 0.01 * rng.randn(B, T)).astype(np.float32)
+    mel = rng.randn(B, T // HOP, 80).astype(np.float32)
+    return torch.from_numpy(wav[..., None]).cuda(), torch.from_numpy(mel).cuda()
+
+
+def ddp_models(kind: str, data_parallel, timer=None):
+    """The seeded full-width model(s) of ``kind`` ("am": sambert_16k_MAS,
+    "gan": hifigan_v1_16k) with dropout off, and their train step. ->
+    (step, modules)."""
+    import torch
+    import yaml
+
+    from kantts_tpu_torch.losses import criterion_builder
+    from kantts_tpu_torch.models.builder import hifigan_gan_builder, sambert_model_builder
+    from kantts_tpu_torch.train.steps import make_gan_step, make_sambert_step
+
+    cuda = torch.device("cuda")
+    name = "sambert_16k_MAS" if kind == "am" else "hifigan_v1_16k"
+    with open(os.path.join(CONFIGS, f"{name}.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    if kind == "am":
+        built = sambert_model_builder(cfg, 0, cuda)
+        modules = [built["model"]]
+        step = make_sambert_step(built["model"], criterion_builder(cfg),
+                                 built["optimizer"], built["scheduler"], built["clip"],
+                                 True, data_parallel=data_parallel, timer=timer)
+    else:
+        b = hifigan_gan_builder(cfg, 0, cuda)
+        modules = [b["generator"], *b["discriminators"].values()]
+        step = make_gan_step(b["generator"], b["discriminators"], criterion_builder(cfg),
+                             b["gen_optimizer"], b["gen_scheduler"],
+                             b["disc_optimizers"], b["disc_schedulers"], b["gen_clip"],
+                             b["disc_clips"], data_parallel=data_parallel, timer=timer)
+    for m in modules:
+        for sub in m.modules():
+            if isinstance(sub, torch.nn.Dropout):
+                sub.p = 0.0
+    return step, modules
+
+
+def snapshot(modules) -> tuple:
+    """-> (every parameter and buffer, every gradient) of ``modules``, cloned."""
+    state, grads = {}, {}
+    for i, m in enumerate(modules):
+        state.update({f"{i}.{k}": v.detach().clone() for k, v in m.state_dict().items()})
+        grads.update({f"{i}.{k}": p.grad.detach().clone()
+                      for k, p in m.named_parameters() if p.grad is not None})
+    return state, grads
+
+
+def compare_steps(name: str, got: tuple, want: tuple) -> dict:
+    """A data-parallel step (metrics, state, grads) against the one-process
+    step on the global batch, by the CPU test's rule: metrics within 1e-4
+    (relative above 1); gradients within 1e-5 of their global norm;
+    parameters and buffers atol 2e-5 / rtol 1e-4. Adam's first step makes
+    an update of about lr * g / (|g| + eps) of each gradient entry g, so an
+    entry near zero (within the gradient rule's 1e-5 of the norm, where that
+    rule fixes neither its sign nor its size against eps) can move by up to
+    about 2 lr between two sums of the same gradient. Such entries outside
+    the tolerance are reported, each with its two gradients; any other entry
+    outside it fails."""
+    import torch
+
+    (m_got, s_got, g_got), (m_want, s_want, g_want) = got, want
+    worst_metric = max(abs(float(m_got[k]) - float(v)) / max(1.0, abs(float(v)))
+                       for k, v in m_want.items())
+    norm = float(torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g) for g in g_want.values()])))
+    worst_grad = max(float((g_got[k] - g).abs().max()) for k, g in g_want.items())
+    near_zero, bad = [], []
+    for k, v in s_want.items():
+        if not v.is_floating_point():
+            if not torch.equal(s_got[k], v):
+                bad.append(k)
+            continue
+        off = ~torch.isclose(s_got[k], v, rtol=1e-4, atol=2e-5)
+        if not off.any():
+            continue
+        g = g_want.get(k)
+        small = (off & (g.abs() <= 1e-5 * norm)) if g is not None else torch.zeros_like(off)
+        for i in small.nonzero()[:4].tolist():
+            i = tuple(i)
+            near_zero.append(f"{k}{list(i)}:g={float(g_got[k][i]):.3g}/{float(g[i]):.3g},"
+                             f"dp={float(s_got[k][i] - v[i]):.3g}")
+        if (off & ~small).any():
+            bad.append(k)
+    result = dict(max_metric_err=worst_metric, max_grad_err=worst_grad,
+                  grad_norm=norm, grad_err_over_norm=worst_grad / norm,
+                  params_off=len(bad), adam_near_zero=len(near_zero))
+    log(name, **{k: (round(v, 9) if isinstance(v, float) else v)
+                 for k, v in result.items()}, adam_near_zero_entries=";".join(near_zero))
+    if worst_metric > 1e-4 or worst_grad > 1e-5 * norm or bad:
+        raise AssertionError(f"{name}: {result}, off: {bad[:8]}")
+    return dict(result, adam_near_zero_entries=near_zero)
+
+
+def state_checksum(modules) -> list:
+    """Per tensor, the sum of its bits read as int32 words and its float64
+    sum: equal lists mean bit-equal tensors, but for a collision."""
+    import torch
+
+    out = []
+    for m in modules:
+        for v in m.state_dict().values():
+            flat = v.detach().contiguous().reshape(-1)
+            words = flat.view(torch.int32) if flat.element_size() == 4 else flat.long()
+            out.append((int(words.long().sum()), float(flat.double().sum())))
+    return out
+
+
+def ddp_worker(rank: int, port: int, out: str) -> int:
+    """(b) one of two ranks on cuda:0 over gloo with CUDA tensors: a
+    full-width MAS step on its 16 of the 32 items (padded to the lengths the
+    ranks agree on) and a hifigan_v1_16k GAN step on its 8 of 16 crops, the
+    ranks' states checked bit-equal; rank 0 then runs each step on the
+    global batch in one process and compares."""
+    import torch
+    import torch.distributed as dist
+
+    from kantts_tpu_torch.ops.mas import b_mas_cuda
+    from kantts_tpu_torch.parallel import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(torchrun_env(rank, 2, port, 0))
+    mesh.distributed_init("cuda", backend="gloo")
+    results = {}
+    b_mas_cuda.launches = 0
+    items = ddp_am_items(*DDP_AM)
+    half = DDP_AM[0] // 2
+    mine = items[rank * half:(rank + 1) * half]
+    agreed = mesh.lengths_max()(am_lengths(mine))
+    wav, mel = ddp_gan_batch(*GAN_SHAPE)
+    gan_half = GAN_SHAPE[0] // 2
+    for kind, args, global_args in (
+            ("am", (padded_batch(mine, agreed), 0), (padded_batch(items, agreed), 0)),
+            ("gan", (wav[rank * gan_half:(rank + 1) * gan_half],
+                     mel[rank * gan_half:(rank + 1) * gan_half]), (wav, mel))):
+        step, modules = ddp_models(kind, None)
+        mesh.replicate(modules)
+        metrics = step(*args)
+        torch.cuda.synchronize()
+        sums = [None, None]
+        dist.all_gather_object(sums, state_checksum(modules))
+        if sums[0] != sums[1]:
+            raise AssertionError(f"{kind}: the ranks' states differ after the step")
+        if rank == 0:
+            got = ({k: v.item() for k, v in metrics.items()}, *snapshot(modules))
+            del step, modules
+            ref_step, ref_modules = ddp_models(kind, False)
+            ref_metrics = ref_step(*global_args)
+            want = ({k: v.item() for k, v in ref_metrics.items()}, *snapshot(ref_modules))
+            results[kind] = compare_steps(f"ddp_two_ranks_{kind}", got, want)
+            del ref_step, ref_modules, got, want
+        torch.cuda.empty_cache()
+    results["k1_launches"] = b_mas_cuda.launches
+    with open(os.path.join(out, f"ddp_rank{rank}.json"), "w") as f:
+        json.dump(results, f)
+    mesh.destroy()
+    return 0
+
+
+def ddp_two_ranks(tmp: str) -> dict:
+    """(b): two ``ddp_worker`` processes. -> rank 0's results and the K1
+    launches of both."""
+    out = os.path.join(tmp, "ddp_two_ranks")
+    os.makedirs(out, exist_ok=True)
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ddp-worker",
+                               str(rank), str(port), out], cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for rank in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=240)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, text) in enumerate(zip(procs, logs)):
+        print(text, end="", flush=True)
+        if p.returncode != 0:
+            raise RuntimeError(f"ddp worker {rank} exited {p.returncode}")
+    res = [json.load(open(os.path.join(out, f"ddp_rank{r}.json"))) for r in range(2)]
+    log("ddp_two_ranks", seconds=round(time.perf_counter() - t0, 3),
+        k1_launches=[r["k1_launches"] for r in res])
+    return dict(res[0], k1_launches=sum(r["k1_launches"] for r in res))
+
+
+def timed_blocks(steps: dict, args, n: int) -> dict:
+    """Each step in turns a, b, b, a (2 warmup calls, then n calls between
+    two CUDA events). -> {name: [ms per step of each block]}."""
+    import torch
+
+    times = {name: [] for name in steps}
+    names = list(steps)
+    for name in names + names[::-1]:
+        for _ in range(2):
+            steps[name](*args)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            steps[name](*args)
+        end.record()
+        torch.cuda.synchronize()
+        times[name].append(start.elapsed_time(end) / n)
+    return times
+
+
+def ddp_timing() -> dict:
+    """(c) the AM step at 32 x 96 x 576 and the GAN step at 16 x 9600 at
+    world size 1 over NCCL (this process joins through torchrun's
+    environment) against the plain step: ms per step from CUDA events (the
+    mean of each step's two blocks), the collectives' ms per step
+    (``CollectiveTimer``'s CUDA events around every collective of the step,
+    the gradients' flattening and copy back included: the median over the
+    timed steps) and the gradient bytes they reduce, host syncs of one
+    step."""
+    import torch
+
+    from kantts_tpu_torch.parallel import mesh
+
+    os.environ.update(torchrun_env(0, 1, free_port(), 0))
+    try:
+        mesh.distributed_init("cuda")
+        if not (mesh.is_distributed() and mesh.world_size() == 1):
+            raise AssertionError("no process group of one")
+        out = {"backend": torch.distributed.get_backend()}
+        items = ddp_am_items(*DDP_AM)
+        am_batch = (padded_batch(items, am_lengths(items)), 0)
+        for kind, args in (("am", am_batch), ("gan", ddp_gan_batch(*GAN_SHAPE))):
+            timer = mesh.CollectiveTimer()
+            plain, _ = ddp_models(kind, False)
+            ddp, modules = ddp_models(kind, None, timer)
+            plain(*args)
+            ddp(*args)  # NCCL makes its communicator at the first collective
+            per_step = len(timer.take_intervals())
+            times = timed_blocks({"plain": plain, "ddp": ddp}, args, DDP_TIMED)
+            spans = timer.take_intervals()
+            allreduce_ms = float(np.median([sum(spans[i:i + per_step]) for i in
+                                            range(0, len(spans), per_step)])) * 1e3
+            grad_bytes = sum(p.grad.numel() * p.grad.element_size() for m in modules
+                             for p in m.parameters() if p.grad is not None)
+            syncs = {name: len(host_syncs(lambda s=s: s(*args)))
+                     for name, s in (("plain", plain), ("ddp", ddp))}
+            plain_ms, ddp_ms = (float(np.mean(times[k])) for k in ("plain", "ddp"))
+            out[kind] = dict(plain_ms=plain_ms, ddp_ms=ddp_ms,
+                             allreduce_ms=allreduce_ms, collectives_per_step=per_step,
+                             grad_bytes=grad_bytes,
+                             allreduce_share=allreduce_ms / ddp_ms,
+                             host_syncs_plain=syncs["plain"], host_syncs_ddp=syncs["ddp"])
+            log(f"ddp_step_{kind}", backend=out["backend"],
+                blocks_ms=json.dumps({k: [round(t, 3) for t in v]
+                                      for k, v in times.items()}).replace(" ", ""),
+                **{k: round(v, 4) if isinstance(v, float) else v
+                   for k, v in out[kind].items()})
+            if syncs["ddp"] > syncs["plain"]:
+                raise AssertionError(f"{kind}: the data-parallel step adds host syncs: {syncs}")
+            del plain, ddp, modules
+            torch.cuda.empty_cache()
+        return out
+    finally:
+        mesh.destroy()
+        for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+            os.environ.pop(key, None)
+
+
+def phase_ddp(tmp: str) -> dict:
+    """Phase 13: (a) the CLI under torchrun against plain, (b) two ranks
+    against one process, (c) the steps at world size 1 on NCCL, timed. ->
+    K1's launches on this path and results."""
+    from kantts_tpu_torch.ops.mas import b_mas_cuda
+
+    t_phase = time.perf_counter()
+    cli = ddp_cli(tmp)
+    two = ddp_two_ranks(tmp)
+    b_mas_cuda.launches = 0
+    timing = ddp_timing()
+    launches = b_mas_cuda.launches + two["k1_launches"]
+    if launches == 0:
+        raise AssertionError("K1 did not launch on the data-parallel path")
+    seconds = time.perf_counter() - t_phase
+    log("ddp", seconds=round(seconds, 3), k1_launches=launches)
+    return {"k1_launches": launches, "cli": cli, "two_ranks": two, "timing": timing,
+            "seconds": seconds}
+
+
 def main(argv) -> int:
+    if argv[:1] == ["--ddp-worker"]:
+        return ddp_worker(int(argv[1]), int(argv[2]), argv[3])
     smi = phase_device()
     phase_build()
     if argv[:1] == ["--k1-before"]:
@@ -3222,6 +3683,7 @@ def main(argv) -> int:
         bf16 = phase_bf16_se_byte(tmp, voc_ckpt)
         fp = phase_fp_sybert(tmp)
         pre = phase_preprocess(tmp)
+        ddp = phase_ddp(tmp)
     import torch
 
     train = k1["train"]
@@ -3230,13 +3692,15 @@ def main(argv) -> int:
         "source": "kantts_tpu_torch/csrc/mas.cu",
         "replaces": "kantts_tpu/ops/mas_pallas.py:91",
         "launches": (fwd_launches + train_launches
-                     + sum(bf16["k1_launches"].values()) + pre["k1_launches"]),
+                     + sum(bf16["k1_launches"].values()) + pre["k1_launches"]
+                     + ddp["k1_launches"]),
         "launches_by_path": {"mas_forward": fwd_launches,
                              "train_sambert": train_launches,
                              "serve": serve["k1_launches"],
                              "nsf": nsf["k1_launches"], **bf16["k1_launches"],
                              "fp_sybert": fp["k1_launches"],
-                             "preprocess": pre["k1_launches"]},
+                             "preprocess": pre["k1_launches"],
+                             "ddp": ddp["k1_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
         "ms": train["ms"], "plain_ms": train["plain_ms"],
         "bound_ms": train["bound_ms"], "bound_by": train["bound_by"],

@@ -17,6 +17,17 @@ to ``STAGE/ckpt/checkpoint_{steps}.ckpt`` and serve through
 ``--resume_path`` loads weights only by default (a fine-tune start: fresh
 optimizers, step 1); with ``--resume_training_state`` it also restores both
 optimizers, the schedules and the step, and continues at the next step.
+
+Data parallelism: launched through torchrun, every process trains on its
+own card (``cuda:LOCAL_RANK``, NCCL; gloo with ``--device cpu``) on its
+shard of each batch, so ``batch_size`` is per process; every loss is the
+global batch's, and rank 0 alone writes the stage directory:
+
+    torchrun --nproc_per_node N -m kantts_tpu_torch.bin.train_hifigan ...
+
+An NSF generator's noise depends on the shape of the batch it is drawn for,
+so an NSF voice's run on N ranks does not repeat the one-process run on the
+global batch.
 """
 
 from __future__ import annotations
@@ -32,16 +43,24 @@ import torch
 from kantts_tpu_torch.data.dataset import DataLoader, DistributedSampler, get_voc_datasets
 from kantts_tpu_torch.losses import criterion_builder
 from kantts_tpu_torch.models.builder import hifigan_gan_builder, vocoder_dtype
+from kantts_tpu_torch.parallel import mesh
 from kantts_tpu_torch.train.steps import make_gan_eval_step, make_gan_step
-from kantts_tpu_torch.train.trainer import GanTrainer
-from kantts_tpu_torch.utils.config import load_merged_config, stamp_and_dump
+from kantts_tpu_torch.train.trainer import (
+    GanTrainer,
+    collective_timer,
+    primary_log,
+    run,
+    stamped_config,
+)
+from kantts_tpu_torch.utils.config import load_merged_config
 from kantts_tpu_torch.utils.device import resolve_device
-from kantts_tpu_torch.utils.log import log_to_file
 
 
 class VocLoader(DataLoader):
     """Random crops drawn from this loader's own RandomState, so that a run's
-    batches depend only on its seed."""
+    batches depend only on its seed. Every rank seeds it alike, as the JAX
+    package's loader does in each process: the ranks draw the same offsets
+    for their own utterances."""
 
     def __init__(self, dataset, batch_size, sampler, seed=1234, **kwargs):
         self._crop_rng = np.random.RandomState(seed)
@@ -56,31 +75,37 @@ def train(model_config: str, root_dir: Union[str, Sequence[str]], stage_dir: str
           resume_path: Optional[str] = None, resume_training_state: bool = False,
           device: str = "cuda") -> GanTrainer:
     """Train until ``train_max_steps``; returns the trainer. ``device`` is
-    "cuda" (the default, which raises without a card) or "cpu"."""
+    "cuda" (the default, which raises without a card) or "cpu". Under
+    torchrun's environment the process joins its process group first."""
     device = resolve_device(device)
+    mesh.distributed_init(device)
     roots = [root_dir] if isinstance(root_dir, str) else list(root_dir)
     for root in roots:
         if not os.path.exists(root):
             raise ValueError(f"root_dir {root} not found")
     os.makedirs(stage_dir, exist_ok=True)
-    with log_to_file(os.path.join(stage_dir, "stdout.log")):
+    with primary_log(stage_dir):
         return _train(model_config, roots, stage_dir, resume_path,
                       resume_training_state, device)
 
 
 def _train(model_config, roots, stage_dir, resume_path, resume_training_state,
            device) -> GanTrainer:
-    config = stamp_and_dump(load_merged_config(roots[0], model_config), stage_dir)
+    logging.info("data parallel: %s", mesh.describe())
+    config = stamped_config(load_merged_config(roots[0], model_config), stage_dir)
     vocoder_dtype(config)  # refuses bf16 with PQMF before the data loads
-    train_dataset, valid_dataset = get_voc_datasets(config, roots)
+    train_dataset, valid_dataset = mesh.primary_first(
+        lambda: get_voc_datasets(config, roots))
     logging.info("train + valid: %d + %d", len(train_dataset), len(valid_dataset))
     train_loader = VocLoader(
         train_dataset, config["batch_size"],
-        DistributedSampler(len(train_dataset), shuffle=True),
+        DistributedSampler(len(train_dataset), mesh.world_size(), mesh.rank(),
+                           shuffle=True),
         num_workers=config.get("num_workers", 0))
     valid_loader = VocLoader(
         valid_dataset, config["batch_size"],
-        DistributedSampler(len(valid_dataset), shuffle=False), drop_last=False)
+        DistributedSampler(len(valid_dataset), mesh.world_size(), mesh.rank(),
+                           shuffle=False), drop_last=False)
 
     seed = config.get("seed", 0)
     built = hifigan_gan_builder(config, seed, device)
@@ -88,7 +113,8 @@ def _train(model_config, roots, stage_dir, resume_path, resume_training_state,
     pqmf = built["pqmf"]
     criterion = criterion_builder(config)
     # an NSF generator's source draws, one stream for the run's steps
-    rng = torch.Generator(device=device).manual_seed(seed)
+    rng = torch.Generator(device=device).manual_seed(mesh.rank_seed(seed))
+    timer = collective_timer()
 
     def make_step(train_generator: bool, include_adversarial: bool):
         return make_gan_step(
@@ -96,18 +122,20 @@ def _train(model_config, roots, stage_dir, resume_path, resume_training_state,
             built["gen_scheduler"], built["disc_optimizers"],
             built["disc_schedulers"], built["gen_clip"], built["disc_clips"],
             train_generator=train_generator,
-            include_adversarial=include_adversarial, pqmf=pqmf, rng=rng)
+            include_adversarial=include_adversarial, pqmf=pqmf, rng=rng,
+            timer=timer)
 
     trainer = GanTrainer(
         config, generator, discriminators, built["gen_optimizer"],
         built["gen_scheduler"], built["disc_optimizers"], built["disc_schedulers"],
-        make_step, make_gan_eval_step(generator, discriminators, criterion, pqmf, rng),
+        make_step, make_gan_eval_step(generator, discriminators, criterion, pqmf, rng,
+                                      timer=timer),
         train_loader, valid_loader, stage_dir, device,
         sampling_rate=config["audio_config"]["sampling_rate"],
         max_steps=config.get("train_max_steps"),
         save_interval=config.get("save_interval_steps", 10000),
         valid_interval=config.get("eval_interval_steps", 10000),
-        log_interval=config.get("log_interval_steps", 1000))
+        log_interval=config.get("log_interval_steps", 1000), timer=timer)
     if resume_path is not None:
         trainer.load_checkpoint(resume_path,
                                 restore_training_state=resume_training_state)
@@ -115,16 +143,8 @@ def _train(model_config, roots, stage_dir, resume_path, resume_training_state,
             logging.info("Resumed from %s at step %d", resume_path, trainer.steps)
         else:
             logging.info("Loaded weights from %s (fine-tune start)", resume_path)
-
-    try:
-        trainer.train()
-    except (Exception, KeyboardInterrupt):
-        logging.exception("training failed at step %d", trainer.steps)
-        trainer.save_checkpoint(
-            os.path.join(trainer.ckpt_dir, f"checkpoint-{trainer.steps}.ckpt"))
-        logging.info("Saved crash checkpoint at step %d", trainer.steps)
-        raise
-    return trainer
+    mesh.replicate([generator, *discriminators.values()])
+    return run(trainer)
 
 
 def main(argv=None):
@@ -139,8 +159,11 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         choices=("cuda", "cpu"))
     args = parser.parse_args(argv)
-    train(args.model_config, args.root_dir, args.stage_dir, args.resume_path,
-          args.resume_training_state, args.device)
+    try:
+        train(args.model_config, args.root_dir, args.stage_dir, args.resume_path,
+              args.resume_training_state, args.device)
+    finally:
+        mesh.destroy()
 
 
 if __name__ == "__main__":

@@ -24,7 +24,7 @@ import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from functools import lru_cache
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 from scipy.stats import betabinom
@@ -40,14 +40,13 @@ DATASET_RANDOM_SEED = 1234
 @lru_cache(maxsize=256)
 def beta_binomial_prior_distribution(phoneme_count: int, mel_count: int,
                                      scaling: float = 1.0) -> np.ndarray:
-    """(mel_count, phoneme_count) beta-binomial MAS prior."""
+    """(mel_count, phoneme_count) beta-binomial MAS prior: row i - 1 is
+    ``betabinom(P, scaling * i, scaling * (M + 1 - i)).pmf(arange(P))``, all
+    rows in one broadcast call, which gives the values of the JAX package's
+    loop of M calls."""
     P, M = phoneme_count, mel_count
-    x = np.arange(0, P)
-    rows = []
-    for i in range(1, M + 1):
-        a, b = scaling * i, scaling * (M + 1 - i)
-        rows.append(betabinom(P, a, b).pmf(x))
-    return np.asarray(rows)
+    i = np.arange(1, M + 1, dtype=np.float64)[:, None]
+    return betabinom.pmf(np.arange(P)[None, :], P, scaling * i, scaling * (M + 1 - i))
 
 
 class Padder:
@@ -421,12 +420,29 @@ class AMDataset:
                         continue
                     f.write(line)
 
-    def collate_fn(self, batch) -> Dict[str, Any]:
+    def padded_lengths(self, batch) -> Tuple[int, int, int]:
+        """The lengths ``collate_fn`` pads ``batch`` to: the input (with EOS)
+        and the mel frames, each rounded up to its bucket, and an FP batch's
+        spliced length (0 without FP)."""
+        L_in = Padder.round_up(max(len(x[0][0]) for x in batch), self.input_bucket)
+        L_mel = Padder.round_up(max(len(x[1]) for x in batch), self.frame_bucket)
+        L_fp = 0
+        if self.fp_enable:
+            max_dur = max((len(x[2]) for x in batch if x[2] is not None), default=0)
+            inter_max = max(len(x[0][0]) - 1 + 3 * int((x[7][: len(x[0][0]) - 1] > 0).sum())
+                            for x in batch)
+            L_fp = Padder.round_up(max(inter_max, max_dur + 1, 1), self.input_bucket)
+        return L_in, L_mel, L_fp
+
+    def collate_fn(self, batch, lengths: Optional[Sequence[int]] = None
+                   ) -> Dict[str, Any]:
+        """-> the batch, padded to ``padded_lengths(batch)`` or to
+        ``lengths`` (in a data-parallel run the largest of every rank's, so
+        that every shard is padded as the global batch is)."""
         lu = self.ling_unit
         n_ling = 1 if lu.using_byte() else 4
         lfeat_types = lu.lfeat_type_list
-        max_in = max(len(x[0][0]) for x in batch)
-        L_in = Padder.round_up(max_in, self.input_bucket)
+        L_in, L_mel, L_fp = lengths or self.padded_lengths(batch)
 
         def track(i):
             return Padder.stack_1d([x[0][i] for x in batch], L_in,
@@ -444,8 +460,6 @@ class AMDataset:
             "valid_output_lengths": np.asarray([len(x[1]) for x in batch],
                                                dtype=np.int32),
         }
-        max_out = int(data["valid_output_lengths"].max())
-        L_mel = Padder.round_up(max_out, self.frame_bucket)
         data["mel_targets"] = Padder.stack_2d([x[1] for x in batch], L_mel, 0.0)
 
         # FP: the host-built insertion plan (models/sambert/fp.py); its length
@@ -454,13 +468,9 @@ class AMDataset:
         L_feats = L_in
         if self.fp_enable:
             fp_label = Padder.stack_1d([x[7] for x in batch], L_in, 0).astype(np.int32)
-            lengths = data["valid_input_lengths"]
-            max_dur = max((len(x[2]) for x in batch if x[2] is not None), default=0)
-            inter_max = max(int(lengths[i]) + 3 * int((fp_label[i, :lengths[i]] > 0).sum())
-                            for i in range(len(batch)))
-            out_len = Padder.round_up(max(inter_max, max_dur + 1, 1), self.input_bucket)
             src_idx, f_class, f_phase, inter_lengths, L_feats = build_fp_insertion_plan(
-                fp_label, lengths, out_len=out_len, bucket=self.input_bucket)
+                fp_label, data["valid_input_lengths"], out_len=L_fp,
+                bucket=self.input_bucket)
             data["fp_label"] = fp_label
             data["fp_plan"] = (src_idx, f_class, f_phase, inter_lengths)
 
@@ -600,14 +610,22 @@ class BERTTextDataset:
         with open(os.path.join(out_dir, "bert_valid.lst"), "w") as f:
             f.writelines(valid)
 
-    def collate_fn(self, batch) -> Dict[str, Any]:
+    def padded_lengths(self, batch) -> Tuple[int]:
+        """The length ``collate_fn`` pads ``batch`` to (with EOS, rounded up
+        to the bucket)."""
+        return (Padder.round_up(max(len(x[0]) for x in batch), self.input_bucket),)
+
+    def collate_fn(self, batch, lengths: Optional[Sequence[int]] = None
+                   ) -> Dict[str, Any]:
+        """-> the masked batch, padded to ``padded_lengths(batch)`` or to
+        ``lengths`` (see ``AMDataset.collate_fn``)."""
         items = []
         for ling_data in batch:
             mask, sy_masked = self.bert_masking(ling_data)
             items.append((ling_data, sy_masked, mask))
         lu = self.ling_unit
         types = lu.lfeat_type_list
-        L_in = Padder.round_up(max(len(x[0][0]) for x in items), self.input_bucket)
+        L_in, = lengths or self.padded_lengths(batch)
         targets_sy = Padder.stack_1d([x[0][0] for x in items], L_in,
                                      lu.pad_id(types[0])).astype(np.int32)
         inputs_sy = Padder.stack_1d([x[1] for x in items], L_in,
@@ -695,12 +713,19 @@ class DataLoader:
     items load in parallel, but collate_fn runs on the single coordinator
     thread in sampler order (so stateful collates, e.g. the vocoder crop RNG,
     stay deterministic).
+
+    ``lengths_max`` (data parallelism) takes the dataset's
+    ``padded_lengths`` of a batch to the largest over the ranks (a
+    collective), and the batch is padded to those, as the global batch is.
+    The collate then runs on the consumer's thread, so that every rank issues
+    those collectives in its program's order.
     """
 
     def __init__(self, dataset, batch_size: int, sampler: Optional[DistributedSampler] = None,
                  shuffle: bool = True, drop_last: bool = True,
                  collate_fn=None, seed: int = DATASET_RANDOM_SEED,
-                 num_workers: int = 0, prefetch: int = 4):
+                 num_workers: int = 0, prefetch: int = 4,
+                 lengths_max: Optional[Callable[[Sequence[int]], Sequence[int]]] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.sampler = sampler or DistributedSampler(
@@ -709,6 +734,13 @@ class DataLoader:
         self.collate_fn = collate_fn or dataset.collate_fn
         self.num_workers = num_workers
         self.prefetch = max(1, prefetch)
+        self.lengths_max = lengths_max
+
+    def _collate(self, items):
+        if self.lengths_max is None:
+            return self.collate_fn(items)
+        return self.collate_fn(
+            items, self.lengths_max(self.dataset.padded_lengths(items)))
 
     def __len__(self):
         n = len(self.sampler)
@@ -726,11 +758,15 @@ class DataLoader:
     def __iter__(self):
         if self.num_workers <= 0:
             for idx_batch in self._batch_indices():
-                yield self.collate_fn([self.dataset[i] for i in idx_batch])
+                yield self._collate([self.dataset[i] for i in idx_batch])
             return
-        yield from self._prefetch_iter()
+        if self.lengths_max is None:
+            yield from self._prefetch_iter(self.collate_fn)
+            return
+        for items in self._prefetch_iter(list):
+            yield self._collate(items)
 
-    def _prefetch_iter(self):
+    def _prefetch_iter(self, collate):
         batches = self._batch_indices()
         out: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -746,7 +782,7 @@ class DataLoader:
                                             for i in batches[bi]])
                             bi += 1
                         futs = pending.popleft()
-                        batch = self.collate_fn([f.result() for f in futs])
+                        batch = collate([f.result() for f in futs])
                         while not stop.is_set():
                             try:
                                 out.put(batch, timeout=0.1)

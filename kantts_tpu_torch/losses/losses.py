@@ -8,11 +8,21 @@ padding masks, so bucketed padding cannot change a loss value.
 ``MultiResolutionSTFTLoss`` on PQMF sub-bands (``train/steps.py``).
 ``FpCELoss`` and ``SeqCELoss`` are the filled-pause and Textsy-BERT
 criteria.
+
+Data parallelism: a criterion given ``reduce`` (``parallel.mesh.global_sum``
+or any function that sums 0-d tensors over the shards of a global batch)
+returns this shard's share of the global-batch loss, its local sum over the
+global count, so that the shares, and the gradients of the shares, summed
+over the ranks are the loss and the gradient of one process holding the
+global batch. The spectral convergence of ``STFTLoss``, a ratio of norms,
+is taken from the two global squared norms instead. The GAN criteria are
+plain means over crops of one length, and the GAN step weights them by the
+shard's share of the global batch (``train/steps.py``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +32,14 @@ from kantts_tpu_torch.dsp.stft import hann_window, stft_magnitude
 from kantts_tpu_torch.utils.mask import get_mask_from_lengths
 
 Scores = Union[torch.Tensor, Sequence[torch.Tensor]]
+Reduce = Callable[..., Tuple[torch.Tensor, ...]]
+
+
+def _global(reduce: Optional[Reduce], *counts: torch.Tensor
+            ) -> Tuple[torch.Tensor, ...]:
+    """The normalisers of a reduction: this shard's, or with ``reduce`` the
+    sums over every shard, in one call."""
+    return counts if reduce is None else tuple(reduce(*counts))
 
 
 def _elementwise(loss_type: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -40,9 +58,9 @@ class MelReconLoss:
         self.weights = 1.0
 
     def __call__(self, output_lengths, mel_targets, dec_outputs,
-                 postnet_outputs=None):
+                 postnet_outputs=None, reduce: Optional[Reduce] = None):
         valid = ~get_mask_from_lengths(output_lengths, mel_targets.shape[1])
-        denom = valid.sum() * mel_targets.shape[-1]
+        denom, = _global(reduce, valid.sum() * mel_targets.shape[-1])
         mel_loss_ = (_elementwise(self.loss_type, mel_targets, dec_outputs)
                      * valid[..., None]).sum() / denom
         mel_loss = 0.0
@@ -61,9 +79,9 @@ class ProsodyReconLoss:
 
     def __call__(self, input_lengths, duration_targets, pitch_targets,
                  energy_targets, log_duration_predictions, pitch_predictions,
-                 energy_predictions):
+                 energy_predictions, reduce: Optional[Reduce] = None):
         valid = ~get_mask_from_lengths(input_lengths, duration_targets.shape[1])
-        denom = valid.sum()
+        denom, = _global(reduce, valid.sum())
 
         def masked_mean(target, pred):
             return (_elementwise(self.loss_type, target, pred) * valid).sum() / denom
@@ -85,14 +103,16 @@ class FpCELoss:
         self.weight = torch.tensor(weight, dtype=torch.float32)
         self.weights = 1.0
 
-    def __call__(self, input_lengths, fp_pd, fp_label):
+    def __call__(self, input_lengths, fp_pd, fp_label,
+                 reduce: Optional[Reduce] = None):
         valid = ~get_mask_from_lengths(input_lengths, fp_label.shape[1])
         logp = torch.log_softmax(fp_pd.float(), dim=-1)
         label = fp_label.long()
         if self.weight.device != logp.device:  # once: no copy in every step
             self.weight = self.weight.to(logp.device)
         ce = -logp.gather(-1, label[..., None])[..., 0] * self.weight[label]
-        return (ce * valid).sum() / valid.sum()
+        denom, = _global(reduce, valid.sum())
+        return (ce * valid).sum() / denom
 
 
 class SeqCELoss:
@@ -102,11 +122,11 @@ class SeqCELoss:
     def __init__(self, loss_type: str = "ce"):
         self.weights = 1.0
 
-    def __call__(self, logits, targets, masks):
+    def __call__(self, logits, targets, masks, reduce: Optional[Reduce] = None):
         logp = torch.log_softmax(logits.float(), dim=-1)
         ce = -logp.gather(-1, targets.long()[..., None])[..., 0]
         masks = masks.float()
-        denom = masks.sum()
+        denom, = _global(reduce, masks.sum())
         loss = (ce * masks).sum() / denom
         err = ((logits.argmax(-1) != targets).float() * masks).sum() / denom
         return loss, err
@@ -122,9 +142,10 @@ class AttentionBinarizationLoss:
         self.weights = 1.0
 
     def __call__(self, epoch: int, hard_attention, soft_attention,
-                 eps: float = 1e-12):
+                 eps: float = 1e-12, reduce: Optional[Reduce] = None):
         log_sum = (torch.log(soft_attention.clamp(min=eps)) * hard_attention).sum()
-        kl = -log_sum / hard_attention.sum()
+        count, = _global(reduce, hard_attention.sum())
+        kl = -log_sum / count
         warmup = (min(max((epoch - self.start_epoch) / self.warmup_epoch, 0.0), 1.0)
                   * float(epoch >= self.start_epoch))
         return kl * warmup
@@ -142,7 +163,8 @@ class AttentionCTCLoss:
         self.blank_logprob = blank_logprob
         self.weights = 1.0
 
-    def __call__(self, attn_logprob, in_lens, out_lens):
+    def __call__(self, attn_logprob, in_lens, out_lens,
+                 reduce: Optional[Reduce] = None):
         """attn_logprob (B, 1, T_mel, T_text); in_lens, out_lens (B,)."""
         B, _, T_mel, T_text = attn_logprob.shape
         dev = attn_logprob.device
@@ -154,7 +176,8 @@ class AttentionCTCLoss:
         per_seq = F.ctc_loss(logp.transpose(0, 1), targets, out_lens.long(),
                              in_lens.long(), blank=0, reduction="none",
                              zero_infinity=True)
-        return (per_seq / in_lens.float()).mean()
+        items, = _global(reduce, in_lens.new_full((), B))
+        return (per_seq / in_lens.float()).sum() / items
 
 
 class GeneratorAdversarialLoss:
@@ -270,7 +293,13 @@ class MelSpectrogramLoss:
 
 class STFTLoss:
     """-> (spectral convergence, log-magnitude L1) at one resolution, on
-    reflect-padded magnitudes clamped at power 1e-7."""
+    reflect-padded magnitudes clamped at power 1e-7.
+
+    The spectral convergence ``||y - x|| / ||y||`` is taken over the whole
+    (global) batch. A shard holds only its part of each squared norm, so
+    with ``reduce`` it takes the global squared norms, with the other
+    shards' parts held constant in the gradient, and returns its share of
+    the value in proportion to its part of ``||y - x||^2``."""
 
     def __init__(self, fft_size=1024, shift_size=120, win_length=600,
                  window="hann_window"):
@@ -281,20 +310,37 @@ class STFTLoss:
         self.win_length = win_length
         self.window = torch.from_numpy(hann_window(win_length))
 
-    def __call__(self, x, y):
+    def sums(self, x, y) -> Tuple[torch.Tensor, ...]:
+        """-> the shard's ||y - x||^2, ||y||^2, sum |log y - log x| and its
+        count of magnitudes, the sums that the two terms are made of."""
         x_mag = stft_magnitude(x, self.fft_size, self.shift_size,
                                self.win_length, self.window)
         y_mag = stft_magnitude(y, self.fft_size, self.shift_size,
                                self.win_length, self.window)
-        sc = (torch.linalg.vector_norm(y_mag - x_mag)
-              / torch.linalg.vector_norm(y_mag))
-        mag = (torch.log(y_mag) - torch.log(x_mag)).abs().mean()
-        return sc, mag
+        return (((y_mag - x_mag) ** 2).sum(), (y_mag ** 2).sum(),
+                (torch.log(y_mag) - torch.log(x_mag)).abs().sum(),
+                y_mag.new_full((), y_mag.numel(), dtype=torch.int64))
+
+    @staticmethod
+    def terms(sums, global_sums) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(sc, mag) of a shard from its ``sums`` and their sums over every
+        shard (the same tensors when there is one)."""
+        d2, y2, log_l1, _ = sums
+        g_d2, g_y2, _, g_n = global_sums
+        sc = (torch.sqrt(d2 + (g_d2 - d2.detach()))
+              / torch.sqrt(y2 + (g_y2 - y2.detach())))
+        share = d2.detach() / g_d2.clamp(min=torch.finfo(g_d2.dtype).tiny)
+        return sc - (sc * (1.0 - share)).detach(), log_l1 / g_n
+
+    def __call__(self, x, y, reduce: Optional[Reduce] = None):
+        sums = self.sums(x, y)
+        return self.terms(sums, _global(reduce, *(s.detach() for s in sums)))
 
 
 class MultiResolutionSTFTLoss:
     """``STFTLoss`` averaged over resolutions; (B, 1, T) inputs are
-    flattened to (B, T)."""
+    flattened to (B, T). With ``reduce``, the sums of every resolution go
+    through one call."""
 
     def __init__(self, fft_sizes=(1024, 2048, 512), hop_sizes=(120, 240, 50),
                  win_lengths=(600, 1200, 240), window="hann_window"):
@@ -304,13 +350,15 @@ class MultiResolutionSTFTLoss:
                             for f, s, w in zip(fft_sizes, hop_sizes, win_lengths)]
         self.weights = 1.0
 
-    def __call__(self, x, y):
+    def __call__(self, x, y, reduce: Optional[Reduce] = None):
         if x.ndim == 3:
             x = x.reshape(-1, x.shape[-1])
             y = y.reshape(-1, y.shape[-1])
+        sums = [f.sums(x, y) for f in self.stft_losses]
+        flat = _global(reduce, *(s.detach() for res in sums for s in res))
         sc_total = mag_total = 0.0
-        for f in self.stft_losses:
-            sc, mag = f(x, y)
+        for i, res in enumerate(sums):
+            sc, mag = STFTLoss.terms(res, flat[4 * i: 4 * i + 4])
             sc_total = sc_total + sc
             mag_total = mag_total + mag
         n = len(self.stft_losses)

@@ -30,6 +30,7 @@ from kantts_tpu_torch.models.sambert.adaptors import VarRnnARPredictor
 from kantts_tpu_torch.models.sambert.sambert import KanTtsSAMBERT, KanTtsTextsyBERT
 from kantts_tpu_torch.text.ling_unit import KanTtsLinguisticUnit
 from kantts_tpu_torch.train.optim import optimizer_builder
+from kantts_tpu_torch.utils.config import load_yaml
 
 
 def _unit_params(config: Dict[str, Any], section: str) -> Dict[str, Any]:
@@ -238,15 +239,28 @@ def save_checkpoint(path: str, model: Union[nn.Module, Mapping[str, Any]],
     os.replace(tmp, path)
 
 
-def load_checkpoint(path: str, device: torch.device
+def load_checkpoint(path: str, device: torch.device,
+                    config: Union[None, str, Dict[str, Any]] = None
                     ) -> Tuple[nn.Module, Dict[str, Any]]:
     """-> (model in eval mode on ``device``, config). From a ``train_hifigan``
-    checkpoint the model is its generator."""
+    checkpoint the model is its generator.
+
+    With ``config`` (a config dict, or the path of its YAML) the file may be
+    a reference KAN-TTS checkpoint, which carries no config:
+    ``{"model": state dict}`` for SAM-BERT and Textsy-BERT,
+    ``{"model": {"generator": ..., "discriminator": ...}}`` for HiFi-GAN.
+    Names keep the reference's layout; the ``module.`` prefix of a model
+    saved from inside ``DistributedDataParallel`` is stripped."""
     payload = torch.load(path, map_location="cpu", weights_only=True)
-    config = payload["config"]
+    if config is None:
+        config = payload["config"]
+    elif isinstance(config, str):
+        config = load_yaml(config)
     state = payload["model"]
     if config["model_type"] == "hifigan" and "generator" in state:
         state = state["generator"]
+    state = {(k[len("module."):] if k.startswith("module.") else k): v
+             for k, v in state.items()}
     model = model_builder(config)
     model.load_state_dict(state, strict=True)
     return model.to(device).eval(), config

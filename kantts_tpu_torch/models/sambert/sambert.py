@@ -30,7 +30,7 @@ Submodule names follow the KAN-TTS state-dict layout.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -325,9 +325,15 @@ class KanTtsSAMBERT(nn.Module):
                 duration_targets=None, pitch_targets=None, energy_targets=None,
                 attn_priors=None, fp_plan=None, fp_dict_lings=None,
                 ss_prob: Optional[float] = None,
-                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+                generator: Optional[torch.Generator] = None,
+                global_max: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                ) -> Dict[str, Any]:
         """Teacher-forced forward, as the training step runs it (no loss).
         Dropout follows the module's ``train()``/``eval()`` mode.
+
+        The PNCA band width comes from the batch's largest duration; under
+        data parallelism ``global_max`` takes that to the largest over every
+        rank, so that each shard decodes with the global batch's band.
 
         An FP model predicts its filled-pause classes from the encoder
         states (``fp_predictions``); with ``fp_plan`` (the collate's
@@ -385,7 +391,10 @@ class KanTtsSAMBERT(nn.Module):
         memory = self.build_memory(LR_text, LR_emo, LR_spk)
 
         masked_dur = duration_targets.float().masked_fill(inter_masks, 0.0)
-        band_width = torch.floor(masked_dur.max() / r + 0.5).to(torch.int32)
+        largest = masked_dur.max()
+        if global_max is not None:
+            largest = global_max(largest)
+        band_width = torch.floor(largest / r + 0.5).to(torch.int32)
         lfr_masks = get_mask_from_lengths((output_lengths + r - 1) // r, T_mel // r)
         dec_in = mel_targets
         if ss_prob is not None:

@@ -12,25 +12,84 @@ then the discriminator losses and one update per discriminator family.
 Steps take device tensors and return their metrics as detached device
 scalars: nothing in a step reads a value back to the host, so the caller
 decides when to wait (the trainer does at log time).
+
+Data parallelism (``data_parallel``, by default whenever the process is in a
+process group; ``parallel/mesh.py``): each rank runs its shard of the global
+batch. The criteria take their normalisers summed over the ranks, so each
+rank's loss is its share of the global-batch loss; the SAM-BERT band width is
+the global batch's; after the backward the gradients are summed over the
+ranks, one collective per optimizer, before the clip and the update; the
+metrics returned are the global ones, summed as one device vector. None of
+it reads a value back to the host.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 from torch import nn
 
+from kantts_tpu_torch.losses.losses import Reduce
+from kantts_tpu_torch.parallel import mesh
+
 Metrics = Dict[str, torch.Tensor]
+# SAM-BERT metrics that are equal on every rank, not shares of a sum
+REPLICATED_METRICS = ("x_band_width", "h_band_width")
+
+
+class DataParallel:
+    """What a step does across ranks, or nothing (``enabled`` False): the
+    reducer of the criteria, the band-width maximum, the gradient all-reduce
+    and the metrics' sum. ``timer`` (a ``mesh.CollectiveTimer``) times the
+    collectives."""
+
+    def __init__(self, enabled: Optional[bool] = None,
+                 timer: Optional[mesh.CollectiveTimer] = None):
+        self.enabled = mesh.is_distributed() if enabled is None else enabled
+        self.timer = timer
+        self.reduce: Optional[Reduce] = (
+            functools.partial(mesh.global_sum, timer=timer) if self.enabled else None)
+        self.global_max = (functools.partial(mesh.global_max, timer=timer)
+                           if self.enabled else None)
+
+    def grads(self, optimizer: torch.optim.Optimizer) -> None:
+        """Sum the gradients of ``optimizer``'s parameters over the ranks."""
+        if self.enabled:
+            mesh.all_reduce_grads(mesh.optimizer_params(optimizer), self.timer)
+
+    def metrics(self, metrics: Metrics) -> Metrics:
+        """The global metrics: every share summed over the ranks in one call."""
+        keys = [k for k in metrics if k not in REPLICATED_METRICS]
+        if not self.enabled or not keys:
+            return metrics
+        return {**metrics, **dict(zip(keys, self.reduce(*(metrics[k] for k in keys))))}
+
+    def batch_share(self, batch_size: int, like: torch.Tensor
+                    ) -> Optional[torch.Tensor]:
+        """This shard's items over the global batch's (None without data
+        parallelism): the weight of a plain mean over crops of one length."""
+        if not self.enabled:
+            return None
+        local = like.new_full((), batch_size, dtype=torch.int64)
+        total, = self.reduce(local)
+        return local / total
+
+
+def _scaled(x, share: Optional[torch.Tensor]):
+    return x if share is None else x * share
 
 
 def sambert_forward(model: nn.Module, batch: Dict[str, Any],
                     ss_prob: Optional[float] = None,
                     generator: Optional[torch.Generator] = None,
-                    fp_dict_lings: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+                    fp_dict_lings: Optional[torch.Tensor] = None,
+                    global_max: Optional[Callable] = None) -> Dict[str, Any]:
     """The teacher-forced forward on a batch with the dataset's keys; an FP
     batch's ``fp_plan`` splices in the filler triples ``fp_dict_lings``
-    (the dataset's, (3, 3, 4))."""
+    (the dataset's, (3, 3, 4)). ``global_max`` is the band width's maximum
+    over the ranks."""
     return model(
         batch["input_lings"], batch["input_emotions"], batch["input_speakers"],
         batch["valid_input_lengths"], batch["valid_output_lengths"],
@@ -38,27 +97,33 @@ def sambert_forward(model: nn.Module, batch: Dict[str, Any],
         pitch_targets=batch["pitch_contours"],
         energy_targets=batch["energy_contours"],
         attn_priors=batch.get("attn_priors"), fp_plan=batch.get("fp_plan"),
-        fp_dict_lings=fp_dict_lings, ss_prob=ss_prob, generator=generator)
+        fp_dict_lings=fp_dict_lings, ss_prob=ss_prob, generator=generator,
+        global_max=global_max)
 
 
 def sambert_losses(model: nn.Module, criterion: Dict[str, Any],
                    batch: Dict[str, Any], epoch: int, with_mas: bool,
                    ss_prob: Optional[float] = None,
                    generator: Optional[torch.Generator] = None,
-                   fp_dict_lings: Optional[torch.Tensor] = None
+                   fp_dict_lings: Optional[torch.Tensor] = None,
+                   dp: Optional[DataParallel] = None
                    ) -> Tuple[torch.Tensor, Metrics]:
     """Forward and criteria in the model's current mode -> (total, metrics).
     The prosody losses are masked by ``valid_inter_lengths`` (the spliced
-    lengths of an FP batch), the FP loss by the input lengths."""
-    res = sambert_forward(model, batch, ss_prob, generator, fp_dict_lings)
+    lengths of an FP batch), the FP loss by the input lengths. With ``dp``
+    the total is this rank's share of the global batch's."""
+    dp = dp if dp is not None else DataParallel(False)
+    reduce = dp.reduce
+    res = sambert_forward(model, batch, ss_prob, generator, fp_dict_lings,
+                          dp.global_max)
     mel_loss_, mel_loss = criterion["MelReconLoss"](
         batch["valid_output_lengths"], batch["mel_targets"],
-        res["dec_outputs"], res["postnet_outputs"])
+        res["dec_outputs"], res["postnet_outputs"], reduce=reduce)
     dur_loss, pitch_loss, energy_loss = criterion["ProsodyReconLoss"](
         res["valid_inter_lengths"], res["duration_targets"],
         res["pitch_targets"], res["energy_targets"],
         res["log_duration_predictions"], res["pitch_predictions"],
-        res["energy_predictions"])
+        res["energy_predictions"], reduce=reduce)
     total = mel_loss_ + mel_loss + dur_loss + pitch_loss + energy_loss
     metrics = {
         "mel_loss_": mel_loss_, "mel_loss": mel_loss, "dur_loss": dur_loss,
@@ -68,15 +133,16 @@ def sambert_losses(model: nn.Module, criterion: Dict[str, Any],
     }
     if getattr(model, "fp_enable", False):
         fp_loss = criterion["FpCELoss"](batch["valid_input_lengths"],
-                                        res["fp_predictions"], batch["fp_label"])
+                                        res["fp_predictions"], batch["fp_label"],
+                                        reduce=reduce)
         total = total + fp_loss
         metrics["fp_loss"] = fp_loss
     if with_mas:
         ctc = criterion["AttentionCTCLoss"](
             res["attn_logprob"], batch["valid_input_lengths"],
-            batch["valid_output_lengths"])
+            batch["valid_output_lengths"], reduce=reduce)
         kl = criterion["AttentionBinarizationLoss"](
-            epoch, res["attn_hard"], res["attn_soft"])
+            epoch, res["attn_hard"], res["attn_soft"], reduce=reduce)
         total = total + ctc + kl
         metrics["attn_ctc_loss"] = ctc
         metrics["attn_kl_loss"] = kl
@@ -90,7 +156,9 @@ def make_sambert_step(model: nn.Module, criterion: Dict[str, Any],
                       clip: Optional[Callable[[], torch.Tensor]], with_mas: bool,
                       train: bool = True,
                       generator: Optional[torch.Generator] = None,
-                      fp_dict_lings: Optional[torch.Tensor] = None
+                      fp_dict_lings: Optional[torch.Tensor] = None,
+                      data_parallel: Optional[bool] = None,
+                      timer: Optional[mesh.CollectiveTimer] = None
                       ) -> Callable[[Dict[str, torch.Tensor], int], Metrics]:
     """-> step(batch, epoch) -> metrics. ``clip`` is the global-norm clip of
     ``optimizer_builder`` (None: no clip). The train step runs in ``train()``
@@ -102,7 +170,9 @@ def make_sambert_step(model: nn.Module, criterion: Dict[str, Any],
     ``scheduled_sampling_ramp_steps`` (the updates over which it ramps up
     linearly from 0); the update count is the scheduler's, so it resumes
     with it. Its draws come from ``generator``. An FP model's steps splice
-    in ``fp_dict_lings``."""
+    in ``fp_dict_lings``. ``data_parallel`` and ``timer``: see
+    ``DataParallel``."""
+    dp = DataParallel(data_parallel, timer)
     cfg = getattr(model, "config", {}) or {}
     ss_max = float(cfg.get("scheduled_sampling_prob", 0.0))
     ss_ramp = float(cfg.get("scheduled_sampling_ramp_steps", 10_000))
@@ -111,8 +181,9 @@ def make_sambert_step(model: nn.Module, criterion: Dict[str, Any],
         @torch.no_grad()
         def eval_step(batch, epoch):
             model.eval()
-            return sambert_losses(model, criterion, batch, epoch, with_mas,
-                                  fp_dict_lings=fp_dict_lings)[1]
+            return dp.metrics(sambert_losses(model, criterion, batch, epoch,
+                                             with_mas, fp_dict_lings=fp_dict_lings,
+                                             dp=dp)[1])
 
         return eval_step
 
@@ -123,13 +194,14 @@ def make_sambert_step(model: nn.Module, criterion: Dict[str, Any],
             ss_prob = ss_max * min(scheduler.last_epoch / ss_ramp, 1.0)
         optimizer.zero_grad(set_to_none=True)
         total, metrics = sambert_losses(model, criterion, batch, epoch, with_mas,
-                                        ss_prob, generator, fp_dict_lings)
+                                        ss_prob, generator, fp_dict_lings, dp)
         total.backward()
+        dp.grads(optimizer)
         if clip is not None:
             clip()
         optimizer.step()
         scheduler.step()
-        return metrics
+        return dp.metrics(metrics)
 
     return train_step
 
@@ -138,15 +210,16 @@ def make_sambert_step(model: nn.Module, criterion: Dict[str, Any],
 
 
 def sybert_losses(model: nn.Module, criterion: Dict[str, Any],
-                  batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Metrics]:
+                  batch: Dict[str, torch.Tensor],
+                  reduce: Optional[Reduce] = None) -> Tuple[torch.Tensor, Metrics]:
     """Textsy-BERT's forward and ``SeqCELoss`` in the model's current mode ->
     (loss, metrics). The loss is divided by the sy vocabulary size (the
     logits' last axis) before backward, as KAN-TTS divides it in train and
     eval: the scale changes the gradients and how hard ``grad_norm`` clips
-    them."""
+    them. With ``reduce`` both are this rank's shares of the global batch's."""
     res = model(batch["input_lings"], batch["valid_input_lengths"])
     loss, err = criterion["SeqCELoss"](res["logits"], batch["targets"],
-                                       batch["loss_masks"])
+                                       batch["loss_masks"], reduce=reduce)
     loss = loss / res["logits"].shape[-1]
     return loss, {"loss": loss.detach(), "error_rate": err.detach()}
 
@@ -155,30 +228,33 @@ def make_sybert_step(model: nn.Module, criterion: Dict[str, Any],
                      optimizer: torch.optim.Optimizer,
                      scheduler: torch.optim.lr_scheduler.LRScheduler,
                      clip: Optional[Callable[[], torch.Tensor]],
-                     train: bool = True
+                     train: bool = True, data_parallel: Optional[bool] = None,
+                     timer: Optional[mesh.CollectiveTimer] = None
                      ) -> Callable[[Dict[str, torch.Tensor]], Metrics]:
     """-> step(batch) -> metrics ("loss", "error_rate"). The train step runs
     in ``train()`` mode: zero the gradients, forward, backward, clip,
     update, advance the schedule; the eval step in ``eval()`` mode without
-    gradients."""
+    gradients. ``data_parallel`` and ``timer``: see ``DataParallel``."""
+    dp = DataParallel(data_parallel, timer)
     if not train:
         @torch.no_grad()
         def eval_step(batch):
             model.eval()
-            return sybert_losses(model, criterion, batch)[1]
+            return dp.metrics(sybert_losses(model, criterion, batch, dp.reduce)[1])
 
         return eval_step
 
     def train_step(batch):
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        loss, metrics = sybert_losses(model, criterion, batch)
+        loss, metrics = sybert_losses(model, criterion, batch, dp.reduce)
         loss.backward()
+        dp.grads(optimizer)
         if clip is not None:
             clip()
         optimizer.step()
         scheduler.step()
-        return metrics
+        return dp.metrics(metrics)
 
     return train_step
 
@@ -202,7 +278,9 @@ def generator_losses(generator: nn.Module, discriminators: Discriminators,
                      criterion: Dict[str, Any], wav: torch.Tensor,
                      mel: torch.Tensor, include_adversarial: bool,
                      pqmf: Optional[nn.Module] = None,
-                     rng: Optional[torch.Generator] = None
+                     rng: Optional[torch.Generator] = None,
+                     reduce: Optional[Reduce] = None,
+                     share: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, Metrics]:
     """wav (B, T, 1), mel (B, frames, C) -> (generator loss, metrics): the
     weighted sum of the multi-resolution STFT loss, the sub-band STFT loss,
@@ -213,41 +291,43 @@ def generator_losses(generator: nn.Module, discriminators: Discriminators,
     STFT term alone, as the JAX step does), then adds half its own sum,
     unweighted. The discriminators run with their stored spectral vectors;
     the real feature maps are taken without gradient. An NSF generator
-    draws from ``rng``."""
+    draws from ``rng``. Under data parallelism the STFT losses take their
+    sums over the ranks through ``reduce`` and every mean is weighted by
+    ``share``, the shard's part of the global batch."""
     y_ = generator(mel, generator=rng)
     y_full = pqmf.synthesis(y_) if pqmf is not None else y_
     yt, yt_ = wav[..., 0], y_full[..., 0]
     gen_loss = 0.0
     metrics = {}
     if "stft_loss" in criterion:
-        sc, mag = criterion["stft_loss"](yt_, yt)
+        sc, mag = criterion["stft_loss"](yt_, yt, reduce)
         gen_loss = gen_loss + (sc + mag) * criterion["stft_loss"].weights
         metrics["spectral_convergence_loss"] = sc
         metrics["log_stft_magnitude_loss"] = mag
     if "subband_stft_loss" in criterion and pqmf is not None:
         gen_loss = gen_loss * 0.5
         sub_sc, sub_mag = criterion["subband_stft_loss"](
-            y_.transpose(1, 2), pqmf.analysis(wav).transpose(1, 2))
+            y_.transpose(1, 2), pqmf.analysis(wav).transpose(1, 2), reduce)
         gen_loss = gen_loss + 0.5 * (sub_sc + sub_mag)
         metrics["sub_spectral_convergence_loss"] = sub_sc
         metrics["sub_log_stft_magnitude_loss"] = sub_mag
     if "mel_loss" in criterion:
-        mel_l = criterion["mel_loss"](yt_, yt)
+        mel_l = _scaled(criterion["mel_loss"](yt_, yt), share)
         gen_loss = gen_loss + mel_l * criterion["mel_loss"].weights
         metrics["mel_loss"] = mel_l
     if include_adversarial:
         fake_outs, fake_fmaps = run_discriminators(discriminators,
                                                    y_full.transpose(1, 2))
-        adv = sum(criterion["generator_adv_loss"](fake_outs[n])
-                  for n in discriminators)
+        adv = _scaled(sum(criterion["generator_adv_loss"](fake_outs[n])
+                          for n in discriminators), share)
         gen_loss = gen_loss + adv * criterion["generator_adv_loss"].weights
         metrics["adversarial_loss"] = adv
         if "feat_match_loss" in criterion:
             with torch.no_grad():
                 _, real_fmaps = run_discriminators(discriminators,
                                                    wav.transpose(1, 2))
-            fm = sum(criterion["feat_match_loss"](fake_fmaps[n], real_fmaps[n])
-                     for n in discriminators)
+            fm = _scaled(sum(criterion["feat_match_loss"](fake_fmaps[n], real_fmaps[n])
+                             for n in discriminators), share)
             gen_loss = gen_loss + fm * criterion["feat_match_loss"].weights
             metrics["feature_matching_loss"] = fm
     metrics["generator_loss"] = gen_loss
@@ -256,11 +336,13 @@ def generator_losses(generator: nn.Module, discriminators: Discriminators,
 
 def discriminator_losses(discriminators: Discriminators,
                          criterion: Dict[str, Any], wav: torch.Tensor,
-                         y_fake: torch.Tensor) -> Tuple[torch.Tensor, Metrics]:
+                         y_fake: torch.Tensor, share: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, Metrics]:
     """wav and y_fake (B, 1, T) -> (real + fake loss, metrics). The real pass
     stores the new spectral vectors (``update_stats``); the fake pass runs
     first, so that both read the same stored vectors, as in the JAX step,
-    where the fake pass reads the old ones."""
+    where the fake pass reads the old ones. ``share`` weights the means by
+    the shard's part of the global batch."""
     fake_outs, _ = run_discriminators(discriminators, y_fake)
     real_outs, _ = run_discriminators(discriminators, wav, update_stats=True)
     real_total = fake_total = 0.0
@@ -269,6 +351,7 @@ def discriminator_losses(discriminators: Discriminators,
                                                               real_outs[name])
         real_total = real_total + real_l
         fake_total = fake_total + fake_l
+    real_total, fake_total = _scaled(real_total, share), _scaled(fake_total, share)
     dis_loss = real_total + fake_total
     return dis_loss, {"real_loss": real_total.detach(),
                       "fake_loss": fake_total.detach(),
@@ -290,7 +373,9 @@ def make_gan_step(generator: nn.Module, discriminators: Discriminators,
                   disc_clips: Optional[Dict[str, Optional[Callable]]] = None,
                   train_generator: bool = True, include_adversarial: bool = True,
                   pqmf: Optional[nn.Module] = None,
-                  rng: Optional[torch.Generator] = None
+                  rng: Optional[torch.Generator] = None,
+                  data_parallel: Optional[bool] = None,
+                  timer: Optional[mesh.CollectiveTimer] = None
                   ) -> Callable[[torch.Tensor, torch.Tensor], Metrics]:
     """-> step(wav (B, T, 1), mel (B, frames, C)) -> metrics.
     ``train_generator`` and ``include_adversarial`` are the warm-up gates;
@@ -304,12 +389,18 @@ def make_gan_step(generator: nn.Module, discriminators: Discriminators,
        update, schedule.
     2. With ``include_adversarial``: the fake regenerated by the updated
        generator without gradient, the discriminator losses, backward, and
-       per family clip, update, schedule."""
+       per family clip, update, schedule.
+
+    ``data_parallel`` and ``timer``: see ``DataParallel``; the gradients are
+    summed over the ranks after each backward, the generator's in one
+    collective and each discriminator family's in one."""
+    dp = DataParallel(data_parallel, timer)
     disc_params = [p for d in discriminators.values() for p in d.parameters()]
     disc_clips = disc_clips or {}
 
     def step(wav: torch.Tensor, mel: torch.Tensor) -> Metrics:
         metrics = {}
+        share = dp.batch_share(wav.shape[0], wav)
         rng_state = rng.get_state() if rng is not None else None
         if train_generator:
             gen_optimizer.zero_grad(set_to_none=True)
@@ -317,10 +408,11 @@ def make_gan_step(generator: nn.Module, discriminators: Discriminators,
             try:
                 gen_loss, gmetrics = generator_losses(
                     generator, discriminators, criterion, wav, mel,
-                    include_adversarial, pqmf, rng)
+                    include_adversarial, pqmf, rng, dp.reduce, share)
                 gen_loss.backward()
             finally:
                 _set_requires_grad(disc_params, True)
+            dp.grads(gen_optimizer)
             if gen_clip is not None:
                 gen_clip()
             gen_optimizer.step()
@@ -337,41 +429,46 @@ def make_gan_step(generator: nn.Module, discriminators: Discriminators,
             for opt in disc_optimizers.values():
                 opt.zero_grad(set_to_none=True)
             dis_loss, dmetrics = discriminator_losses(
-                discriminators, criterion, wav.transpose(1, 2), y_fake)
+                discriminators, criterion, wav.transpose(1, 2), y_fake, share)
             dis_loss.backward()
             for name in discriminators:
+                dp.grads(disc_optimizers[name])
                 if disc_clips.get(name) is not None:
                     disc_clips[name]()
                 disc_optimizers[name].step()
                 disc_schedulers[name].step()
             metrics.update(dmetrics)
-        return metrics
+        return dp.metrics(metrics)
 
     return step
 
 
 def make_gan_eval_step(generator: nn.Module, discriminators: Discriminators,
                        criterion: Dict[str, Any], pqmf: Optional[nn.Module] = None,
-                       rng: Optional[torch.Generator] = None
+                       rng: Optional[torch.Generator] = None,
+                       data_parallel: Optional[bool] = None,
+                       timer: Optional[mesh.CollectiveTimer] = None
                        ) -> Callable[[torch.Tensor, torch.Tensor],
                                      Tuple[Metrics, torch.Tensor]]:
     """-> eval_step(wav, mel) -> (metrics, generated wav (B, T, 1)): the
     criteria of the config without gradient and without updates (the
     generated wav is the full band, after ``pqmf``'s synthesis); the
     discriminators keep their spectral vectors. An NSF generator draws from
-    ``rng``."""
+    ``rng``. Under data parallelism the metrics are the global batch's."""
+    dp = DataParallel(data_parallel, timer)
 
     @torch.no_grad()
     def eval_step(wav: torch.Tensor, mel: torch.Tensor):
+        share = dp.batch_share(wav.shape[0], wav)
         y_ = generator(mel, generator=rng)
         if pqmf is not None:
             y_ = pqmf.synthesis(y_)
         yt, yt_ = wav[..., 0], y_[..., 0]
         metrics = {}
         if "mel_loss" in criterion:
-            metrics["mel_loss"] = criterion["mel_loss"](yt_, yt)
+            metrics["mel_loss"] = _scaled(criterion["mel_loss"](yt_, yt), share)
         if "stft_loss" in criterion:
-            sc, mag = criterion["stft_loss"](yt_, yt)
+            sc, mag = criterion["stft_loss"](yt_, yt, dp.reduce)
             metrics["spectral_convergence_loss"] = sc
             metrics["log_stft_magnitude_loss"] = mag
         adv = fm = real_total = fake_total = 0.0
@@ -390,6 +487,8 @@ def make_gan_eval_step(generator: nn.Module, discriminators: Discriminators,
                     fake_outs[name], real_outs[name])
                 real_total = real_total + real_l
                 fake_total = fake_total + fake_l
+        adv, fm = _scaled(adv, share), _scaled(fm, share)
+        real_total, fake_total = _scaled(real_total, share), _scaled(fake_total, share)
         if "generator_adv_loss" in criterion:
             metrics["adversarial_loss"] = adv
         if "feat_match_loss" in criterion:
@@ -398,6 +497,6 @@ def make_gan_eval_step(generator: nn.Module, discriminators: Discriminators,
             metrics["real_loss"] = real_total
             metrics["fake_loss"] = fake_total
             metrics["discriminator_loss"] = real_total + fake_total
-        return metrics, y_
+        return dp.metrics(metrics), y_
 
     return eval_step

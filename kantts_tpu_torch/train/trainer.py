@@ -13,10 +13,20 @@ interval reads them, the only host syncs the loop adds.
 Checkpoints are ``stage/ckpt/checkpoint_{steps}.ckpt`` in the format of
 ``models/builder.py``, written atomically; ``keep_last_checkpoints`` keeps
 the newest k (0 keeps all). A crash writes ``checkpoint-{steps}.ckpt``.
+
+Under data parallelism (``parallel/mesh.py``) every rank runs the loop, the
+steps and the evaluation, whose metrics are the global batch's and so equal
+on every rank; rank 0 alone writes checkpoints and intermediate results and
+logs. With ``KANTTS_TRAIN_PROFILE=1`` rank 0 also logs, at each log
+interval, the wall seconds of the loop's phases: loader wait, device put,
+step (the host's dispatch, and its waits on the device), eval, save and log
+(the one host sync of the interval), and the collectives' seconds inside
+the steps (``allreduce``, device time from CUDA events on the card).
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
@@ -27,10 +37,50 @@ import numpy as np
 import torch
 
 from kantts_tpu_torch.models.builder import save_checkpoint
+from kantts_tpu_torch.parallel.mesh import CollectiveTimer, barrier, is_primary
 from kantts_tpu_torch.train.steps import sambert_forward
 from kantts_tpu_torch.utils.audio import save_wav
+from kantts_tpu_torch.utils.config import load_yaml, stamp_and_dump
+from kantts_tpu_torch.utils.log import log_to_file
 
 History = List[Tuple[str, int, Dict[str, float]]]
+PROFILE_ENV = "KANTTS_TRAIN_PROFILE"
+
+
+def collective_timer() -> Optional[CollectiveTimer]:
+    """A timer for the steps' collectives when ``KANTTS_TRAIN_PROFILE=1``."""
+    return CollectiveTimer() if os.environ.get(PROFILE_ENV) == "1" else None
+
+
+def primary_log(stage_dir: str) -> contextlib.AbstractContextManager:
+    """``stage_dir/stdout.log`` on rank 0, nothing on the other ranks."""
+    if is_primary():
+        return log_to_file(os.path.join(stage_dir, "stdout.log"))
+    return contextlib.nullcontext()
+
+
+def stamped_config(config: Dict[str, Any], stage_dir: str) -> Dict[str, Any]:
+    """Rank 0 stamps ``config`` and writes ``stage_dir/config.yaml``; after a
+    barrier every rank reads the run's config from that file."""
+    if is_primary():
+        stamp_and_dump(config, stage_dir)
+    barrier()
+    return load_yaml(os.path.join(stage_dir, "config.yaml"))
+
+
+def run(trainer: "Trainer") -> "Trainer":
+    """``trainer.train()``; on a failure rank 0 saves
+    ``checkpoint-{steps}.ckpt`` before the error goes on."""
+    try:
+        trainer.train()
+    except (Exception, KeyboardInterrupt):
+        logging.exception("training failed at step %d", trainer.steps)
+        if is_primary():
+            trainer.save_checkpoint(
+                os.path.join(trainer.ckpt_dir, f"checkpoint-{trainer.steps}.ckpt"))
+            logging.info("Saved crash checkpoint at step %d", trainer.steps)
+        raise
+    return trainer
 
 
 def prune_checkpoints(ckpt_dir: str, keep_last: int) -> None:
@@ -75,7 +125,8 @@ class Trainer:
     def __init__(self, config: Dict[str, Any], train_loader, valid_loader,
                  save_dir: str, device: torch.device, max_steps=None,
                  save_interval: int = 1, valid_interval: int = 1,
-                 log_interval: int = 10):
+                 log_interval: int = 10,
+                 timer: Optional[CollectiveTimer] = None):
         self.config = config
         self.train_loader = train_loader
         self.valid_loader = valid_loader
@@ -94,9 +145,15 @@ class Trainer:
         self.total_eval_loss: Dict[str, Any] = defaultdict(float)
         self.history: History = []  # ("train" | "eval", steps, means)
         self._last_log_time = None
+        # KANTTS_TRAIN_PROFILE=1: the loop's phase seconds; ``timer`` is the
+        # one the steps' collectives report to
+        self.profile = os.environ.get(PROFILE_ENV) == "1"
+        self.timer = timer
+        self.phase_seconds: Dict[str, float] = defaultdict(float)
 
         self.ckpt_dir = os.path.join(save_dir, "ckpt")
-        os.makedirs(self.ckpt_dir, exist_ok=True)
+        if is_primary():
+            os.makedirs(self.ckpt_dir, exist_ok=True)
         self.eval_rng = np.random.RandomState(config.get("seed", 0))
 
     # ------------------------------------------------------------------ loop
@@ -113,13 +170,27 @@ class Trainer:
         """A collated batch from the loader -> what the steps take."""
         return batch_to_device(batch, self.device)
 
+    def _timed(self, phase: str, fn: Callable, *args):
+        """``fn(*args)``, its wall seconds added to ``phase`` when profiling."""
+        if not self.profile:
+            return fn(*args)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        self.phase_seconds[phase] += time.perf_counter() - t0
+        return out
+
     def train_epoch(self):
-        for batch in self.train_loader:
-            self.train_step(self.to_device(batch))
+        batches = iter(self.train_loader)
+        while True:
+            batch = self._timed("loader_wait", next, batches, None)
+            if batch is None:
+                break
+            batch = self._timed("device_put", self.to_device, batch)
+            self._timed("step", self.train_step, batch)
             self.steps_taken += 1
-            self.check_eval_interval()
-            self.check_save_interval()
-            self.check_log_interval()
+            self._timed("eval", self.check_eval_interval)
+            self._timed("save", self.check_save_interval)
+            self._timed("log", self.check_log_interval)
             self.steps += 1
             self.check_stop_training()
             if self.finish_training:
@@ -134,6 +205,8 @@ class Trainer:
     # ------------------------------------------------------------- intervals
 
     def check_save_interval(self):
+        if not is_primary():
+            return
         if self.steps % self.save_interval == 0 or self.steps == self.max_steps:
             self.save_checkpoint(
                 os.path.join(self.ckpt_dir, f"checkpoint_{self.steps}.ckpt"))
@@ -146,16 +219,36 @@ class Trainer:
             return
         means = {key: float(value) / self.log_interval
                  for key, value in self.total_train_loss.items()}
-        for key, value in means.items():
-            logging.info("(Steps: %d) %s = %.4f.", self.steps, key, value)
+        primary = is_primary()
+        if primary:
+            for key, value in means.items():
+                logging.info("(Steps: %d) %s = %.4f.", self.steps, key, value)
         now = time.perf_counter()
         if self._last_log_time is not None:
             means["train/steps_per_sec"] = self.log_interval / (now - self._last_log_time)
-            logging.info("(Steps: %d) steps_per_sec = %.3f.", self.steps,
-                         means["train/steps_per_sec"])
+            if primary:
+                logging.info("(Steps: %d) steps_per_sec = %.3f.", self.steps,
+                             means["train/steps_per_sec"])
+        if self.profile:
+            self.log_phases(now)
         self._last_log_time = now
         self.history.append(("train", self.steps, means))
         self.total_train_loss = defaultdict(float)
+
+    def log_phases(self, now: float) -> None:
+        """Rank 0 logs the phase seconds since the last log interval (none at
+        the first, which has no window); every interval starts afresh."""
+        phases = dict(self.phase_seconds)
+        if self.timer is not None:
+            phases["allreduce"] = self.timer.take_seconds()
+        self.phase_seconds = defaultdict(float)
+        if self._last_log_time is None or not is_primary():
+            return
+        window = now - self._last_log_time
+        tracked = sum(v for k, v in phases.items() if k != "allreduce")
+        logging.info("(Steps: %d) phase_seconds %s other=%.4f window=%.4f",
+                     self.steps, " ".join(f"{k}={v:.4f}" for k, v in sorted(phases.items())),
+                     max(window - tracked, 0.0), window)
 
     def check_eval_interval(self):
         if self.valid_interval > 0 and self.steps % self.valid_interval == 0:
@@ -171,21 +264,27 @@ class Trainer:
     # ------------------------------------------------------------------ eval
 
     def eval_epoch(self):
-        logging.info("(Epoch: %d) Start evaluation.", self.epoch)
+        """Every rank evaluates (the steps' collectives need them all); rank 0
+        saves the intermediate results of one batch, drawn on every rank, and
+        logs."""
+        primary = is_primary()
+        if primary:
+            logging.info("(Epoch: %d) Start evaluation.", self.epoch)
         self.total_eval_loss = defaultdict(float)
         num_batches = max(1, len(self.valid_loader))
         rand_idx = self.eval_rng.randint(0, num_batches)
         for idx, batch in enumerate(self.valid_loader):
             batch = self.to_device(batch)
-            self.eval_step(batch)
-            if idx == rand_idx:
-                self.generate_and_save_intermediate_result(batch)
+            out = self.eval_step(batch)
+            if idx == rand_idx and primary:
+                self.generate_and_save_intermediate_result(batch, out)
         means = {key: float(value) / num_batches
                  for key, value in self.total_eval_loss.items()}
-        for key, value in means.items():
-            logging.info("(Steps: %d) %s = %.4f.", self.steps, key, value)
+        if primary:
+            for key, value in means.items():
+                logging.info("(Steps: %d) %s = %.4f.", self.steps, key, value)
+            logging.info("Epoch %d evaluation finished", self.epoch)
         self.history.append(("eval", self.steps, means))
-        logging.info("Epoch %d evaluation finished", self.epoch)
 
     # --------------------------------------------------- subclass interface
 
@@ -193,10 +292,13 @@ class Trainer:
         raise NotImplementedError
 
     def eval_step(self, batch):
+        """Accumulate the eval metrics of ``batch``; -> what the intermediate
+        results of that batch need from the step, if anything."""
         raise NotImplementedError
 
-    def generate_and_save_intermediate_result(self, batch):
-        pass
+    def generate_and_save_intermediate_result(self, batch, out=None):
+        """Write artifacts of ``batch`` (``out``: what ``eval_step`` returned
+        for it). Rank 0 alone calls it, so it runs no collective."""
 
     def save_checkpoint(self, path):
         raise NotImplementedError
@@ -233,7 +335,7 @@ class SambertTrainer(Trainer):
                         self.eval_step_fn(batch, self.epoch), "eval")
 
     @torch.no_grad()
-    def generate_and_save_intermediate_result(self, batch):
+    def generate_and_save_intermediate_result(self, batch, out=None):
         """Save the postnet mels of the first few items and the coarse,
         output and target mels of the first item as .npy."""
         out_dir = os.path.join(self.save_dir, f"intermediate_results_{self.steps}")
@@ -313,13 +415,15 @@ class GanTrainer(Trainer):
         self.accumulate(self.total_train_loss, self.step_fn()(*batch), "train")
 
     def eval_step(self, batch):
-        metrics, _ = self.eval_step_fn(*batch)
+        metrics, y_gen = self.eval_step_fn(*batch)
         self.accumulate(self.total_eval_loss, metrics, "eval")
+        return y_gen
 
-    def generate_and_save_intermediate_result(self, batch):
-        """``{i}_ref.wav`` and ``{i}_gen.wav`` of the first few items."""
-        wav, mel = batch
-        _, y_gen = self.eval_step_fn(wav, mel)
+    def generate_and_save_intermediate_result(self, batch, out=None):
+        """``{i}_ref.wav`` and ``{i}_gen.wav`` of the first few items; the
+        generated waveform is the eval step's, ``out``."""
+        wav, _ = batch
+        y_gen = out
         out_dir = os.path.join(self.save_dir, f"intermediate_results_{self.steps}")
         os.makedirs(out_dir, exist_ok=True)
         n = min(self.config.get("num_save_intermediate_results", 4), wav.shape[0])
@@ -371,7 +475,7 @@ class TextsyBertTrainer(SambertTrainer):
     def eval_step(self, batch):
         self.accumulate(self.total_eval_loss, self.eval_step_fn(batch), "eval")
 
-    def generate_and_save_intermediate_result(self, batch):
+    def generate_and_save_intermediate_result(self, batch, out=None):
         pass
 
 

@@ -141,9 +141,12 @@ def test_load_merged_config(name, tmp_path):
                                   "sambert_se_nsf_global_16k", "audio_config_24k",
                                   "sambert_fp_8k", "sybert", "hifigan_v1_8k",
                                   "audio_config_8k", "audio_config_16k",
-                                  "audio_config_se_16k"])
+                                  "audio_config_se_16k", "audio_config_48k",
+                                  "hifigan_v1_24k", "hifigan_v1_48k", "sambert_16k",
+                                  "sambert_24k", "sambert_48k",
+                                  "sambert_sichuan_16k"])
 def test_config_copies_equal_the_originals(name):
-    """The port's copies of the YAML configs that chip_smoke.py reads."""
+    """The port's copies of the JAX package's YAML configs, all 24."""
     copy = os.path.join(ROOT, "kantts_tpu_torch", "resources", "configs", f"{name}.yaml")
     with open(copy, "rb") as f, open(os.path.join(CONFIGS, f"{name}.yaml"), "rb") as g:
         assert f.read() == g.read()
@@ -465,15 +468,16 @@ def test_text_script_convertor(voice, tmp_path):
 
 
 def test_new_modules_import_without_jax():
-    """The preprocessing modules import with JAX and the JAX package made
-    unimportable."""
+    """The preprocessing and data-parallel modules import with JAX and the
+    JAX package made unimportable."""
     code = ("import sys\n"
             "for name in ('jax', 'flax', 'optax', 'kantts_tpu'):\n"
             "    sys.modules[name] = None\n"
             "import kantts_tpu_torch.bin.process_data, kantts_tpu_torch.data.data_types\n"
             "import kantts_tpu_torch.dsp.griffin_lim, kantts_tpu_torch.native.pitch\n"
             "import kantts_tpu_torch.preprocess.se_processor\n"
-            "import kantts_tpu_torch.utils.metrics\n")
+            "import kantts_tpu_torch.utils.metrics\n"
+            "import kantts_tpu_torch.parallel.mesh, kantts_tpu_torch.bin.train_sybert\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
