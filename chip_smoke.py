@@ -3,13 +3,16 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --k1-before OLD/mas.cu   # K1 before/after only
     python3 chip_smoke.py --ddp-worker RANK PORT OUT   # one rank of phase 13 (b)
+    python3 chip_smoke.py --int8-export   # phase 14 alone, on seeded checkpoints
+    python3 chip_smoke.py --profiler-drops REPS   # how often the profiler loses records
 
-Builds kernel K1 (the MAS Viterbi, kantts_tpu_torch/csrc/mas.cu) from the
+Builds kernels K1 (the MAS Viterbi, kantts_tpu_torch/csrc/mas.cu) and K2
+(the int8 vocoder conv, kantts_tpu_torch/csrc/int8_conv.cu) from the
 checkout and drives the port at the full width of sambert_16k_MAS and
 hifigan_v1_16k, with weights made from a seed:
 
   0. device: the card's name and power limit; raises without a CUDA card;
-  1. build K1;
+  1. build K1 and K2, one nvcc each, at once;
   2. K1 against its plain PyTorch version, exact, in both of its variants,
      on maps with NaN, +-inf, zero and negative cells, ties, and lengths of
      0, 1 and the full size, at widths 13, 97, 1000 and 1100; then timed
@@ -141,6 +144,26 @@ hifigan_v1_16k, with weights made from a seed:
      step at 32 x 96 x 576 and the GAN step at 16 x 9600 beside the plain
      steps, in turns, with the collectives' ms a step, the gradient bytes
      and the host syncs. K1 launches in (b) and (c).
+ 14. int8 and the serving artifact, on phase 6's seeded checkpoints: (a)
+     K2 against its plain version, exact (the int8 activations and scales,
+     the int32 sums, the outputs), at every distinct shape of
+     hifigan_v1_16k's 104 int8 convs at B=1 on 400 frames with the
+     generator's own int8 weights, each timed beside the plain version,
+     cuDNN's float32 conv and im2col + ``torch._int_mm``, then at T=1, a
+     T off the tile, zeros, saturated input, |acc| > 2^24, a static
+     scale, and the non-causal conv and transposed conv; (b) the int8
+     vocoder at B=1 on 5 s against float32 (SNR, ms, 104 K2 launches a
+     call), B=4 batch invariance and static calibrated chunked-8, bit for
+     bit, and card vs CPU within the two quantization errors and the
+     float32 gap; (c) ``infer_hifigan --int8``
+     and ``serve_tts --int8`` through their CLIs with no ``--device``; (d)
+     ``export_tts export`` at its defaults (96 symbols, 2304 frames),
+     float32 and ``--int8``, two processes at once: seconds and bytes; (e)
+     ``export_tts synth`` in a process that cannot import the model
+     classes, ``ExportedTTS`` within 1e-5 of ``fused_infer`` on the card
+     (float32 and int8), first and warm times, a 24-symbol artifact card
+     vs CPU, and the node count of the whole fused program exported as one
+     graph. K1 must not launch.
 
 Each phase prints lines of its own and raises on failure. Before the last
 line it prints a JSON object on the kernels; the last line is
@@ -234,12 +257,34 @@ def phase_device() -> str:
 
 
 def phase_build():
+    """Build K1 and K2 at once, one nvcc each, in two threads."""
+    import threading
+
+    from kantts_tpu_torch.ops.int8_conv import int8_conv_cuda
     from kantts_tpu_torch.ops.mas import b_mas_cuda
 
-    b_mas_cuda.build()
-    ptxas = [ln.strip() for ln in b_mas_cuda.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    log("build", seconds=round(b_mas_cuda.build_seconds, 3), ptxas=ptxas)
+    errors = []
+
+    def build(kernel):
+        try:
+            kernel.build()
+        except BaseException as e:  # re-raised below, in this thread
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=build, args=(k,))
+               for k in (b_mas_cuda, int8_conv_cuda)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    for name, kernel in (("K1", b_mas_cuda), ("K2", int8_conv_cuda)):
+        ptxas = [ln.strip() for ln in kernel.build_log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        log("build", kernel=name, seconds=round(kernel.build_seconds, 3), ptxas=ptxas)
+    log("build", wall_seconds=round(time.perf_counter() - t0, 3))
 
 
 def ragged_map(rng, B, T_mel, T_text):
@@ -293,17 +338,17 @@ def k1_bound(B: int, T_mel: int, T_text: int):
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
-def kernel_ms(fn, names, n: int) -> float:
-    """Device milliseconds of one call of ``fn``, over n calls under
-    torch.profiler: the sum, over the kernels whose names contain one of
-    ``names``, of each one's mean duration (the kernels alone, without the
-    host's cost of the call)."""
+PROFILE_WINDOWS = 4  # profiled windows kernel_ms may take before it gives up
+
+
+def profile_window(fn, names, n: int) -> dict:
+    """n calls of ``fn`` under torch.profiler -> {kernel name: [device us of
+    each of its records]} for the kernels whose names contain one of
+    ``names``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
@@ -312,11 +357,57 @@ def kernel_ms(fn, names, n: int) -> float:
     for e in prof.events():
         if e.device_type == DeviceType.CUDA and any(k in e.name for k in names):
             durs[e.name].append(e.time_range.end - e.time_range.start)
-    # the profiler can drop a kernel at the edge of its window
-    if not durs or any(not n - 1 <= len(d) <= n for d in durs.values()):
-        raise AssertionError(f"profiler saw {[(k[:40], len(d)) for k, d in durs.items()]}"
-                             f" launches of {names} in {n} calls")
-    return sum(sum(d) / len(d) for d in durs.values()) / 1e3
+    return durs
+
+
+def kernel_ms(fn, names, n: int) -> float:
+    """Device milliseconds of one call of ``fn``, over n calls under
+    torch.profiler: the sum, over the kernels whose names contain one of
+    ``names``, of each one's mean duration (the kernels alone, without the
+    host's cost of the call).
+
+    CUPTI now and then loses the records of a whole window, or of most of
+    it (``--profiler-drops`` counts how often). Such a window is logged and
+    profiled again, up to PROFILE_WINDOWS in all; then it raises."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(PROFILE_WINDOWS):
+        durs = profile_window(fn, names, n)
+        # the profiler can drop a kernel at the edge of its window
+        if durs and all(n - 1 <= len(d) <= n for d in durs.values()):
+            return sum(sum(d) / len(d) for d in durs.values()) / 1e3
+        seen.append([(k[:40], len(d)) for k, d in durs.items()])
+        log("profiler_drop", kernels=",".join(names), calls=n, seen=json.dumps(seen[-1]))
+    raise AssertionError(f"profiler saw {seen} launches of {names} in {n} calls, "
+                         f"in each of {PROFILE_WINDOWS} windows")
+
+
+def phase_profiler_drops(reps: int) -> dict:
+    """How often torch.profiler loses kernel records: ``reps`` rounds of
+    phase 2's crossover windows (10 calls of K1 in each variant at B=8,
+    T_mel 576, T_text 96-1024) -> {records of K1 seen in a window: windows}.
+    A warp-variant call launches one kernel, a block-variant call two."""
+    import torch
+
+    from kantts_tpu_torch.ops.mas import b_mas_cuda
+
+    rng = np.random.RandomState(0)
+    hist = collections.Counter()
+    for _ in range(reps):
+        for T_text in (96, 128, 256, 512, 800, 1024):
+            args = ragged_map(rng, 8, 576, T_text)
+            for variant in (1, 2):
+                fn = lambda: b_mas_cuda(*args, variant=variant)  # noqa: E731
+                fn()
+                torch.cuda.synchronize()
+                durs = profile_window(fn, K1_KERNELS, 10)
+                hist[sum(len(d) for d in durs.values())] += 1
+    log("profiler_drops", windows=sum(hist.values()),
+        records_per_window=json.dumps(dict(sorted(hist.items()))))
+    return dict(hist)
 
 
 K1_KERNELS = ("mas_score_kernel", "mas_warp_kernel", "mas_block_kernel")
@@ -492,10 +583,9 @@ def check_wavs(out_dir: str, sr_want: int = 16000, hop: int = HOP) -> int:
     return len(chunks)
 
 
-def phase_text_to_wav(tmp: str):
-    import torch
-
-    from kantts_tpu_torch.bin.text_to_wav import text_to_wav
+def seeded_checkpoints(tmp: str):
+    """Full-width sambert_16k_MAS (seed 1) and hifigan_v1_16k (seed 2)
+    checkpoints, and TEXTS in ``tmp/text.txt``. -> (am_ckpt, voc_ckpt)."""
     from kantts_tpu_torch.configs import get_config
     from kantts_tpu_torch.models.builder import model_builder, save_checkpoint
 
@@ -507,9 +597,18 @@ def phase_text_to_wav(tmp: str):
     am_ckpt, voc_ckpt = os.path.join(tmp, "am.pt"), os.path.join(tmp, "voc.pt")
     save_checkpoint(am_ckpt, model_builder(am_cfg, seed=1), am_cfg)
     save_checkpoint(voc_ckpt, model_builder(voc_cfg, seed=2), voc_cfg)
-    text = os.path.join(tmp, "text.txt")
-    with open(text, "w", encoding="utf-8") as f:
+    with open(os.path.join(tmp, "text.txt"), "w", encoding="utf-8") as f:
         f.write("\n".join(TEXTS) + "\n")
+    return am_ckpt, voc_ckpt
+
+
+def phase_text_to_wav(tmp: str):
+    import torch
+
+    from kantts_tpu_torch.bin.text_to_wav import text_to_wav
+
+    am_ckpt, voc_ckpt = seeded_checkpoints(tmp)
+    text = os.path.join(tmp, "text.txt")
 
     out_cli = os.path.join(tmp, "cli")
     proc = subprocess.run(
@@ -1194,20 +1293,34 @@ def post(port: int, path: str, text: str):
     return time.perf_counter() - t0, body
 
 
-def serve_subprocess(am_ckpt: str, voc_ckpt: str, expect: np.ndarray) -> dict:
+# a CLI module run as ``python -m`` would run it, in a process whose PyTorch
+# computes float32 as this one does (TF32 off for matmuls and cuDNN); an
+# int8 path re-quantizes after any float32 difference, so its CLIs are held
+# to this process's output in the same arithmetic
+CLI_F32 = ("import runpy, sys, torch\n"
+           "torch.backends.cuda.matmul.allow_tf32 = False\n"
+           "torch.backends.cudnn.allow_tf32 = False\n"
+           "sys.argv = sys.argv[1:]\n"
+           "runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)\n")
+
+
+def serve_subprocess(am_ckpt: str, voc_ckpt: str, expect: np.ndarray,
+                     args=(), f32_flags: bool = False) -> dict:
     """``python -m kantts_tpu_torch.bin.serve_tts`` with no --device: warm up,
     bind port 0, answer one /tts request (held to ``expect``, the in-process
     service's PCM of TEXTS[3] requested alone, so at the same shapes), drain
     and exit 0 on SIGTERM. The child runs with NVIDIA_TF32_OVERRIDE=0, the
     float32 this process set up in phase_device: PyTorch's default lets
-    cuDNN use TF32, which moves this comparison past one PCM16 step."""
+    cuDNN use TF32, which moves this comparison past one PCM16 step.
+    ``args`` go to the CLI as well; ``f32_flags`` runs it under ``CLI_F32``."""
     import signal
     import threading
 
     t0 = time.perf_counter()
+    launcher = ["-c", CLI_F32] if f32_flags else ["-m"]
     proc = subprocess.Popen(
-        [sys.executable, "-m", "kantts_tpu_torch.bin.serve_tts", "--am_ckpt", am_ckpt,
-         "--voc_ckpt", voc_ckpt, "--port", "0", "--warmup_text", TEXTS[3]],
+        [sys.executable, *launcher, "kantts_tpu_torch.bin.serve_tts", "--am_ckpt", am_ckpt,
+         "--voc_ckpt", voc_ckpt, "--port", "0", "--warmup_text", TEXTS[3], *args],
         cwd=ROOT, stderr=subprocess.PIPE, text=True,
         env=dict(os.environ, NVIDIA_TF32_OVERRIDE="0"))
     lines = []
@@ -3152,11 +3265,11 @@ def old_k1(src: str):
 
     import torch
 
-    from kantts_tpu_torch.ops.mas import BUILD_DIR, NVCC_FLAGS, _find_nvcc
+    from kantts_tpu_torch.ops.nvcc import BUILD_DIR, NVCC_FLAGS, find_nvcc
 
     os.makedirs(BUILD_DIR, exist_ok=True)
     lib_path = os.path.join(BUILD_DIR, "libkantts_mas_before.so")
-    subprocess.run([_find_nvcc(), *NVCC_FLAGS, "-o", lib_path, src], check=True,
+    subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", lib_path, src], check=True,
                    capture_output=True, text=True)
     lib = ctypes.CDLL(lib_path)
     lib.kantts_mas_width1.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
@@ -3729,6 +3842,632 @@ def phase_ddp(tmp: str) -> dict:
             "seconds": seconds}
 
 
+# ------------------------------------------------------------------ phase 14
+
+INT8_FRAMES = 400  # 5 s at hop 200: the B=1 shape of K2's checks and timings
+INT8_CPU_FRAMES = 100  # the int8 vocoder card vs CPU, short for the CPU
+SMALL_ARTIFACT = (24, 144)  # symbols, frames of the artifact run card vs CPU
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 (NVIDIA's data sheet)
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+
+
+def int8_conv_shapes(gen, mel) -> list:
+    """One call of the int8 generator on ``mel``, its int8 convs recorded
+    in call order: -> [(module, input shape)]."""
+    import torch
+
+    from kantts_tpu_torch.models.hifigan.generator import int8_convs
+
+    calls = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, inp: calls.append((mod, tuple(inp[0].shape))))
+        for m in int8_convs(gen).values()]
+    try:
+        with torch.inference_mode():
+            gen(mel)
+    finally:
+        for h in hooks:
+            h.remove()
+    return calls
+
+
+def conv_geometry(mod, shape) -> dict:
+    """The int8_conv1d arguments of an int8 conv module at input ``shape``."""
+    k = mod.w_q.shape[2]
+    if mod.transposed:
+        return dict(transposed=True, stride=mod.stride, dilation=1,
+                    pad_left=mod.padding, pad_right=mod.padding, causal=mod.causal,
+                    C_in=shape[1], C_out=mod.w_q.shape[1], k=k, T=shape[2])
+    causal = mod.pads[1] == 0 and mod.pads[0] > 0
+    return dict(transposed=False, stride=mod.stride, dilation=mod.dilation,
+                pad_left=mod.pads[0], pad_right=mod.pads[1], causal=causal,
+                C_in=shape[1], C_out=mod.w_q.shape[0], k=k, T=shape[2])
+
+
+def k2_bound(g: dict, B: int = 1) -> tuple:
+    """-> (bound ms, "bytes" or "operations", ops ms, bytes ms) of one int8
+    conv: the input
+    read once in float32, the int8 weights and two float32 per-channel
+    vectors, the float32 output written once; 2 C_in k operations an output
+    (a conv) or an input (a transposed conv), at the int8 tensor-core peak."""
+    from kantts_tpu_torch.ops.int8_conv import out_len
+
+    T_out = out_len(g["T"], g["k"], g["stride"], g["dilation"], g["pad_left"],
+                    g["pad_right"], g["transposed"], g["causal"])
+    macs = B * g["C_in"] * g["C_out"] * g["k"] * (g["T"] if g["transposed"] else T_out)
+    nbytes = (4 * B * g["C_in"] * g["T"] + g["C_out"] * g["C_in"] * g["k"]
+              + 8 * g["C_out"] + 4 * B * g["C_out"] * T_out)
+    ops_ms, bytes_ms = 2 * macs / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes", \
+        ops_ms, bytes_ms
+
+
+def int_mm_call(g: dict, q, w_q):
+    """The library yardstick of one int8 conv on its quantized input ``q``
+    (B, C_in, T) int8: the im2col (a conv) and one ``torch._int_mm``, with
+    the overlap-add of a transposed conv (kernel a multiple of its stride);
+    None where ``_int_mm`` refuses the shape. The port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    B, C, T = q.shape
+    k, s, d = g["k"], g["stride"], g["dilation"]
+    if g["transposed"]:
+        if k % s:
+            return None
+        a = q.permute(0, 2, 1).reshape(B * T, C).contiguous()
+        w = w_q.reshape(C, g["C_out"] * k)
+
+        def call():
+            y = torch._int_mm(a, w).reshape(B, T, g["C_out"], k // s, s)
+            full = torch.zeros((B, g["C_out"], (T + k // s - 1) * s), dtype=torch.int32,
+                               device=q.device)
+            for m in range(k // s):  # tap group m lands m frames later
+                full[:, :, m * s:(m + T) * s] += y[:, :, :, m].permute(0, 2, 1, 3).reshape(
+                    B, g["C_out"], T * s)
+            return full
+    else:
+        qp = F.pad(q, (g["pad_left"], g["pad_right"]))
+        T_out = (T + g["pad_left"] + g["pad_right"] - d * (k - 1) - 1) // s + 1
+        w = w_q.reshape(g["C_out"], C * k).t()
+
+        def call():
+            cols = torch.stack([qp[:, :, j * d:j * d + (T_out - 1) * s + 1:s]
+                                for j in range(k)], dim=2)
+            return torch._int_mm(cols.permute(0, 3, 1, 2).reshape(B * T_out, C * k), w)
+    try:
+        call()
+    except RuntimeError as e:
+        return str(e).splitlines()[0][:120]
+    return call
+
+
+def k2_checks(gen) -> dict:
+    """(a) K2 against its plain version on the card, exact (0 on the int8
+    activations, the int32 sums and the outputs), at every distinct shape of
+    the generator's int8 convs at B=1 and INT8_FRAMES, with the module's own
+    int8 weights; each timed by CUDA events beside the plain version,
+    cuDNN's float32 conv on the same float32 weights, and im2col +
+    ``torch._int_mm`` (the GEMM alone, on the quantized input). Then the edge
+    cases: T=1, a T that is no multiple of the 64-step tile, an all-zero
+    input, a saturated one, |acc| > 2^24, a static scale, and the
+    non-causal conv and transposed conv."""
+    import torch
+    import torch.nn.functional as F
+
+    from kantts_tpu_torch.models.hifigan.layers import effective_weight
+    from kantts_tpu_torch.ops.int8_conv import (
+        int8_conv_cuda,
+        int8_conv_torch,
+        int8_sums_torch,
+        quantize_sym,
+        quantize_weight,
+        scales,
+    )
+
+    rng = np.random.RandomState(14)
+    mel = torch.from_numpy(rng.randn(1, INT8_FRAMES, 80).astype(np.float32)).cuda()
+    calls = int8_conv_shapes(gen, mel)
+    distinct = {}
+    for mod, shape in calls:
+        g = conv_geometry(mod, shape)
+        key = tuple(sorted(g.items()))
+        distinct.setdefault(key, {"g": g, "mod": mod, "count": 0})["count"] += 1
+
+    out_errs = []
+
+    def exact(g, x, w_q, s_w, bias, s_static=None) -> float:
+        """-> the largest |int32 sum|, after holding K2 to the plain version."""
+        args = (g["stride"], g["dilation"], g["pad_left"], g["pad_right"],
+                g["transposed"], g["causal"])
+        pads = (0, 0) if g["transposed"] else (g["pad_left"], g["pad_right"])
+        q, s_x = int8_conv_cuda.quantize(x, s_static, *pads)
+        s_ref = scales(x, s_static)
+        q_ref = quantize_sym(x, s_ref[:, None, None])
+        T = x.shape[2]
+        q_got = q[:, pads[0]:pads[0] + T, :x.shape[1]].permute(0, 2, 1)
+        zero_pad = (q[:, :pads[0]].abs().sum() + q[:, pads[0] + T:].abs().sum()
+                    + q[:, :, x.shape[1]:].abs().sum()).item()
+        sums = int8_conv_cuda(x, w_q, s_w, bias, s_static, *args, sums=True)
+        sums_ref = int8_sums_torch(q_ref, w_q, *args)
+        out = int8_conv_cuda(x, w_q, s_w, bias, s_static, *args)
+        out_ref = int8_conv_torch(x, w_q, s_w, bias, s_static, *args)
+        torch.cuda.synchronize()
+        errs = [float((s_x != s_ref).sum()), float((q_got != q_ref).sum()), zero_pad,
+                float((sums.long() - sums_ref.long()).abs().max()),
+                float((out - out_ref).abs().max())]
+        out_errs.append(errs[4])
+        if any(errs) or out.shape != out_ref.shape:
+            raise AssertionError(f"K2 vs plain at {g}: scales, int8 values, padding, "
+                                 f"sums, outputs differ by {errs}")
+        return float(sums_ref.abs().max())
+
+    shapes = []
+    for entry in distinct.values():
+        g, mod = entry["g"], entry["mod"]
+        x = torch.from_numpy(rng.randn(1, g["C_in"], g["T"]).astype(np.float32)).cuda()
+        w32 = effective_weight(mod.params).detach()
+        bias = mod.params.bias.detach()
+        exact(g, x, mod.w_q, mod.s_w, bias)
+        args = (g["stride"], g["dilation"], g["pad_left"], g["pad_right"],
+                g["transposed"], g["causal"])
+        q_nct = quantize_sym(x, scales(x, None)[:, None, None])
+        lib = int_mm_call(g, q_nct, mod.w_q)
+        if g["transposed"]:
+            def cudnn():
+                return F.conv_transpose1d(x, w32, bias, g["stride"])
+        else:
+            def cudnn():
+                return F.conv1d(F.pad(x, (g["pad_left"], g["pad_right"])), w32, bias,
+                                g["stride"], 0, g["dilation"])
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: int8_conv_cuda(x, mod.w_q, mod.s_w, bias, None, *args), 10)
+            plain_ms = cuda_ms(lambda: int8_conv_torch(x, mod.w_q, mod.s_w, bias, None,
+                                                       *args), 5)
+            cudnn_ms = cuda_ms(cudnn, 10)
+            library_ms = cuda_ms(lib, 10) if callable(lib) else None
+        bound_ms, bound_by, ops_ms, bytes_ms = k2_bound(g)
+        shapes.append({"conv": ("convT" if g["transposed"] else "conv")
+                       + f" {g['C_in']}->{g['C_out']} k{g['k']} s{g['stride']} "
+                       f"d{g['dilation']} T{g['T']}",
+                       "count": entry["count"], "ms": ms, "plain_ms": plain_ms,
+                       "cudnn_f32_ms": cudnn_ms, "library_ms": library_ms,
+                       "library_refused": None if callable(lib) else lib,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+                       "share_of_bound": bound_ms / ms})
+
+    # edge cases at the widest stage's widths
+    edge = {}
+    g0 = dict(transposed=False, stride=1, dilation=3, pad_left=18, pad_right=0,
+              causal=True, C_in=128, C_out=128, k=7, T=1)
+    w = torch.from_numpy(rng.randn(128, 128, 7).astype(np.float32)).cuda()
+    w_q, s_w = quantize_weight(w, False)
+    b = torch.from_numpy(rng.randn(128).astype(np.float32)).cuda()
+    for name, T, fill in (("T1", 1, None), ("T4037", 4037, None), ("zeros", 300, 0.0),
+                          ("saturated", 300, "sat")):
+        x = torch.from_numpy(rng.randn(2, 128, T).astype(np.float32)).cuda()
+        if fill == 0.0:
+            x.zero_()
+        elif fill == "sat":
+            x = torch.where(x >= 0, 1e3, -1e3).float()
+        edge[name] = exact(dict(g0, T=T), x, w_q, s_w, b)
+    big = dict(g0, C_in=256, k=7, dilation=1, pad_left=6, T=50)
+    wb = torch.ones((128, 256, 7), device="cuda")
+    wb[:, 100, 3] = 126.0 / 127.0
+    wb_q, wb_s = quantize_weight(wb, False)
+    xb = torch.ones((1, 256, 50), device="cuda")
+    edge["acc_over_2^24"] = exact(big, xb, wb_q, wb_s, None)
+    if not edge["acc_over_2^24"] > 2 ** 24:
+        raise AssertionError(f"the |acc| case reached {edge['acc_over_2^24']}")
+    edge["static_scale"] = exact(dict(g0, T=500), torch.from_numpy(
+        rng.randn(1, 128, 500).astype(np.float32)).cuda(), w_q, s_w, b,
+        s_static=torch.tensor(0.01, device="cuda"))
+    same = dict(g0, causal=False, pad_left=9, pad_right=9, T=333)
+    edge["same_padded"] = exact(same, torch.from_numpy(
+        rng.randn(1, 128, 333).astype(np.float32)).cuda(), w_q, s_w, b)
+    wt = torch.from_numpy(rng.randn(64, 32, 10).astype(np.float32)).cuda()
+    wt_q, wt_s = quantize_weight(wt, True)
+    for causal in (True, False):
+        gt = dict(transposed=True, stride=5, dilation=1, pad_left=2, pad_right=2,
+                  causal=causal, C_in=64, C_out=32, k=10, T=77)
+        edge[f"transposed_causal_{causal}"] = exact(gt, torch.from_numpy(
+            rng.randn(2, 64, 77).astype(np.float32)).cuda(), wt_q, wt_s, None)
+    return {"calls": len(calls), "shapes": shapes, "edge_max_abs_acc": edge,
+            "max_abs_err": max(out_errs)}
+
+
+def int8_vocoder(voc_ckpt: str) -> dict:
+    """(b) The int8 vocoder at B=1 on INT8_FRAMES against float32: SNR,
+    ms of both by CUDA events in turns, K2's launches a call; B=4 batch
+    invariance and static calibrated chunked-8 against plain static, bit
+    for bit with cuDNN's float32 edge convs, as the port runs them
+    (PyTorch's own CUDA conv sums an output in an order that depends on
+    the shape: its gaps are reported beside); the card against the CPU on
+    INT8_CPU_FRAMES within e_q (card) + the float32 gap + e_q (CPU), e_q =
+    max |int8 - f32| on a device."""
+    import torch
+
+    from kantts_tpu_torch.bin.infer_hifigan import load_vocoder
+    from kantts_tpu_torch.infer.chunked import chunked_apply
+    from kantts_tpu_torch.models.hifigan.generator import (
+        Generator,
+        calibrate_quant_scales,
+    )
+    from kantts_tpu_torch.models.hifigan.layers import quantize_weights
+    from kantts_tpu_torch.ops.int8_conv import int8_conv_cuda
+
+    dev = torch.device("cuda")
+    gen32, cfg = load_vocoder(voc_ckpt, dev)
+    gen8, _ = load_vocoder(voc_ckpt, dev, quant=True)
+    rng = np.random.RandomState(15)
+    mels = torch.from_numpy(rng.randn(4, INT8_FRAMES, 80).astype(np.float32)).cuda()
+    mels[1:] *= torch.tensor([3.0, 0.3, 10.0], device=dev)[:, None, None]
+    mel = mels[:1]
+    res = {}
+    with torch.inference_mode():
+        int8_conv_cuda.launches = 0
+        y8 = gen8(mel)
+        torch.cuda.synchronize()
+        res["k2_launches_per_call"] = int8_conv_cuda.launches
+        y32 = gen32(mel)
+        res["snr_db"] = float(10 * torch.log10((y32 ** 2).sum() / ((y8 - y32) ** 2).sum()))
+        res["max_abs_int8_vs_f32"] = float((y8 - y32).abs().max())
+        times = collections.defaultdict(list)
+        runs = {"f32": lambda: gen32(mel), "int8": lambda: gen8(mel)}
+        for name in ("f32", "int8", "int8", "f32"):
+            times[name].append(cuda_ms(runs[name], 10))
+        res.update({f"{k}_ms": float(np.mean(v)) for k, v in times.items()})
+        res["batch4_gap"] = float((gen8(mels)[:1] - y8).abs().max())
+        with torch.backends.cudnn.flags(enabled=False):
+            alone = gen8(mel)
+            res["native_conv_batch4_gap"] = float((gen8(mels)[:1] - alone).abs().max())
+
+        static = Generator(**cfg["Model"]["Generator"]["params"], quant=True,
+                           quant_static=True).to(dev).eval()
+        missing, unexpected = static.load_state_dict(gen32.state_dict(), strict=False)
+        if unexpected or not all(k.endswith(".s_x") for k in missing):
+            raise AssertionError(f"static generator: {missing} {unexpected}")
+        quantize_weights(static)
+        calibrate_quant_scales(static, [mel])
+        res["static_chunked8_gap"] = float(
+            (chunked_apply(static, mel, 8) - static(mel)).abs().max())
+        with torch.backends.cudnn.flags(enabled=False):
+            res["native_conv_static_chunked8_gap"] = float(
+                (chunked_apply(static, mel, 8) - static(mel)).abs().max())
+    if res["k2_launches_per_call"] != 104:
+        raise AssertionError(f"K2 launched {res['k2_launches_per_call']} times a call")
+    if res["batch4_gap"] or res["static_chunked8_gap"]:
+        raise AssertionError(f"int8 exactness: {res}")
+    if not res["snr_db"] > 20:
+        raise AssertionError(f"int8 vocoder SNR {res['snr_db']} dB")
+
+    # card vs CPU: one rounding flip of an activation (from the float32
+    # edge convs' different sums) re-quantizes what follows it, so two int8
+    # runs differ by up to their quantization errors: the bound is the
+    # triangle e_q (card) + float32 gap + e_q (CPU)
+    cpu = torch.device("cpu")
+    gen8_cpu, _ = load_vocoder(voc_ckpt, cpu, quant=True)
+    gen32_cpu, _ = load_vocoder(voc_ckpt, cpu)
+    short = mel[:, :INT8_CPU_FRAMES].cpu()
+    with torch.inference_mode():
+        y8_cpu, y32_cpu = gen8_cpu(short), gen32_cpu(short)
+        y8_card, y32_card = gen8(short.cuda()).cpu(), gen32(short.cuda()).cpu()
+    gap = {"int8": float((y8_card - y8_cpu).abs().max()),
+           "f32": float((y32_card - y32_cpu).abs().max()),
+           "e_q_cpu": float((y8_cpu - y32_cpu).abs().max()),
+           "e_q_card": float((y8_card - y32_card).abs().max())}
+    res.update({f"card_vs_cpu_{k}": v for k, v in gap.items()})
+    bound = gap["e_q_card"] + gap["f32"] + gap["e_q_cpu"]
+    if not gap["int8"] <= bound:
+        raise AssertionError(f"int8 vocoder card vs CPU {gap['int8']} > {bound}")
+    return res
+
+
+def int8_clis(tmp: str, am_ckpt: str, voc_ckpt: str) -> dict:
+    """(c) ``infer_hifigan --int8`` and ``serve_tts --int8`` through their
+    CLIs with no --device (run under ``CLI_F32``), each held to this
+    process's int8 path within 1 PCM16 step."""
+    import torch
+    from scipy.io import wavfile
+
+    from kantts_tpu_torch.bin.infer_hifigan import hifigan_infer
+    from kantts_tpu_torch.ops.int8_conv import int8_conv_cuda
+    from kantts_tpu_torch.serve import TTSService, wav_bytes
+
+    mel_dir = os.path.join(tmp, "int8_mels")
+    os.makedirs(mel_dir)
+    rng = np.random.RandomState(16)
+    for name, T in (("a", 400), ("b", 250)):
+        np.save(os.path.join(mel_dir, f"{name}.npy"), rng.randn(T, 80).astype(np.float32))
+    # the CLI runs while this process makes its reference
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", CLI_F32, "kantts_tpu_torch.bin.infer_hifigan", "--ckpt",
+         voc_ckpt, "--input_mel", mel_dir, "--output_dir", os.path.join(tmp, "int8_cli"),
+         "--int8"],
+        cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, NVIDIA_TF32_OVERRIDE="0"))
+    int8_conv_cuda.launches = 0
+    hifigan_infer(mel_dir, voc_ckpt, os.path.join(tmp, "int8_here"), device="cuda",
+                  int8=True)
+    launches = {"infer_hifigan": int8_conv_cuda.launches}
+
+    service = TTSService.from_checkpoints(am_ckpt, voc_ckpt, int8=True, max_batch=1,
+                                          device="cuda")
+    try:
+        int8_conv_cuda.launches = 0
+        sr, wav = service.synthesize(TEXTS[3])
+        launches["service"] = int8_conv_cuda.launches
+        try:
+            next(iter(service.stream(TEXTS[3])))
+            raise AssertionError("stream served int8")
+        except ValueError as e:
+            if "int8" not in str(e):
+                raise
+    finally:
+        service.close()
+    expect = np.frombuffer(wav_bytes(wav, sr)[44:], dtype="<i2")
+    cli = serve_subprocess(am_ckpt, voc_ckpt, expect, ["--int8", "--max_batch", "1"],
+                           f32_flags=True)
+    _, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"infer_hifigan --int8 exited {proc.returncode}:\n{err[-4000:]}")
+    cli_s = time.perf_counter() - t0
+    steps = max(pcm_steps(wavfile.read(os.path.join(tmp, "int8_cli", f"{n}.wav"))[1],
+                          wavfile.read(os.path.join(tmp, "int8_here", f"{n}.wav"))[1])
+                for n in ("a", "b"))
+    if steps > 1:
+        raise AssertionError(f"infer_hifigan --int8 CLI: {steps} PCM steps")
+    if not all(launches.values()):
+        raise AssertionError(f"int8 paths without K2: {launches}")
+    return {"infer_hifigan_cli_s_while_serving": cli_s, "infer_hifigan_pcm_steps": steps,
+            "serve_tts": cli, "k2_launches": launches}
+
+
+def export_cli(am_ckpt: str, voc_ckpt: str, out: str, *args) -> subprocess.Popen:
+    return subprocess.Popen(
+        [sys.executable, "-m", "kantts_tpu_torch.bin.export_tts", "export",
+         "--am_ckpt", am_ckpt, "--voc_ckpt", voc_ckpt, "--output_dir", out, *args],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path)
+               for f in files)
+
+
+SYNTH_BLOCKED = """
+import os, sys
+import numpy as np
+for name in ("jax", "kantts_tpu", "kantts_tpu_torch.models"):
+    sys.modules[name] = None
+import kantts_tpu_torch.utils.audio as audio
+from kantts_tpu_torch.bin import export_tts
+out = {}
+save = audio.save_wav
+
+def capture(wav, path, sr):
+    out[os.path.basename(path)[:-4]] = np.array(wav)
+    save(wav, path, sr)
+
+audio.save_wav = capture
+export_tts.main(["synth", "--artifact", sys.argv[1], "--symbols_file", sys.argv[2],
+                 "--output_dir", sys.argv[3]])
+np.savez(os.path.join(sys.argv[3], "floats.npz"), **out)
+assert not any(sys.modules.get(m) for m in sys.modules
+               if m.startswith("kantts_tpu_torch.models"))
+"""
+
+
+def whole_program_export(am_ckpt: str, voc_ckpt: str) -> dict:
+    """torch.export of the whole fused program at full width and a small
+    budget (4 symbols; 3 and 6 frames, 1 and 2 decoder steps): node counts
+    and seconds, and the growth a decoder step."""
+    import torch
+
+    from kantts_tpu_torch.bin.infer_hifigan import load_vocoder
+    from kantts_tpu_torch.bin.infer_sambert import load_am
+    from kantts_tpu_torch.models.sambert.sambert import sambert_infer
+
+    dev = torch.device("cuda")
+    am, _ = load_am(am_ckpt, dev)
+    gen, _ = load_vocoder(voc_ckpt, dev)
+    L = 4
+    args = (torch.zeros((1, L, 4), dtype=torch.long, device=dev),
+            torch.zeros((1, L), dtype=torch.long, device=dev),
+            torch.zeros((1, L), dtype=torch.long, device=dev),
+            torch.full((1,), L, dtype=torch.int32, device=dev))
+    class Fused(torch.nn.Module):
+        def __init__(self, budget):
+            super().__init__()
+            self.am, self.gen, self.budget = am, gen, budget
+
+        def forward(self, ling, emo, spk, lengths):
+            mel = sambert_infer(self.am, ling, emo, spk, lengths, self.budget)
+            return self.gen(mel["postnet_outputs"])
+
+    res = {}
+    for budget in (3, 6):
+        t0 = time.perf_counter()
+        with torch.no_grad(), warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            program = torch.export.export(Fused(budget), args)
+        res[budget] = {"nodes": len(program.graph.nodes),
+                       "seconds": time.perf_counter() - t0}
+    res["nodes_per_decoder_step"] = res[6]["nodes"] - res[3]["nodes"]
+    return res
+
+
+def exported_artifacts(tmp: str, am_ckpt: str, voc_ckpt: str) -> dict:
+    """(d) ``export_tts export`` at the CLI defaults (96 symbols, 2304
+    frames), float32 and --int8, two subprocesses at once with no --device:
+    seconds and bytes; meanwhile, in this process, the whole-program
+    export's size and a small artifact (24 symbols, 144 frames) card vs
+    CPU. (e) ``export_tts synth`` in a subprocess that cannot import
+    ``kantts_tpu_torch.models``; ``ExportedTTS`` on the card held to
+    ``fused_infer`` within 1e-5 (float32 and int8), its first call and a
+    warm utterance beside a warm ``fused_infer``."""
+    import torch
+
+    from kantts_tpu_torch.bin.infer_hifigan import load_vocoder
+    from kantts_tpu_torch.bin.infer_sambert import load_am
+    from kantts_tpu_torch.infer.e2e import fused_infer
+    from kantts_tpu_torch.infer.exported import ExportedTTS, export_fused_tts
+    from kantts_tpu_torch.infer.symbols import encode_symbol_inputs
+    from kantts_tpu_torch.ops.int8_conv import int8_conv_cuda
+    from kantts_tpu_torch.serve.service import resolve_frontend
+
+    arts = {"f32": os.path.join(tmp, "art_f32"), "int8": os.path.join(tmp, "art_int8")}
+    t0 = time.perf_counter()
+    procs = {"f32": export_cli(am_ckpt, voc_ckpt, arts["f32"]),
+             "int8": export_cli(am_ckpt, voc_ckpt, arts["int8"], "--int8")}
+    res = {"whole_program": whole_program_export(am_ckpt, voc_ckpt)}
+
+    # card vs CPU on a small artifact, so that the CPU run stays short
+    small = os.path.join(tmp, "art_small")
+    export_fused_tts(am_ckpt, voc_ckpt, small, *SMALL_ARTIFACT, device="cuda")
+    short = resolve_frontend("pinyin").text_to_symbols([TEXTS[3]])[0][0]
+    card = ExportedTTS(small).synthesize(short)
+    cpu = ExportedTTS(small, device="cpu").synthesize(short)
+    res["small_card_vs_cpu"] = {"frames": [card[1], cpu[1]],
+                                "max_abs": float(np.abs(card[0] - cpu[0]).max())}
+    if card[1] != cpu[1] or res["small_card_vs_cpu"]["max_abs"] > 1e-3:
+        raise AssertionError(f"small artifact card vs CPU: {res['small_card_vs_cpu']}")
+
+    res["export"] = {}
+    for name, proc in procs.items():
+        out, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"export_tts export ({name}) exited {proc.returncode}:\n"
+                               f"{out[-4000:]}")
+        with open(os.path.join(arts[name], "meta.json")) as f:
+            meta = json.load(f)
+        if (meta["max_output_len"], meta["max_input_len"], meta["int8"]) != (
+                2304, 96, name == "int8"):
+            raise AssertionError(f"artifact {name}: {meta}")
+        res["export"][name] = {
+            "wall_s_beside_the_other_work": time.perf_counter() - t0,
+            "trace_s": sum(v["seconds"] for v in meta["export"].values()),
+            "nodes": {k: v["nodes"] for k, v in meta["export"].items()},
+            "parameters": sum(v["parameters"] for v in meta["export"].values()),
+            "bytes": dir_bytes(arts[name])}
+
+    seq = resolve_frontend("pinyin").text_to_symbols([TEXTS[0]])[0][0]
+    sym_file = os.path.join(tmp, "export_symbols.txt")
+    with open(sym_file, "w", encoding="utf-8") as f:
+        f.write(f"u0\t{seq}\n")
+    t0 = time.perf_counter()
+    synth_dir = os.path.join(tmp, "export_synth")
+    proc = subprocess.run([sys.executable, "-c", SYNTH_BLOCKED, arts["f32"], sym_file,
+                           synth_dir], cwd=ROOT, capture_output=True, text=True,
+                          timeout=600, env=dict(os.environ, NVIDIA_TF32_OVERRIDE="0"))
+    if proc.returncode != 0:
+        raise RuntimeError(f"export_tts synth exited {proc.returncode}:\n"
+                           f"{proc.stderr[-4000:]}")
+    res["synth_cli_s"] = time.perf_counter() - t0
+    cli_wav = np.load(os.path.join(synth_dir, "floats.npz"))["u0"]
+
+    dev = torch.device("cuda")
+    am, ling_unit = load_am(am_ckpt, dev)
+    ling, emo, spk, lengths = (torch.from_numpy(a).to(dev) for a in
+                               encode_symbol_inputs(ling_unit, seq, 96))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    wavs, errs, ms = {}, {}, {}
+    for name in ("f32", "int8"):
+        gen = load_vocoder(voc_ckpt, dev, quant=name == "int8")[0]
+        t0 = time.perf_counter()
+        tts = ExportedTTS(arts[name])
+        res[f"load_{name}_s"] = time.perf_counter() - t0
+        int8_conv_cuda.launches = 0
+        (wav, n), ms[f"{name}_artifact_first_ms"] = timed(lambda: tts.synthesize(seq))
+        if name == "f32":
+            (wav, n), ms["f32_artifact_warm_ms"] = timed(lambda: tts.synthesize(seq))
+        (live, n_live), ms[f"{name}_fused_infer_ms"] = timed(
+            lambda: fused_infer(am, gen, ling.long(), emo.long(), spk.long(), lengths,
+                                2304))
+        if name == "int8":
+            res["k2_launches"] = int8_conv_cuda.launches
+        if int(n_live[0]) != n:
+            raise AssertionError(f"artifact {n} frames, fused_infer {n_live}")
+        wavs[name] = wav
+        errs[f"{name}_vs_fused_infer"] = float(np.abs(
+            wav - live[0, :n * tts.meta["hop_total"], 0].cpu().numpy()).max())
+        del tts, gen
+    errs["synth_cli_vs_here"] = float(np.abs(cli_wav - wavs["f32"]).max())
+    res.update(max_abs=errs, ms=ms, frames=n, int8_vs_f32_rel=float(
+        np.linalg.norm(wavs["int8"] - wavs["f32"]) / np.linalg.norm(wavs["f32"])))
+    if max(errs.values()) > 1e-5 or not res["int8_vs_f32_rel"] < 0.05:
+        raise AssertionError(f"artifact on the card: {errs}, int8 rel "
+                             f"{res['int8_vs_f32_rel']}")
+    return res
+
+
+def phase_int8_export(tmp: str, am_ckpt: str, voc_ckpt: str) -> dict:
+    """Phase 14: int8 vocoding on K2 and the serving artifact, at the full
+    width of hifigan_v1_16k and sambert_16k_MAS (phase 6's seeded
+    checkpoints): (a) ``k2_checks``, (b) ``int8_vocoder``, (c) ``int8_clis``,
+    (d) and (e) ``exported_artifacts``. K2's launches are counted over (b)'s
+    int8 vocoder call and (e)'s int8 artifact and int8 ``fused_infer`` runs;
+    K1 must not launch."""
+    import torch
+
+    from kantts_tpu_torch.bin.infer_hifigan import load_vocoder
+    from kantts_tpu_torch.ops.int8_conv import int8_conv_cuda
+    from kantts_tpu_torch.ops.mas import b_mas_cuda
+
+    t_phase = time.perf_counter()
+    b_mas_cuda.launches = 0
+    gen8, _ = load_vocoder(voc_ckpt, torch.device("cuda"), quant=True)
+    checks = k2_checks(gen8)
+    for shape in checks["shapes"]:
+        log("k2_shape", **{k: (round(v, 5) if isinstance(v, float) else v)
+                           for k, v in shape.items()})
+    log("k2_edge", calls=checks["calls"], **checks["edge_max_abs_acc"])
+    del gen8
+    t = time.perf_counter()
+    voc = int8_vocoder(voc_ckpt)
+    log("int8_vocoder", seconds=round(time.perf_counter() - t, 3), **voc)
+    t = time.perf_counter()
+    clis = int8_clis(tmp, am_ckpt, voc_ckpt)
+    log("int8_clis", seconds=round(time.perf_counter() - t, 3),
+        infer_hifigan_pcm_steps=clis["infer_hifigan_pcm_steps"],
+        infer_hifigan_cli_s_while_serving=round(clis["infer_hifigan_cli_s_while_serving"], 3),
+        **{f"serve_{k}": (round(v, 3) if isinstance(v, float) else v)
+           for k, v in clis["serve_tts"].items()})
+    t = time.perf_counter()
+    art = exported_artifacts(tmp, am_ckpt, voc_ckpt)
+    log("export", seconds=round(time.perf_counter() - t, 3),
+        **{k: json.dumps(v) if isinstance(v, dict) else v for k, v in art.items()})
+    if b_mas_cuda.launches:
+        raise AssertionError(f"K1 launched {b_mas_cuda.launches} times in phase 14")
+    seconds = time.perf_counter() - t_phase
+    log("int8_export", seconds=round(seconds, 3))
+    n_shapes = {s["conv"]: s["count"] for s in checks["shapes"]}
+    totals = {key: sum(s[key] * s["count"] for s in checks["shapes"])
+              for key in ("ms", "plain_ms", "bound_ms", "cudnn_f32_ms", "ops_ms",
+                          "bytes_ms")}
+    totals["bound_by"] = ("operations" if totals["ops_ms"] >= totals["bytes_ms"]
+                          else "bytes")
+    lib = [s["library_ms"] for s in checks["shapes"]]
+    return {"k2": checks, "vocoder": voc, "clis": clis, "export": art,
+            "seconds": seconds, "per_call": totals,
+            "library_ms_per_call": (sum(s["library_ms"] * s["count"]
+                                        for s in checks["shapes"])
+                                    if all(v is not None for v in lib) else None),
+            "launches_by_path": {"int8_vocoder": voc["k2_launches_per_call"],
+                                 **clis["k2_launches"],
+                                 "int8_artifact_and_fused_infer": art["k2_launches"]},
+            "distinct_shapes": len(n_shapes)}
+
+
 def main(argv) -> int:
     if argv[:1] == ["--ddp-worker"]:
         return ddp_worker(int(argv[1]), int(argv[2]), argv[3])
@@ -3736,6 +4475,18 @@ def main(argv) -> int:
     phase_build()
     if argv[:1] == ["--k1-before"]:
         print(json.dumps({"k1_before_after": phase_k1_before(argv[1])}))
+        print(smi)
+        return 0
+    if argv[:1] == ["--profiler-drops"]:
+        print(json.dumps({"profiler_drops": phase_profiler_drops(int(argv[1]))}))
+        print(smi)
+        return 0
+    if argv[:1] == ["--int8-export"]:
+        with tempfile.TemporaryDirectory(prefix="kantts_smoke_") as tmp:
+            res = phase_int8_export(tmp, *seeded_checkpoints(tmp))
+        print(json.dumps({"int8_export": {k: res[k] for k in (
+            "per_call", "library_ms_per_call", "launches_by_path", "seconds")},
+            "max_abs_err": res["k2"]["max_abs_err"]}))
         print(smi)
         return 0
     k1 = phase_k1()
@@ -3759,6 +4510,7 @@ def main(argv) -> int:
         fp = phase_fp_sybert(tmp)
         pre = phase_preprocess(tmp)
         ddp = phase_ddp(tmp)
+        int8 = phase_int8_export(tmp, am_ckpt, voc_ckpt)
     import torch
 
     train = k1["train"]
@@ -3783,7 +4535,22 @@ def main(argv) -> int:
         "ms_in_train_step": k1_step_ms,
         "shapes": {name: {k: r[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
                                             "bound_by", "variant")}
-                   for name, r in k1.items()}}]}))
+                   for name, r in k1.items()}}, {
+        "name": "K2 int8_conv1d (int8 W8A8 vocoder conv)", "route": "cuda",
+        "source": "kantts_tpu_torch/csrc/int8_conv.cu",
+        "replaces": "no TPU kernel (XLA int8 conv, "
+                    "kantts_tpu/models/hifigan/layers.py:161)",
+        "launches": sum(int8["launches_by_path"].values()),
+        "launches_by_path": int8["launches_by_path"],
+        "max_abs_err": int8["k2"]["max_abs_err"],
+        "ms": int8["per_call"]["ms"], "plain_ms": int8["per_call"]["plain_ms"],
+        "bound_ms": int8["per_call"]["bound_ms"],
+        "bound_by": int8["per_call"]["bound_by"],
+        "library_ms": int8["library_ms_per_call"],
+        "cudnn_f32_ms": int8["per_call"]["cudnn_f32_ms"],
+        "per": "one hifigan_v1_16k call at B=1 on 400 frames: the sum over its "
+               "104 int8 convs",
+        "distinct_shapes": int8["distinct_shapes"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,8 +17,14 @@ source draws from a ``torch.Generator`` seeded 0 anew for every call, as
 the JAX package passes every call the key 0. A multi-band generator's
 sub-bands are synthesised by its PQMF filter bank (not with ``--chunked``).
 
+``--int8`` vocodes with int8 W8A8 interior convs (the same float32
+checkpoint; kernel K2 on the card), in float32 around them whatever the
+config's ``mixed_precision``. Its activation scales are per example, so
+``--batch`` gives each utterance what it gets alone; ``--chunked`` is
+refused, since a window's scales differ from the whole utterance's.
+
     python -m kantts_tpu_torch.bin.infer_hifigan --ckpt VOC.pt \
-        --input_mel MELS --output_dir OUT [--chunked N | --batch B] \
+        --input_mel MELS --output_dir OUT [--chunked N | --batch B] [--int8] \
         [--device cuda|cpu]
 """
 
@@ -36,19 +42,22 @@ import torch
 
 from kantts_tpu_torch.infer.chunked import chunked_apply
 from kantts_tpu_torch.models.builder import build_pqmf, load_checkpoint
-from kantts_tpu_torch.models.hifigan.layers import fold_weight_norm
+from kantts_tpu_torch.models.hifigan.layers import fold_weight_norm, quantize_weights
 from kantts_tpu_torch.utils.audio import save_wav
 from kantts_tpu_torch.utils.device import resolve_device, synchronize
 
-INT8_NOT_PORTED = ("int8 W8A8 vocoding is not ported to kantts_tpu_torch yet "
-                   "(ROADMAP.md queue 1, item 11)")
+INT8_CHUNKED = ("--chunked and --int8 are mutually exclusive: chunked "
+                "inference is built on bit-exact windowing, and int8's "
+                "dynamic per-example activation scales differ between a "
+                "window and the full utterance")
 
 
-def load_vocoder(ckpt: str, device: torch.device):
+def load_vocoder(ckpt: str, device: torch.device, quant: bool = False):
     """-> (generator with weight norm folded, in eval mode on ``device``,
-    its config)."""
-    model, config = load_checkpoint(ckpt, device)
-    return fold_weight_norm(model), config
+    its config). ``quant``: the int8 generator, its weights quantized."""
+    model, config = load_checkpoint(ckpt, device, quant=quant)
+    model = fold_weight_norm(model)
+    return (quantize_weights(model) if quant else model), config
 
 
 def binarize(mel: np.ndarray, threshold: float = 0.6) -> np.ndarray:
@@ -89,15 +98,15 @@ def hifigan_infer(input_mel: str, ckpt: str, output_dir: str,
     "cpu". Returns {"audio_seconds", "seconds"} over the generator calls
     (the clock read after a device sync)."""
     device = resolve_device(device)
-    if int8:
-        raise NotImplementedError(INT8_NOT_PORTED)
     if batch > 1 and chunked:
         raise SystemExit("--chunked (single-utterance latency) and --batch "
                          "(cross-utterance throughput) are mutually exclusive")
-    model, config = load_vocoder(ckpt, device)
+    model, config = load_vocoder(ckpt, device, quant=int8)
     pqmf = build_pqmf(config)
     if chunked and (not model.causal or pqmf is not None):
         raise SystemExit("--chunked requires a causal, fullband generator")
+    if chunked and int8:
+        raise SystemExit(INT8_CHUNKED)
     if pqmf is not None:
         pqmf = pqmf.to(device)
     nsf = model.nsf_params is not None
@@ -159,7 +168,8 @@ def main(argv=None):
                         help="cross-utterance batched synthesis: utterances "
                              "per generator call")
     parser.add_argument("--int8", action="store_true",
-                        help="int8 W8A8 vocoding (not ported yet: raises)")
+                        help="int8 W8A8 on the interior conv stacks (same "
+                             "float32 checkpoint; not with --chunked)")
     parser.add_argument("--device", type=str, default="cuda",
                         choices=("cuda", "cpu"))
     args = parser.parse_args(argv)

@@ -24,6 +24,7 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
+from kantts_tpu_torch.infer.symbols import encode_symbol_inputs
 from kantts_tpu_torch.models.builder import load_checkpoint
 from kantts_tpu_torch.models.sambert.sambert import KanTtsSAMBERT, sambert_infer
 from kantts_tpu_torch.text.ling_unit import KanTtsLinguisticUnit
@@ -64,31 +65,6 @@ def nsf_denormaliser(params: dict, ckpt: str):
                       params.get("nsf_f0_global_minimum", 30.0)]
     return lambda mel: denorm_f0(mel.copy(), norm_type=norm_type,
                                  f0_feature=f0_feature)
-
-
-def encode_symbol_inputs(ling_unit, symbol_seq: str, max_input_len: int,
-                         n_ling: int = 4, se: Optional[np.ndarray] = None):
-    """One symbol sequence -> padded int32 arrays (ling (1, L, n_ling), emo
-    (1, L), spk (1, L), lengths (1,)): the trailing EOS is dropped and each
-    track pads with its own pad id. With ``se`` the speaker input is that
-    embedding repeated over all L positions, (1, L, speaker_units) float32."""
-    feats = ling_unit.encode_symbol_sequence(symbol_seq)
-    n = len(feats[0]) - 1
-    if n > max_input_len:
-        raise ValueError(f"utterance has {n} symbols > budget {max_input_len}")
-    types = ling_unit.lfeat_type_list
-
-    def pad_track(i):
-        return np.pad(feats[i][:-1], (0, max_input_len - n),
-                      constant_values=ling_unit.pad_id(types[i]))
-
-    ling = np.stack([pad_track(i) for i in range(n_ling)], axis=-1)
-    if se is not None:
-        spk = np.repeat(se.reshape(1, -1), max_input_len, axis=0).astype(np.float32)
-    else:
-        spk = pad_track(n_ling + 1).astype(np.int32)
-    return (ling[None].astype(np.int32), pad_track(n_ling)[None].astype(np.int32),
-            spk[None], np.asarray([n], dtype=np.int32))
 
 
 def load_se(model: KanTtsSAMBERT, se_file: Optional[str]) -> Optional[np.ndarray]:

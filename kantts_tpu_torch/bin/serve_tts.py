@@ -7,7 +7,7 @@ concurrent traffic into batched calls (serve/service.py).
 
     python -m kantts_tpu_torch.bin.serve_tts --am_ckpt AM.pt \
         --voc_ckpt VOC.pt --port 8272 --max_batch 8 --max_wait_ms 20 \
-        [--warmup_text 'ni3 hao3'] [--device cuda|cpu]
+        [--warmup_text 'ni3 hao3'] [--int8] [--device cuda|cpu]
 
     curl -s localhost:8272/tts -d '{"text": "ni3 hao3"}' \
          -H 'Content-Type: application/json' > out.wav
@@ -44,7 +44,9 @@ def main(argv=None):
     parser.add_argument("--max_wait_ms", type=float, default=20.0,
                         help="batching window after the first request")
     parser.add_argument("--int8", action="store_true",
-                        help="int8 W8A8 vocoding (not ported yet: raises)")
+                        help="serve the vocoder with int8 W8A8 interior "
+                             "convs (same checkpoint; see infer_hifigan "
+                             "--int8; /tts/stream refuses it)")
     parser.add_argument("--warmup_text", type=str, default=None,
                         help="synthesize this text once before binding the "
                              "port, so the first live request skips the "

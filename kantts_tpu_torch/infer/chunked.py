@@ -64,10 +64,12 @@ def _context_frames(generator, context_frames: Optional[int]) -> int:
 
 def chunked_apply(generator, mel: torch.Tensor, n_chunks: int,
                   context_frames: Optional[int] = None,
-                  rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                  rng: Optional[torch.Generator] = None,
+                  excitation: Optional[torch.Tensor] = None) -> torch.Tensor:
     """mel (1, T, C) -> wav (1, T*hop, 1): n_chunks causal-context windows
     through one batched generator call, emitted regions stitched. ``rng``
-    gives an NSF generator's draws."""
+    gives an NSF generator's draws, or ``excitation`` (1, T*hop, 1) its
+    whole-utterance source."""
     ctx = _context_frames(generator, context_frames)
     T = int(mel.shape[1])
     starts, offsets, chunk, window = _plan(T, n_chunks, ctx)
@@ -79,7 +81,8 @@ def chunked_apply(generator, mel: torch.Tensor, n_chunks: int,
     m = F.pad(mel[0], (0, 0, 0, pad))
     windows = torch.stack([m[s:s + window] for s in starts])  # (n, window, C)
     if generator.nsf_params is not None:
-        exc = generator(mel, excitation_only=True, generator=rng)  # (1, T*hop, 1)
+        exc = (excitation if excitation is not None else
+               generator(mel, excitation_only=True, generator=rng))  # (1, T*hop, 1)
         e = F.pad(exc[0], (0, 0, 0, pad * hop))
         y = generator(windows, excitation=torch.stack(
             [e[s * hop:(s + window) * hop] for s in starts]))

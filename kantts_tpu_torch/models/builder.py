@@ -24,7 +24,7 @@ from kantts_tpu_torch.models.hifigan.discriminators import (
     NormConv,
 )
 from kantts_tpu_torch.models.hifigan.generator import Generator
-from kantts_tpu_torch.models.hifigan.layers import WeightNormParams
+from kantts_tpu_torch.models.hifigan.layers import PlainConvParams, WeightNormParams
 from kantts_tpu_torch.models.pqmf import PQMF
 from kantts_tpu_torch.models.sambert.adaptors import VarRnnARPredictor
 from kantts_tpu_torch.models.sambert.sambert import KanTtsSAMBERT, KanTtsTextsyBERT
@@ -76,7 +76,7 @@ def init_parameters(model: nn.Module, seed: int) -> None:
         elif isinstance(m, nn.LayerNorm):
             m.weight.fill_(1.0)
             m.bias.fill_(0.0)
-        elif isinstance(m, (nn.Linear, nn.Conv1d)):
+        elif isinstance(m, (nn.Linear, nn.Conv1d, PlainConvParams)):
             fan_in = m.weight[0].numel()
             uniform_(m.weight, fan_in)
             if m.bias is not None:
@@ -172,9 +172,14 @@ def build_pqmf(config: Dict[str, Any]) -> Optional[PQMF]:
     return PQMF(subbands=subbands) if subbands > 1 else None
 
 
-def hifigan_model_builder(config: Dict[str, Any], seed: int = 0) -> Generator:
+def hifigan_model_builder(config: Dict[str, Any], seed: int = 0,
+                          quant: bool = False) -> Generator:
+    """The generator of ``config`` in ``vocoder_dtype(config)``; with
+    ``quant`` the int8 generator, in float32 around its int8 convs whatever
+    ``mixed_precision`` says, as the JAX package's ``load_model`` builds it
+    (its weights still to be quantized: ``layers.quantize_weights``)."""
     model = Generator(**config["Model"]["Generator"]["params"],
-                      dtype=vocoder_dtype(config))
+                      dtype=None if quant else vocoder_dtype(config), quant=quant)
     init_parameters(model, seed)
     return model.eval()
 
@@ -219,11 +224,12 @@ def hifigan_gan_builder(config: Dict[str, Any], seed: int = 0,
     }
 
 
-def model_builder(config: Dict[str, Any], seed: int = 0) -> nn.Module:
-    """Dispatch on ``config["model_type"]``; the model is in eval mode."""
+def model_builder(config: Dict[str, Any], seed: int = 0, **build: Any) -> nn.Module:
+    """Dispatch on ``config["model_type"]``; the model is in eval mode.
+    ``build`` goes to the builder (``quant`` for a vocoder)."""
     builders = {"sambert": build_sambert, "sybert": build_sybert,
                 "hifigan": hifigan_model_builder}
-    return builders[config["model_type"]](config, seed)
+    return builders[config["model_type"]](config, seed, **build)
 
 
 def save_checkpoint(path: str, model: Union[nn.Module, Mapping[str, Any]],
@@ -240,7 +246,7 @@ def save_checkpoint(path: str, model: Union[nn.Module, Mapping[str, Any]],
 
 
 def load_checkpoint(path: str, device: torch.device,
-                    config: Union[None, str, Dict[str, Any]] = None
+                    config: Union[None, str, Dict[str, Any]] = None, **build: Any
                     ) -> Tuple[nn.Module, Dict[str, Any]]:
     """-> (model in eval mode on ``device``, config). From a ``train_hifigan``
     checkpoint the model is its generator.
@@ -250,7 +256,8 @@ def load_checkpoint(path: str, device: torch.device,
     ``{"model": state dict}`` for SAM-BERT and Textsy-BERT,
     ``{"model": {"generator": ..., "discriminator": ...}}`` for HiFi-GAN.
     Names keep the reference's layout; the ``module.`` prefix of a model
-    saved from inside ``DistributedDataParallel`` is stripped."""
+    saved from inside ``DistributedDataParallel`` is stripped. ``build``
+    goes to ``model_builder``."""
     payload = torch.load(path, map_location="cpu", weights_only=True)
     if config is None:
         config = payload["config"]
@@ -261,6 +268,6 @@ def load_checkpoint(path: str, device: torch.device,
         state = state["generator"]
     state = {(k[len("module."):] if k.startswith("module.") else k): v
              for k, v in state.items()}
-    model = model_builder(config)
+    model = model_builder(config, **build)
     model.load_state_dict(state, strict=True)
     return model.to(device).eval(), config

@@ -21,11 +21,22 @@ With ``out_channels`` > 1 the output is the PQMF sub-band signal
 ``dtype`` (bf16 under ``mixed_precision``) is the compute dtype of every
 conv, the source's ``ffn`` included; the stream between them stays in it and
 the output is in it, as in the JAX package. Parameters stay float32.
+
+``use_weight_norm=False`` gives ``conv_pre``, the upsampling convs and
+``conv_post`` plain weights (the residual blocks and the NSF convs stay
+weight-normed), as the JAX generator does.
+
+int8 W8A8 (``quant``, serving only): the upsampling convs and the residual
+blocks run through the int8 conv (``layers.py``); ``conv_pre``,
+``conv_post`` and the NSF source convs stay float32, the JAX package's
+edge-layer exemption. ``quantize_weights`` prepares the int8 weights of a
+loaded generator; ``quant_static`` takes static activation scales, which
+``calibrate_quant_scales`` records.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -36,6 +47,7 @@ from kantts_tpu_torch.models.hifigan.layers import (
     SourceModule,
     WNConv1d,
     WNConvTranspose1d,
+    Int8ConvMixin,
     get_activation,
     leaky_relu,
 )
@@ -52,15 +64,15 @@ class Generator(nn.Module):
                  causal: bool = True, nonlinear_activation: str = "LeakyReLU",
                  nonlinear_activation_params: Optional[dict] = None,
                  use_weight_norm: bool = True, nsf_params: Optional[dict] = None,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, quant: bool = False,
+                 quant_static: bool = False, calibrate: bool = False):
         super().__init__()
         if kernel_size % 2 != 1:
             raise ValueError("kernel_size must be odd")
         # repeat_upsample is accepted for config compatibility: the dual
         # path always runs, as in the JAX package
-        if not use_weight_norm:
-            raise NotImplementedError(
-                "not ported yet: generators without weight norm")
+        wn = dict(use_weight_norm=use_weight_norm)
+        int8 = dict(quant=quant, quant_static=quant_static, calibrate=calibrate)
         act_params = nonlinear_activation_params or {"negative_slope": 0.1}
         k = kernel_size
         # what streaming and chunked inference read (infer/streaming.py)
@@ -71,6 +83,7 @@ class Generator(nn.Module):
         self.resblock_dilations = tuple(tuple(d) for d in resblock_dilations)
         self.n_res = len(resblock_kernel_sizes)
         self.dtype = dtype
+        self.quant, self.quant_static = quant, quant_static
         self.nsf_params = dict(nsf_params) if nsf_params is not None else None
         if self.nsf_params is not None:
             hop = int(np.prod(upsample_scales))
@@ -81,7 +94,7 @@ class Generator(nn.Module):
             downs = np.cumprod([1] + list(upsample_scales[::-1][:-1]))[::-1]
             self.source_downs = nn.ModuleList()
         self.conv_pre = WNConv1d(in_channels, channels, k, padding=(k - 1) // 2,
-                                 bias=bias, causal=causal, dtype=dtype)
+                                 bias=bias, causal=causal, dtype=dtype, **wn)
         self.repeat_upsamples = nn.ModuleList()
         self.transpose_upsamples = nn.ModuleList()
         self.conv_blocks = nn.ModuleList()
@@ -93,12 +106,12 @@ class Generator(nn.Module):
                 nn.Upsample(scale_factor=scale, mode="nearest"),
                 get_activation(nonlinear_activation, act_params),
                 WNConv1d(ch_in, ch, k, padding=(k - 1) // 2, bias=bias,
-                         causal=causal, dtype=dtype)))
+                         causal=causal, dtype=dtype, **wn, **int8)))
             self.transpose_upsamples.append(nn.Sequential(
                 get_activation(nonlinear_activation, act_params),
                 WNConvTranspose1d(ch_in, ch, up_k, scale,
                                   padding=(up_k - scale) // 2, causal=causal,
-                                  dtype=dtype)))
+                                  dtype=dtype, **wn, **int8)))
             if self.nsf_params is not None:
                 u = int(downs[i])
                 self.source_downs.append(
@@ -108,10 +121,10 @@ class Generator(nn.Module):
             for rk, rd in zip(resblock_kernel_sizes, resblock_dilations):
                 self.conv_blocks.append(ResidualBlock(
                     ch, rk, tuple(rd), nonlinear_activation, act_params, causal,
-                    dtype))
+                    dtype, **int8))
             ch_in = ch
         self.conv_post = WNConv1d(ch_in, out_channels, k, padding=(k - 1) // 2,
-                                  bias=bias, causal=causal, dtype=dtype)
+                                  bias=bias, causal=causal, dtype=dtype, **wn)
 
     def forward(self, x: torch.Tensor, excitation: Optional[torch.Tensor] = None,
                 excitation_only: bool = False,
@@ -153,3 +166,36 @@ class Generator(nn.Module):
             h = acc / self.n_res
         h = self.conv_post(leaky_relu(h, 0.01))
         return torch.tanh(h).transpose(1, 2)
+
+
+def int8_convs(generator: nn.Module) -> Dict[str, Int8ConvMixin]:
+    """The int8 convs of a generator built with ``quant``, by module name."""
+    return {name: m for name, m in generator.named_modules()
+            if isinstance(m, Int8ConvMixin) and m.quant}
+
+
+@torch.no_grad()
+def calibrate_quant_scales(generator: Generator, mels: Iterable[torch.Tensor],
+                           rng_seed: int = 0) -> Dict[str, torch.Tensor]:
+    """Record static int8 activation scales over calibration mels (B, T, C),
+    as the JAX package's ``calibrate_quant_scales`` does: with calibration
+    switched on the convs run in float32 and each keeps the running
+    max(|x|) / 127 of its input, from zero. ``generator`` is built with
+    ``quant=True, quant_static=True``; it is left serving with the scales.
+    An NSF source draws from a generator seeded ``rng_seed`` for each mel.
+    Returns {conv name: s_x}."""
+    convs = int8_convs(generator)
+    if not convs or not all(m.quant_static for m in convs.values()):
+        raise ValueError("calibration needs a generator built with quant=True, "
+                         "quant_static=True")
+    for m in convs.values():
+        m.s_x.zero_()
+        m.calibrate = True
+    try:
+        for mel in mels:
+            rng = torch.Generator(device=mel.device).manual_seed(rng_seed)
+            generator(mel, generator=rng)
+    finally:
+        for m in convs.values():
+            m.calibrate = False
+    return {name: m.s_x.clone() for name, m in convs.items()}

@@ -13,6 +13,16 @@ A conv built with a compute ``dtype`` (bf16) takes the weight norm in
 float32, casts its input and the normed weight to the dtype, convolves, and
 adds the bias cast to the dtype after the product, as the JAX layers do;
 without one it runs in its input's dtype with the bias fused.
+``use_weight_norm=False`` holds a plain ``weight`` instead of the pair.
+
+int8 W8A8 (``quant``, serving only; the JAX layers' ``quant`` path): the
+conv goes through ``ops.int8_conv.int8_conv1d`` (kernel K2 on the card)
+with per-output-channel weight scales and a dynamic per-example activation
+scale, or with ``quant_static`` the static scale in the ``s_x`` buffer (the
+JAX ``quant`` collection). ``quantize_weights`` quantizes the weights once,
+after they are loaded and folded; the parameters are not touched. While
+``calibrate`` is set the conv runs in float32 and records the running
+max(|x|) / 127 into ``s_x``.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from kantts_tpu_torch.ops.int8_conv import div127, int8_conv1d, quantize_weight
 from kantts_tpu_torch.utils.precision import Dtype, add_bias, weak_scalar
 
 
@@ -75,22 +86,98 @@ class WeightNormParams(nn.Module):
         return weight_norm(self.weight_v, self.weight_g)
 
 
-class WNConv1d(nn.Module):
+class PlainConvParams(nn.Module):
+    """``weight`` (d0, d1, k) and an optional ``bias``: a conv's parameters
+    without weight norm (the reference's plain layout)."""
+
+    def __init__(self, d0: int, d1: int, kernel_size: int, bias_size: int = 0):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(d0, d1, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(bias_size)) if bias_size else None
+
+
+def conv_params(d0: int, d1: int, kernel_size: int, bias_size: int,
+                use_weight_norm: bool) -> nn.Module:
+    if use_weight_norm:
+        return WeightNormParams(d0, d1, kernel_size, bias_size)
+    return PlainConvParams(d0, d1, kernel_size, bias_size)
+
+
+def effective_weight(params: nn.Module) -> torch.Tensor:
+    """The weight a conv uses: normed, or the plain one."""
+    if isinstance(params, WeightNormParams):
+        return params.weight()
+    return params.weight
+
+
+class Int8ConvMixin:
+    """int8 state of a conv: the flags, the static scale ``s_x`` (a buffer
+    with ``quant_static`` or ``calibrate``, in the state dict) and the
+    quantized weight ``w_q`` with its scales ``s_w`` (buffers kept out of
+    the state dict, made by ``quantize_weights``)."""
+
+    transposed = False
+
+    def _init_int8(self, quant: bool, quant_static: bool, calibrate: bool) -> None:
+        self.quant, self.quant_static, self.calibrate = quant, quant_static, calibrate
+        if quant and (quant_static or calibrate):
+            self.register_buffer("s_x", torch.zeros(()))
+        self.register_buffer("w_q", None, persistent=False)
+        self.register_buffer("s_w", None, persistent=False)
+
+    @torch.no_grad()
+    def quantize_weight_(self) -> None:
+        self.w_q, self.s_w = quantize_weight(
+            effective_weight(self.params).float(), self.transposed)
+
+    def _int8_ready(self, x: torch.Tensor) -> bool:
+        """True: run the int8 conv; False: the float path (no ``quant``, or
+        calibrating, which records the scale first)."""
+        if not self.quant:
+            return False
+        if self.calibrate:
+            with torch.no_grad():
+                self.s_x.copy_(torch.maximum(self.s_x, div127(x.abs().amax())))
+            return False
+        if self.w_q is None:
+            raise RuntimeError("int8 conv without int8 weights: call "
+                               "quantize_weights(module) after loading the weights")
+        if x.dtype != torch.float32:
+            raise ValueError(f"the int8 conv takes float32 input, got {x.dtype}")
+        return True
+
+    def _int8(self, x: torch.Tensor, pad_left: int, pad_right: int, stride: int,
+              dilation: int, causal: bool) -> torch.Tensor:
+        return int8_conv1d(x.contiguous(), self.w_q, self.s_w, self.params.bias,
+                           self.s_x if self.quant_static else None, stride, dilation,
+                           pad_left, pad_right, self.transposed, causal)
+
+
+class WNConv1d(Int8ConvMixin, nn.Module):
     """Weight-normed Conv1d. ``causal``: left pad (k-1)*dilation; otherwise
     ``padding`` frames on both sides."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, dilation: int = 1,
-                 bias: bool = True, causal: bool = False, dtype: Dtype = None):
+                 bias: bool = True, causal: bool = False, dtype: Dtype = None,
+                 use_weight_norm: bool = True, quant: bool = False,
+                 quant_static: bool = False, calibrate: bool = False):
         super().__init__()
         self.stride, self.dilation, self.dtype = stride, dilation, dtype
         self.pads = (((kernel_size - 1) * dilation, 0) if causal
                      else (padding, padding))
-        self.conv1d = WeightNormParams(out_channels, in_channels, kernel_size,
-                                       out_channels if bias else 0)
+        self.conv1d = conv_params(out_channels, in_channels, kernel_size,
+                                  out_channels if bias else 0, use_weight_norm)
+        self._init_int8(quant, quant_static, calibrate)
+
+    @property
+    def params(self) -> nn.Module:
+        return self.conv1d
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w, b = self.conv1d.weight(), self.conv1d.bias
+        if self._int8_ready(x):
+            return self._int8(x, *self.pads, self.stride, self.dilation, False)
+        w, b = effective_weight(self.conv1d), self.conv1d.bias
         if self.dtype is None:
             return F.conv1d(F.pad(x, self.pads), w, b, self.stride, 0, self.dilation)
         y = F.conv1d(F.pad(x.to(self.dtype), self.pads), w.to(self.dtype), None,
@@ -98,26 +185,38 @@ class WNConv1d(nn.Module):
         return add_bias(y, b)
 
 
-class WNConvTranspose1d(nn.Module):
+class WNConvTranspose1d(Int8ConvMixin, nn.Module):
     """Weight-normed ConvTranspose1d, normed per input channel. Causal: trim
     the tail to T*stride; otherwise trim ``padding`` from both ends."""
 
+    transposed = True
+
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int, padding: int = 0, bias: bool = True,
-                 causal: bool = False, dtype: Dtype = None):
+                 causal: bool = False, dtype: Dtype = None,
+                 use_weight_norm: bool = True, quant: bool = False,
+                 quant_static: bool = False, calibrate: bool = False):
         super().__init__()
         self.stride, self.padding, self.causal = stride, padding, causal
         self.dtype = dtype
-        self.deconv = WeightNormParams(in_channels, out_channels, kernel_size,
-                                       out_channels if bias else 0)
+        self.deconv = conv_params(in_channels, out_channels, kernel_size,
+                                  out_channels if bias else 0, use_weight_norm)
+        self._init_int8(quant, quant_static, calibrate)
+
+    @property
+    def params(self) -> nn.Module:
+        return self.deconv
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self._int8_ready(x):
+            return self._int8(x, self.padding, self.padding, self.stride, 1,
+                              self.causal)
+        w = effective_weight(self.deconv)
         if self.dtype is None:
-            y = F.conv_transpose1d(x, self.deconv.weight(), self.deconv.bias,
-                                   self.stride)
+            y = F.conv_transpose1d(x, w, self.deconv.bias, self.stride)
         else:
             y = add_bias(F.conv_transpose1d(
-                x.to(self.dtype), self.deconv.weight().to(self.dtype), None,
+                x.to(self.dtype), w.to(self.dtype), None,
                 self.stride), self.deconv.bias)
         if self.causal:
             return y[:, :, :x.shape[-1] * self.stride]
@@ -131,7 +230,7 @@ class ResidualBlock(nn.Module):
                  dilation: Sequence[int] = (1, 3, 5),
                  nonlinear_activation: str = "LeakyReLU",
                  nonlinear_activation_params: Optional[dict] = None,
-                 causal: bool = False, dtype: Dtype = None):
+                 causal: bool = False, dtype: Dtype = None, **int8):
         super().__init__()
         self.act = get_activation(nonlinear_activation,
                                   nonlinear_activation_params
@@ -139,10 +238,11 @@ class ResidualBlock(nn.Module):
         k = kernel_size
         self.convs1 = nn.ModuleList([
             WNConv1d(channels, channels, k, padding=(k * d - d) // 2,
-                     dilation=d, causal=causal, dtype=dtype) for d in dilation])
+                     dilation=d, causal=causal, dtype=dtype, **int8)
+            for d in dilation])
         self.convs2 = nn.ModuleList([
             WNConv1d(channels, channels, k, padding=(k - 1) // 2,
-                     causal=causal, dtype=dtype) for _ in dilation])
+                     causal=causal, dtype=dtype, **int8) for _ in dilation])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for c1, c2 in zip(self.convs1, self.convs2):
@@ -245,3 +345,13 @@ def fold_weight_norm(module: nn.Module) -> nn.Module:
                 w, dim=tuple(range(1, w.ndim)), keepdim=True))
     return module
 
+
+def quantize_weights(module: nn.Module) -> nn.Module:
+    """Quantize the weights of every int8 conv in ``module`` from its current
+    (folded) weight, once: per output channel, as the JAX layers do on every
+    call. Call it after loading and folding the weights; the int8 buffers
+    then move with the module. Returns ``module``."""
+    for m in module.modules():
+        if isinstance(m, Int8ConvMixin) and m.quant:
+            m.quantize_weight_()
+    return module

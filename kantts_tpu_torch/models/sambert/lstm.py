@@ -26,7 +26,15 @@ class LSTM(nn.LSTM):
 class BiLSTM(nn.LSTM):
     """Single-layer bidirectional LSTM whose reverse direction runs over each
     item's own length: padding never reaches the backward states of valid
-    positions. Outputs at padding positions are zero."""
+    positions. Outputs at padding positions are zero.
+
+    With autograd on (training) the lengths pack the sequence, which copies
+    them to the host. Without it (inference, and ``torch.export``) the same
+    function is computed with no host copy and no shape that depends on
+    the lengths: the forward direction is read from a pass over the padded
+    sequence (the padding comes after every valid step), the reverse
+    direction from a pass over each item's sequence rolled so that its
+    valid steps come last, gathered back into place."""
 
     def __init__(self, input_size: int, hidden_size: int):
         super().__init__(input_size, hidden_size, batch_first=True,
@@ -37,8 +45,24 @@ class BiLSTM(nn.LSTM):
         """x (B, T, D) -> (B, T, 2H)."""
         if lengths is None:
             return super().forward(x)[0]
+        if not torch.is_grad_enabled():
+            return self._masked(x, lengths)
         packed = pack_padded_sequence(x, lengths.cpu(), batch_first=True,
                                       enforce_sorted=False)
         out, _ = super().forward(packed)
         return pad_packed_sequence(out, batch_first=True,
                                    total_length=x.shape[1])[0]
+
+    def _masked(self, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        T, H = x.shape[1], self.hidden_size
+        t = torch.arange(T, device=x.device)[None, :]
+        lengths = lengths.to(x.device)[:, None]
+        # each item's valid steps moved to the end (rolled by T - length): the
+        # reverse direction, which runs from step T - 1 down, meets them
+        # before any padding
+        rolled = torch.remainder(t - (T - lengths), T)[..., None]
+        back = super().forward(x.gather(1, rolled.expand(-1, -1, x.shape[2])))[0]
+        unroll = torch.remainder(t + (T - lengths), T)[..., None]
+        bwd = back[..., H:].gather(1, unroll.expand(-1, -1, H))
+        out = torch.cat([super().forward(x)[0][..., :H], bwd], dim=-1)
+        return out * (t < lengths)[..., None].to(x.dtype)

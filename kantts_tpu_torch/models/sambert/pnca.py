@@ -8,7 +8,10 @@ length-regulated encoder memory (keys j in [t, t + h_band_width]).
 - Training runs one teacher-forced pass with (T, T) band masks.
 - Inference (``pnca_decoder_infer``) is a Python loop over steps that writes
   each step's keys and values in place into a preallocated (L, B, H, T, dh)
-  cache; the memory-side keys and values are projected once before the loop.
+  cache; the memory-side keys and values are projected once before the loop
+  (``pnca_memory_kv``). One step (``HybridAttentionDecoder.step``) takes the
+  step index as a 0-d tensor and the caches as arguments, so that it
+  exports as one program (``infer/exported.py``).
 - Band widths are tensors: a scalar, or (B, 1, 1, 1) for per-item widths.
 - With a compute ``dtype`` (bf16) the projections and FFN convs run in it,
   the residual stream between them stays in it, the caches hold it, and the
@@ -92,14 +95,15 @@ class MultiHeadPNCAAttention(nn.Module):
         out_h, attn_h = self._attend(q, h_k, h_v, hm)
         return self._project_out(x, out_x, out_h), attn_x, attn_h
 
-    def step(self, x_t, t: int, cache_k, cache_v, h_k, h_v, x_band_width,
-             h_band_width, mem_pad_mask=None):
-        """One incremental step. x_t (B, 1, d_model); cache_k/cache_v (B, H,
-        T, dh), written in place at row t."""
+    def step(self, x_t, t: torch.Tensor, cache_k, cache_v, h_k, h_v,
+             x_band_width, h_band_width, mem_pad_mask=None):
+        """One incremental step. x_t (B, 1, d_model); t a 0-d int64 tensor;
+        cache_k/cache_v (B, H, T, dh), written in place at row t."""
         q, k, v = (split_heads(u, self.n_head)
                    for u in self.w_x_qkv(self.layer_norm(x_t.float())).chunk(3, dim=-1))
-        cache_k[:, :, t] = k[:, :, 0]
-        cache_v[:, :, t] = v[:, :, 0]
+        index = t.reshape(1)
+        cache_k.index_copy_(2, index, k)
+        cache_v.index_copy_(2, index, v)
         j = torch.arange(cache_k.shape[2], device=x_t.device)[None, None, None, :]
         x_mask = ~((j >= t - x_band_width) & (j <= t))
         h_mask = ~((j >= t) & (j <= t + h_band_width))
@@ -166,16 +170,17 @@ class HybridAttentionDecoder(nn.Module):
             attns_h.append(attn_h)
         return self.dec_out_proj(self.ln(h.float())), attns_x, attns_h
 
-    def step(self, t: int, prev_frame, memory_t, h_kv, cache_k, cache_v,
-             x_band_width, h_band_width, mem_pad_mask=None):
-        """One decode step. prev_frame (B, 1, d_in); memory_t (B, 1, d_mem);
-        cache_k/cache_v (L, B, H, T, dh), written in place."""
-        h = self._input(prev_frame, memory_t)
+    def step(self, t: torch.Tensor, prev_frame, memory, h_k, h_v, cache_k,
+             cache_v, x_band_width, h_band_width, mem_pad_mask=None):
+        """One decode step. t a 0-d int64 tensor; prev_frame (B, 1, d_in);
+        memory (B, T, d_mem), of which step t reads row t; h_k/h_v (L, B, H,
+        T, dh) from ``pnca_memory_kv``; cache_k/cache_v (L, B, H, T, dh),
+        written in place at row t. -> (B, 1, d_out)."""
+        h = self._input(prev_frame, memory.index_select(1, t.reshape(1)))
         h = self.drop(h * weak_scalar(math.sqrt(self.d_model), h.dtype))
         for i, layer in enumerate(self.pnca):
-            h = layer.pnca_attn.step(h, t, cache_k[i], cache_v[i], h_kv[i][0],
-                                     h_kv[i][1], x_band_width, h_band_width,
-                                     mem_pad_mask)
+            h = layer.pnca_attn.step(h, t, cache_k[i], cache_v[i], h_k[i], h_v[i],
+                                     x_band_width, h_band_width, mem_pad_mask)
             h = layer.pos_ffn(h)
         return self.dec_out_proj(self.ln(h.float()))
 
@@ -206,25 +211,41 @@ class MelPNCADecoder(nn.Module):
         return self.mel_dec(inputs, memory, x_band_width, h_band_width, mask)
 
 
+def pnca_memory_kv(decoder: MelPNCADecoder, memory: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The memory-side keys and values of every layer, projected once:
+    memory (B, T, d_mem) -> h_k, h_v each (L, B, H, T, dh)."""
+    kv = [layer.pnca_attn.compute_h_kv(memory) for layer in decoder.mel_dec.pnca]
+    return torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv])
+
+
+def pnca_caches(decoder: MelPNCADecoder, memory: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zeroed self-attention caches (L, B, H, T, dh) in the compute dtype,
+    as the projections make it."""
+    B, T, _ = memory.shape
+    H = decoder.nb_heads
+    cache_k = memory.new_zeros((decoder.nb_layers, B, H, T, decoder.d_model // H),
+                               dtype=decoder.dtype or memory.dtype)
+    return cache_k, torch.zeros_like(cache_k)
+
+
 @torch.no_grad()
 def pnca_decoder_infer(decoder: MelPNCADecoder, memory: torch.Tensor,
+                       h_k: torch.Tensor, h_v: torch.Tensor,
                        x_band_width: torch.Tensor, h_band_width: torch.Tensor,
                        mem_pad_mask: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
-    """Incremental decode over every memory step -> (B, T, d_mel * r)."""
+    """Incremental decode over every memory step, with the memory-side keys
+    and values of ``pnca_memory_kv`` -> (B, T, d_mel * r)."""
     B, T, _ = memory.shape
-    L, H = decoder.nb_layers, decoder.nb_heads
-    dh = decoder.d_model // H
-    dec = decoder.mel_dec
-    h_kv = [layer.pnca_attn.compute_h_kv(memory) for layer in dec.pnca]
-    # the caches hold the compute dtype, as the projections make it
-    cache_k = memory.new_zeros((L, B, H, T, dh), dtype=decoder.dtype or memory.dtype)
-    cache_v = torch.zeros_like(cache_k)
+    cache_k, cache_v = pnca_caches(decoder, memory)
+    steps = torch.arange(T, device=memory.device)
     prev = memory.new_zeros((B, 1, decoder.d_mel))
     outs = memory.new_empty((B, T, decoder.d_mel * decoder.r))
     for t in range(T):
-        out = dec.step(t, prev, memory[:, t:t + 1], h_kv, cache_k, cache_v,
-                       x_band_width, h_band_width, mem_pad_mask)
+        out = decoder.mel_dec.step(steps[t], prev, memory, h_k, h_v, cache_k,
+                                   cache_v, x_band_width, h_band_width, mem_pad_mask)
         outs[:, t] = out[:, 0]
         prev = out[:, :, -decoder.d_mel:]
     return outs

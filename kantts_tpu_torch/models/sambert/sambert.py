@@ -18,7 +18,10 @@ An NSF model (``NSF: true``) is the same model at ``num_mels`` 82: its
 last two output channels are the normalised f0 and uv, which inference
 denormalises on the host (``bin/infer_sambert.py::denorm_f0``).
 ``sambert_infer`` is the acoustic inference: the autoregressive duration
-loop and the PNCA decode are Python loops over steps; ``sambert_infer_fp``
+loop and the PNCA decode are Python loops over steps. It runs as stage
+functions (``infer_encode``, ``infer_duration_step``, ``infer_regulate``,
+the decoder's ``step``, ``infer_postnet``), which the serving artifact
+exports one by one (``infer/exported.py``); ``sambert_infer_fp``
 predicts the filled pauses first and splices them in. ``KanTtsTextsyBERT``
 is the masked-LM pretrainer of the text encoder (Textsy-BERT).
 
@@ -57,7 +60,11 @@ from kantts_tpu_torch.models.sambert.fp import (
 )
 from kantts_tpu_torch.models.sambert.fsmn import FsmnEncoderV2
 from kantts_tpu_torch.models.sambert.lstm import LSTM
-from kantts_tpu_torch.models.sambert.pnca import MelPNCADecoder, pnca_decoder_infer
+from kantts_tpu_torch.models.sambert.pnca import (
+    MelPNCADecoder,
+    pnca_decoder_infer,
+    pnca_memory_kv,
+)
 from kantts_tpu_torch.models.sambert.positions import (
     add_sinusoidal_position,
     duration_position_encoding,
@@ -471,40 +478,51 @@ def sambert_infer_fp(model: KanTtsSAMBERT, inputs_ling, inputs_emotion,
     return res
 
 
-@torch.no_grad()
-def sambert_infer(model: KanTtsSAMBERT, inputs_ling, inputs_emotion,
-                  inputs_speaker, input_lengths, max_output_len: int,
-                  text_hid_override: Optional[torch.Tensor] = None,
-                  duration_override: Optional[torch.Tensor] = None
-                  ) -> Dict[str, torch.Tensor]:
-    """Acoustic inference: symbols -> mel at a frame budget of
-    ``max_output_len`` (a multiple of r); the valid length is
-    ``LR_length_rounded``. ``text_hid_override`` (B, T, D) is an encoded
-    text-hidden sequence that takes the encoder's place (the FP path),
-    ``input_lengths`` then being its lengths. ``duration_override`` (B, T_in)
-    frames per phone replaces the decoded durations; the duration head
-    still runs and its predictions are still returned."""
-    r = model.r
-    if max_output_len % r:
-        raise ValueError(f"max_output_len {max_output_len} is not a multiple of r={r}")
+def infer_encode(model: KanTtsSAMBERT, inputs_ling, inputs_emotion,
+                 inputs_speaker, input_lengths,
+                 text_hid_override: Optional[torch.Tensor] = None):
+    """Inference stage 1: encoder, tokenizers and the variance predictors.
+    -> (text_aug, emo_hid, spk_hid, dur_cond, pitch_pred, energy_pred)."""
     text_hid = text_hid_override
-    B, T_in = (inputs_ling if text_hid is None else text_hid).shape[:2]
+    T_in = (inputs_ling if text_hid is None else text_hid).shape[1]
     input_masks = get_mask_from_lengths(input_lengths, T_in)
     if text_hid is None:
         text_hid, _, _ = model.encode(inputs_ling, input_masks)
     emo_hid, spk_hid = model.tokenize(inputs_emotion, inputs_speaker)
     pitch_pred, energy_pred, text_aug, dur_cond = model.variance_pre(
         text_hid, emo_hid, spk_hid, input_masks)
+    return text_aug, emo_hid, spk_hid, dur_cond, pitch_pred, energy_pred
 
-    # autoregressive duration decode, one phone per step
-    predictor = model.variance_adaptor.duration_predictor
-    prev = text_hid.new_zeros((B, 1, 1))
-    state = None
-    log_dur = text_hid.new_empty((B, T_in))
-    for t in range(T_in):
-        out, state = predictor(prev, dur_cond[:, t:t + 1], state)
-        log_dur[:, t] = out[:, 0]
-        prev = out[..., None]
+
+def infer_duration_state(model: KanTtsSAMBERT, dur_cond: torch.Tensor):
+    """The duration decode's start: (prev (B, 1, 1) zeros, h, c each
+    (2, B, H) zeros)."""
+    B = dur_cond.shape[0]
+    lstm = model.variance_adaptor.duration_predictor.lstm
+    h = dur_cond.new_zeros((lstm.num_layers, B, lstm.hidden_size))
+    return dur_cond.new_zeros((B, 1, 1)), h, torch.zeros_like(h)
+
+
+def infer_duration_step(model: KanTtsSAMBERT, prev, cond_t, h, c):
+    """One step of the autoregressive duration decode: prev (B, 1, 1) the
+    previous step's output, cond_t (B, 1, C) this phone's condition, the
+    LSTM state h, c -> (out (B, 1, 1), h, c)."""
+    out, (h, c) = model.variance_adaptor.duration_predictor(prev, cond_t, (h, c))
+    return out[..., None], h, c
+
+
+def infer_regulate(model: KanTtsSAMBERT, text_aug, emo_hid, spk_hid, log_dur,
+                   input_lengths, max_output_len: int,
+                   duration_override: Optional[torch.Tensor] = None):
+    """Inference stage 3: durations from the decoded log-durations (or
+    ``duration_override``), the length regulator, the decoder memory, the
+    band widths and masks, and the memory-side keys and values.
+    -> dict of log_dur (masked), durations, memory, h_k, h_v, band_width
+    (a scalar at B=1, (B,) otherwise), bw_step (its broadcast form),
+    mem_pad_mask and LR_length."""
+    r = model.r
+    B, T_in = log_dur.shape
+    input_masks = get_mask_from_lengths(input_lengths, T_in)
     log_dur = log_dur.masked_fill(input_masks, 0.0)
     durations = (torch.exp(log_dur) - 1.0).masked_fill(input_masks, 0.0)
     if duration_override is not None:
@@ -523,21 +541,65 @@ def sambert_infer(model: KanTtsSAMBERT, inputs_ling, inputs_emotion,
     else:
         band_width = torch.floor(durations.max(dim=1).values / r + 0.5).to(torch.int32)
         bw_step = band_width.reshape(B, 1, 1, 1)
-
-    output_masks = get_mask_from_lengths(LR_length, max_output_len)
     mem_pad_mask = get_mask_from_lengths((LR_length + r - 1) // r,
                                          max_output_len // r)
-    dec_outputs = pnca_decoder_infer(model.mel_decoder, memory, bw_step,
-                                     bw_step, mem_pad_mask)
-    dec, post = model.decode_postnet(dec_outputs, output_masks)
+    h_k, h_v = pnca_memory_kv(model.mel_decoder, memory)
+    return {"log_dur": log_dur, "durations": durations, "memory": memory,
+            "h_k": h_k, "h_v": h_v, "band_width": band_width, "bw_step": bw_step,
+            "mem_pad_mask": mem_pad_mask, "LR_length": LR_length}
+
+
+def infer_postnet(model: KanTtsSAMBERT, dec_outputs, LR_length,
+                  max_output_len: int):
+    """Inference stage 5: the decoder's (B, T / r, d_mel * r) outputs ->
+    (dec, postnet mel), each (B, T, d_mel), zero past ``LR_length``."""
+    output_masks = get_mask_from_lengths(LR_length, max_output_len)
+    return model.decode_postnet(dec_outputs, output_masks)
+
+
+@torch.no_grad()
+def sambert_infer(model: KanTtsSAMBERT, inputs_ling, inputs_emotion,
+                  inputs_speaker, input_lengths, max_output_len: int,
+                  text_hid_override: Optional[torch.Tensor] = None,
+                  duration_override: Optional[torch.Tensor] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """Acoustic inference: symbols -> mel at a frame budget of
+    ``max_output_len`` (a multiple of r); the valid length is
+    ``LR_length_rounded``. ``text_hid_override`` (B, T, D) is an encoded
+    text-hidden sequence that takes the encoder's place (the FP path),
+    ``input_lengths`` then being its lengths. ``duration_override`` (B, T_in)
+    frames per phone replaces the decoded durations; the duration head
+    still runs and its predictions are still returned."""
+    r = model.r
+    if max_output_len % r:
+        raise ValueError(f"max_output_len {max_output_len} is not a multiple of r={r}")
+    text_aug, emo_hid, spk_hid, dur_cond, pitch_pred, energy_pred = infer_encode(
+        model, inputs_ling, inputs_emotion, inputs_speaker, input_lengths,
+        text_hid_override)
+
+    # autoregressive duration decode, one phone per step
+    B, T_in = dur_cond.shape[:2]
+    prev, h, c = infer_duration_state(model, dur_cond)
+    log_dur = dur_cond.new_empty((B, T_in))
+    for t in range(T_in):
+        prev, h, c = infer_duration_step(model, prev, dur_cond[:, t:t + 1], h, c)
+        log_dur[:, t] = prev[:, 0, 0]
+
+    reg = infer_regulate(model, text_aug, emo_hid, spk_hid, log_dur, input_lengths,
+                         max_output_len, duration_override)
+    # the PNCA decode, one group of r frames per step
+    dec_outputs = pnca_decoder_infer(model.mel_decoder, reg["memory"], reg["h_k"],
+                                     reg["h_v"], reg["bw_step"], reg["bw_step"],
+                                     reg["mem_pad_mask"])
+    dec, post = infer_postnet(model, dec_outputs, reg["LR_length"], max_output_len)
     return {
         "dec_outputs": dec,
         "postnet_outputs": post,
-        "LR_length_rounded": LR_length,
-        "log_duration_predictions": log_dur,
-        "duration_predictions": durations,
+        "LR_length_rounded": reg["LR_length"],
+        "log_duration_predictions": reg["log_dur"],
+        "duration_predictions": reg["durations"],
         "pitch_predictions": pitch_pred,
         "energy_predictions": energy_pred,
-        "x_band_width": band_width,
-        "h_band_width": band_width,
+        "x_band_width": reg["band_width"],
+        "h_band_width": reg["band_width"],
     }

@@ -2,8 +2,8 @@
 
 The source is compiled at first use with ``nvcc`` into a shared library with
 a plain C interface under ``build/kantts_tpu_torch/`` (keyed by the source's
-hash), and bound with ``ctypes``. Nothing is built or loaded at import, so
-the module imports on a machine without CUDA.
+hash; ``ops/nvcc.py``), and bound with ``ctypes``. Nothing is built or
+loaded at import, so the module imports on a machine without CUDA.
 
 ``b_mas_cuda`` takes CUDA tensors only; ``models/sambert/alignment.py``
 holds the plain PyTorch version and the dispatcher. The kernel writes the
@@ -15,30 +15,14 @@ backpointer bits stay in shared memory, and only a map too long for that
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
 import threading
-import time
 
 import torch
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "mas.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kantts_tpu_torch")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from kantts_tpu_torch.ops.nvcc import PKG_DIR, build_library
 
-
-def _find_nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: K1 is built from csrc/mas.cu with the "
-                       "CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
+SOURCE = os.path.join(PKG_DIR, "csrc", "mas.cu")
 
 
 class MasKernel:
@@ -57,21 +41,8 @@ class MasKernel:
         with self._lock:
             if self._lib is not None:
                 return self._lib
-            with open(SOURCE, "rb") as f:
-                digest = hashlib.sha1(f.read()).hexdigest()[:12]
-            lib_path = os.path.join(BUILD_DIR, f"libkantts_mas_{digest}.so")
-            t0 = time.perf_counter()
-            if not os.path.exists(lib_path):
-                os.makedirs(BUILD_DIR, exist_ok=True)
-                tmp = f"{lib_path}.{os.getpid()}.tmp"
-                proc = subprocess.run(
-                    [_find_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                    capture_output=True, text=True)
-                self.build_log = proc.stdout + proc.stderr
-                if proc.returncode != 0:
-                    raise RuntimeError(f"nvcc failed on {SOURCE}:\n{self.build_log}")
-                os.replace(tmp, lib_path)
-            lib = ctypes.CDLL(lib_path)
+            lib, self.build_log, self.build_seconds = build_library(
+                SOURCE, "libkantts_mas")
             lib.kantts_mas_width1.argtypes = [ctypes.c_void_p] * 5 + [
                 ctypes.c_int] * 4 + [ctypes.c_void_p]
             lib.kantts_mas_width1.restype = ctypes.c_int
@@ -81,7 +52,6 @@ class MasKernel:
             lib.kantts_mas_variant.restype = ctypes.c_int
             lib.kantts_mas_scratch_words.argtypes = [ctypes.c_int] * 4
             lib.kantts_mas_scratch_words.restype = ctypes.c_longlong
-            self.build_seconds = time.perf_counter() - t0
             self._lib = lib
             return lib
 

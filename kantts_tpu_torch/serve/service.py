@@ -46,7 +46,6 @@ import numpy as np
 import torch
 
 from kantts_tpu_torch.bin.infer_hifigan import (
-    INT8_NOT_PORTED,
     bucket_pad,
     load_vocoder,
     vocode,
@@ -179,12 +178,11 @@ class TTSService:
         checkpoints carry their config; weight norm folded for serving; an
         NSF acoustic model's denormaliser, a multi-band vocoder's PQMF, an SE
         acoustic model's speaker embedding from ``se_file``, which any other
-        acoustic model ignores). ``int8`` raises ``NotImplementedError``."""
+        acoustic model ignores). ``int8`` serves the vocoder with int8 W8A8
+        interior convs (the same checkpoint; ``infer_hifigan --int8``)."""
         device = resolve_device(device)
-        if int8:
-            raise NotImplementedError(INT8_NOT_PORTED)
         am_model, ling_unit = load_am(am_ckpt, device)
-        generator, voc_cfg = load_vocoder(voc_ckpt, device)
+        generator, voc_cfg = load_vocoder(voc_ckpt, device, quant=int8)
         return cls(am_model, ling_unit, generator,
                    voc_cfg["audio_config"]["sampling_rate"],
                    pqmf=build_pqmf(voc_cfg), frontend=frontend,
@@ -260,6 +258,11 @@ class TTSService:
             raise ValueError("streaming does not support NSF checkpoints "
                              "(the harmonic source phase is a whole-"
                              "utterance cumsum)")
+        if getattr(self.generator, "quant", False):
+            raise ValueError("streaming does not support --int8: dynamic "
+                             "per-example activation scales differ between "
+                             "a streaming window and the full utterance, "
+                             "breaking chunk-boundary exactness")
         seqs = self._text_to_seqs(text, speaker, lang)
         self._validate(seqs)
 

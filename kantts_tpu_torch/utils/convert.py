@@ -95,14 +95,40 @@ def sybert_state_dict_from_jax(params_np: Mapping, cfg: Dict[str, Any]
     return _invert(convert_sybert, template, params_np, cfg)
 
 
-def hifigan_state_dict_from_jax(params_np: Mapping, cfg: Dict[str, Any]
+def hifigan_state_dict_from_jax(params_np: Mapping, cfg: Dict[str, Any],
+                                quant: Optional[Mapping] = None
                                 ) -> Dict[str, torch.Tensor]:
     """JAX Generator params (numpy leaves) -> a state dict that
     ``Generator(**cfg)`` loads with ``strict=True``. ``cfg`` is the
-    generator's params dict."""
+    generator's params dict; with or without weight norm. With ``quant``,
+    the JAX ``quant`` collection of static int8 scales, the dict adds each
+    int8 conv's ``s_x`` and loads into ``Generator(**cfg, quant=True,
+    quant_static=True)``."""
     with torch.device("meta"):
         template = Generator(**cfg).state_dict()
-    return _invert(convert_hifigan_generator, template, params_np, cfg)
+    out = _invert(convert_hifigan_generator, template, params_np, cfg)
+    if quant is not None:
+        with torch.device("meta"):
+            names = [k for k in Generator(**cfg, quant=True, quant_static=True)
+                     .state_dict() if k.endswith(".s_x")]
+        for name in names:
+            jax_path = _generator_jax_path(name[:-len(".s_x")], cfg)
+            value = np.asarray(_leaf(quant, jax_path)["s_x"], dtype=np.float32)
+            out[name] = torch.from_numpy(value.reshape(()).copy())
+    return out
+
+
+def _generator_jax_path(prefix: str, cfg: Dict[str, Any]) -> str:
+    """``repeat_upsamples.1.2`` -> ``repeat_upsamples_1``;
+    ``transpose_upsamples.1.1`` -> ``transpose_upsamples_1``;
+    ``conv_blocks.4.convs2.0`` -> ``conv_blocks_1_1/convs2_0`` (with 3
+    residual blocks a stage)."""
+    parts = prefix.split(".")
+    if parts[0] in ("repeat_upsamples", "transpose_upsamples"):
+        return f"{parts[0]}_{parts[1]}"
+    n_res = len(cfg["resblock_kernel_sizes"])
+    stage, block = divmod(int(parts[1]), n_res)
+    return f"conv_blocks_{stage}_{block}/{parts[2]}_{parts[3]}"
 
 
 def _jax_path(prefix: str) -> str:

@@ -65,11 +65,17 @@ def _lstm(tree, prefix, sd, torch_prefix, num_layers=1, bidirectional=False):
 
 
 def _wnconv(tree, prefix, sd, torch_prefix):
-    """Weight-normed conv (the generator's layers wrap it as .conv1d/.deconv)."""
-    _set(tree, f"{prefix}/kernel_v",
-         sd[f"{torch_prefix}.weight_v"].transpose(2, 1, 0))
-    _set(tree, f"{prefix}/kernel_g",
-         sd[f"{torch_prefix}.weight_g"].reshape(-1))
+    """Weight-normed conv (the generator's layers wrap it as .conv1d/.deconv).
+    A conv without weight norm (a plain ``weight``) maps to ``kernel_v``
+    alone, as the JAX layer holds it (the port's extension of the copy)."""
+    if f"{torch_prefix}.weight" in sd:
+        _set(tree, f"{prefix}/kernel_v",
+             sd[f"{torch_prefix}.weight"].transpose(2, 1, 0))
+    else:
+        _set(tree, f"{prefix}/kernel_v",
+             sd[f"{torch_prefix}.weight_v"].transpose(2, 1, 0))
+        _set(tree, f"{prefix}/kernel_g",
+             sd[f"{torch_prefix}.weight_g"].reshape(-1))
     if f"{torch_prefix}.bias" in sd:
         _set(tree, f"{prefix}/bias", sd[f"{torch_prefix}.bias"])
 

@@ -162,3 +162,45 @@ def test_gan_steps_on_the_card(cuda, tmp_path):
     model, _ = load_checkpoint(str(tmp_path / "stage" / "ckpt" / "checkpoint_3.ckpt"),
                                cuda)
     assert isinstance(model, Generator) and next(model.parameters()).is_cuda
+
+
+@pytest.mark.parametrize("geom", [
+    dict(transposed=False, causal=True, k=7, stride=1, dilation=5, pl=30, pr=0, T=333),
+    dict(transposed=False, causal=False, k=11, stride=1, dilation=3, pl=15, pr=15, T=65),
+    dict(transposed=False, causal=True, k=3, stride=1, dilation=1, pl=2, pr=0, T=1),
+    dict(transposed=True, causal=True, k=20, stride=10, dilation=1, pl=5, pr=5, T=41),
+    dict(transposed=True, causal=False, k=4, stride=2, dilation=1, pl=1, pr=1, T=130),
+])
+def test_k2_equals_plain_version(cuda, geom):
+    """K2 against ``int8_conv_torch`` on the card, exact: the int8 sums and
+    the float32 outputs, dynamic and static scales; through the operator
+    the layers call, which counts one launch."""
+    from kantts_tpu_torch.ops.int8_conv import (
+        int8_conv1d,
+        int8_conv_cuda,
+        int8_conv_torch,
+        int8_sums_torch,
+        quantize_sym,
+        quantize_weight,
+        scales,
+    )
+
+    rng = np.random.RandomState(geom["k"])
+    c_in, c_out = 36, 20
+    w_shape = (c_in, c_out, geom["k"]) if geom["transposed"] else (c_out, c_in, geom["k"])
+    w_q, s_w = quantize_weight(torch.from_numpy(rng.randn(*w_shape).astype(np.float32))
+                               .to(cuda), geom["transposed"])
+    bias = torch.from_numpy(rng.randn(c_out).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.randn(3, c_in, geom["T"]).astype(np.float32)).to(cuda)
+    args = (geom["stride"], geom["dilation"], geom["pl"], geom["pr"], geom["transposed"],
+            geom["causal"])
+    for s_static in (None, torch.tensor(0.02, device=cuda)):
+        sums = int8_conv_cuda(x, w_q, s_w, bias, s_static, *args, sums=True)
+        s_x = scales(x, s_static)
+        want = int8_sums_torch(quantize_sym(x, s_x[:, None, None]), w_q, *args)
+        assert torch.equal(sums, want)
+        before = int8_conv_cuda.launches
+        out = int8_conv1d(x, w_q, s_w, bias, s_static, *args)
+        torch.cuda.synchronize()
+        assert int8_conv_cuda.launches == before + 1
+        assert torch.equal(out, int8_conv_torch(x, w_q, s_w, bias, s_static, *args))

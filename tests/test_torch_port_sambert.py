@@ -25,6 +25,7 @@ from kantts_tpu_torch.configs import get_config
 from kantts_tpu_torch.models.builder import init_parameters
 from kantts_tpu_torch.models.sambert.adaptors import length_regulate
 from kantts_tpu_torch.models.sambert.pnca import pnca_band_masks as t_pnca_band_masks
+from kantts_tpu_torch.models.sambert.pnca import pnca_memory_kv
 from kantts_tpu_torch.models.sambert.positions import duration_position_encoding
 from kantts_tpu_torch.models.sambert.sambert import KanTtsSAMBERT
 from kantts_tpu_torch.utils.convert import sambert_state_dict_from_jax
@@ -223,7 +224,7 @@ def test_pnca_incremental_steps(models):
     caches = (jnp.zeros((L, B, H, T, dh)), jnp.zeros((L, B, H, T, dh)))
     mel_dec = port.mel_decoder.mel_dec
     t_mem = torch.from_numpy(memory)
-    t_hkv = [layer.pnca_attn.compute_h_kv(t_mem) for layer in mel_dec.pnca]
+    t_hk, t_hv = pnca_memory_kv(port.mel_decoder, t_mem)
     ck, cv = torch.zeros(L, B, H, T, dh), torch.zeros(L, B, H, T, dh)
     prev = _rand(11, B, 1, CFG["num_mels"])
     for t in range(3):
@@ -231,8 +232,8 @@ def test_pnca_incremental_steps(models):
             v, jnp.asarray(t), jnp.asarray(prev), jnp.asarray(memory[:, t:t + 1]),
             h_kv, caches, jnp.asarray(bw), jnp.asarray(bw), jnp.asarray(mask),
             method=MelPNCADecoder.dec_step)
-        t_out = mel_dec.step(t, torch.from_numpy(prev), t_mem[:, t:t + 1], t_hkv,
-                             ck, cv, torch.from_numpy(bw), torch.from_numpy(bw),
+        t_out = mel_dec.step(torch.tensor(t), torch.from_numpy(prev), t_mem, t_hk,
+                             t_hv, ck, cv, torch.from_numpy(bw), torch.from_numpy(bw),
                              torch.from_numpy(mask))
         _close(j_out, t_out)
         _close(caches[0], ck)

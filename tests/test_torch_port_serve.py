@@ -279,8 +279,8 @@ def _nsf_checkpoints(slice_models, tmp_path):
 def test_from_checkpoints_refusals(slice_models, tmp_path):
     """``se_file`` is ignored on a non-SE acoustic model (as in the JAX
     package: the file is not even read) and used on an SE one, whose
-    service answers with the embedding it was given; int8 is refused; an
-    NSF pair cannot stream."""
+    service answers with the embedding it was given; an int8 service
+    answers and refuses to stream; an NSF pair cannot stream."""
     d = slice_models["ckpt_dir"]
     am, voc = str(d / "am.pt"), str(d / "voc.pt")
     svc = TTSService.from_checkpoints(am, voc, se_file=str(tmp_path / "absent.npy"),
@@ -303,8 +303,16 @@ def test_from_checkpoints_refusals(slice_models, tmp_path):
         assert sr == 16000 and wav.size > 0 and np.isfinite(wav).all()
     finally:
         svc.close()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TTSService.from_checkpoints(am, voc, int8=True, device="cpu")
+    svc = TTSService.from_checkpoints(am, voc, int8=True, frontend="pinyin",
+                                      device="cpu")
+    try:
+        assert svc.generator.quant
+        sr, wav = svc.synthesize(TEXTS[0])
+        assert sr == 16000 and wav.size > 0 and np.isfinite(wav).all()
+        with pytest.raises(ValueError, match="int8"):
+            next(iter(svc.stream(TEXTS[0])))
+    finally:
+        svc.close()
     svc = TTSService.from_checkpoints(*_nsf_checkpoints(slice_models, tmp_path),
                                       frontend="pinyin", device="cpu")
     try:

@@ -468,8 +468,8 @@ def test_text_script_convertor(voice, tmp_path):
 
 
 def test_new_modules_import_without_jax():
-    """The preprocessing and data-parallel modules import with JAX and the
-    JAX package made unimportable."""
+    """The preprocessing, data-parallel, int8 and export modules import with
+    JAX and the JAX package made unimportable."""
     code = ("import sys\n"
             "for name in ('jax', 'flax', 'optax', 'kantts_tpu'):\n"
             "    sys.modules[name] = None\n"
@@ -477,7 +477,10 @@ def test_new_modules_import_without_jax():
             "import kantts_tpu_torch.dsp.griffin_lim, kantts_tpu_torch.native.pitch\n"
             "import kantts_tpu_torch.preprocess.se_processor\n"
             "import kantts_tpu_torch.utils.metrics\n"
-            "import kantts_tpu_torch.parallel.mesh, kantts_tpu_torch.bin.train_sybert\n")
+            "import kantts_tpu_torch.parallel.mesh, kantts_tpu_torch.bin.train_sybert\n"
+            "import kantts_tpu_torch.ops.int8_conv, kantts_tpu_torch.infer.exported\n"
+            "import kantts_tpu_torch.infer.symbols, kantts_tpu_torch.bin.export_tts\n"
+            "import kantts_tpu_torch.bin.infer_hifigan, kantts_tpu_torch.bin.serve_tts\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]

@@ -219,7 +219,7 @@ def test_hifigan_infer_refusals(tmp_path):
     with pytest.raises(SystemExit, match="causal"):
         infer_hifigan.hifigan_infer(mel_dir, noncausal_ckpt, str(tmp_path / "o"),
                                     device="cpu", chunked=2)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(SystemExit, match="--chunked and --int8"):
         infer_hifigan.main(["--ckpt", causal_ckpt, "--input_mel", mel_dir,
                             "--output_dir", str(tmp_path / "o"), "--int8",
-                            "--device", "cpu"])
+                            "--chunked", "2", "--device", "cpu"])
