@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --k1-before OLD/mas.cu   # K1 before/after only
+    python3 chip_smoke.py --k2-before OLD/int8_conv.cu   # K2 before/after only
     python3 chip_smoke.py --ddp-worker RANK PORT OUT   # one rank of phase 13 (b)
     python3 chip_smoke.py --int8-export   # phase 14 alone, on seeded checkpoints
     python3 chip_smoke.py --profiler-drops REPS   # how often the profiler loses records
@@ -145,15 +146,20 @@ hifigan_v1_16k, with weights made from a seed:
      steps, in turns, with the collectives' ms a step, the gradient bytes
      and the host syncs. K1 launches in (b) and (c).
  14. int8 and the serving artifact, on phase 6's seeded checkpoints: (a)
-     K2 against its plain version, exact (the int8 activations and scales,
-     the int32 sums, the outputs), at every distinct shape of
-     hifigan_v1_16k's 104 int8 convs at B=1 on 400 frames with the
-     generator's own int8 weights, each timed beside the plain version,
-     cuDNN's float32 conv and im2col + ``torch._int_mm``, then at T=1, a
-     T off the tile, zeros, saturated input, |acc| > 2^24, a static
-     scale, and the non-causal conv and transposed conv; (b) the int8
-     vocoder at B=1 on 5 s against float32 (SNR, ms, 104 K2 launches a
-     call), B=4 batch invariance and static calibrated chunked-8, bit for
+     K2 against its plain version, exact (the scales, the int8 activations
+     read back through a 1x1 identity conv, the int32 sums, the outputs),
+     at every distinct shape of hifigan_v1_16k's 104 int8 convs on 400
+     frames at B=1 and B=8 with the generator's own packed int8 weights,
+     each timed beside cuDNN's float32 conv and im2col + ``torch._int_mm``
+     (and at B=1 the plain version), then at T=1, a T off the tile, zeros,
+     saturated input, |acc| > 2^24, a static scale at B=1 and B=8, the
+     non-causal conv and transposed conv, C_in off 32 (a conv and a
+     transposed conv with k=7, s=3), T shorter than a tile, and more tiles
+     than the cooperative grid has blocks; (b) the int8 vocoder at B=1 on
+     5 s against float32 (SNR, ms, 104 K2 launches a call) and one call
+     under ``torch.profiler`` (104 K2 device launches, no other K2 kernel,
+     K2's device ms beside the call's), both vocoders at B=8 by CUDA
+     events, B=4 batch invariance and static calibrated chunked-8, bit for
      bit, and card vs CPU within the two quantization errors and the
      float32 gap; (c) ``infer_hifigan --int8``
      and ``serve_tts --int8`` through their CLIs with no ``--device``; (d)
@@ -3942,16 +3948,92 @@ def int_mm_call(g: dict, q, w_q):
     return call
 
 
+K2_BATCHES = (1, 8)  # B=1, and the service's vocoder batch (max_batch 8)
+
+
+def k2_call_args(g: dict) -> tuple:
+    """The geometry arguments of ``int8_conv1d`` after (x, w_p, s_w, bias,
+    s_static); the plain version takes them without the kernel size."""
+    return (g["k"], g["stride"], g["dilation"], g["pad_left"], g["pad_right"],
+            g["transposed"], g["causal"])
+
+
+def k2_distinct(gen) -> tuple:
+    """The int8 convs of one call of ``gen`` at B=1 on INT8_FRAMES -> (the
+    number of calls, [{"g": geometry, "mod": module, "count": calls}] of the
+    distinct shapes)."""
+    import torch
+
+    mel = torch.from_numpy(np.random.RandomState(14).randn(
+        1, INT8_FRAMES, 80).astype(np.float32)).cuda()
+    calls = int8_conv_shapes(gen, mel)
+    distinct = {}
+    for mod, shape in calls:
+        g = conv_geometry(mod, shape)
+        distinct.setdefault(tuple(sorted(g.items())), {"g": g, "mod": mod, "count": 0})[
+            "count"] += 1
+    return len(calls), list(distinct.values())
+
+
+def k2_int8_values(x, s_static):
+    """The int8 values K2 quantizes x to, read back exactly: the int32 sums
+    of K2's 1x1 conv with the identity weight are the values themselves."""
+    import torch
+
+    from kantts_tpu_torch.ops.int8_conv import int8_conv_cuda, pack_weight
+
+    C = x.shape[1]
+    eye = torch.eye(C, dtype=torch.int8, device=x.device)[:, :, None]
+    ones = torch.ones(C, device=x.device)
+    return int8_conv_cuda(x, pack_weight(eye, False), ones, None, s_static, 1, 1, 1, 0, 0,
+                          False, False, sums=True)
+
+
+def k2_exact(g: dict, x, w_q, w_p, s_w, bias, s_static=None) -> tuple:
+    """Hold K2 to the plain version on x, exactly: the scales it used, its
+    int8 values, its int32 sums and its float32 outputs. -> the largest
+    |int32 sum| and the largest |output difference|, which is 0."""
+    import torch
+
+    from kantts_tpu_torch.ops.int8_conv import (
+        int8_conv_cuda,
+        int8_conv_torch,
+        int8_sums_torch,
+        quantize_sym,
+        scales,
+    )
+
+    args = k2_call_args(g)
+    s_got = torch.empty(x.shape[0], device=x.device)
+    sums = int8_conv_cuda(x, w_p, s_w, bias, s_static, *args, sums=True, s_out=s_got)
+    out = int8_conv_cuda(x, w_p, s_w, bias, s_static, *args)
+    q_got = k2_int8_values(x, s_static)
+    s_ref = scales(x, s_static)
+    q_ref = quantize_sym(x, s_ref[:, None, None])
+    sums_ref = int8_sums_torch(q_ref, w_q, *args[1:])
+    out_ref = int8_conv_torch(x, w_q, s_w, bias, s_static, *args[1:])
+    torch.cuda.synchronize()
+    errs = [float((s_got != s_ref).sum()), float((q_got != q_ref.int()).sum()),
+            float((sums.long() - sums_ref.long()).abs().max()),
+            float((out - out_ref).abs().max())]
+    if any(errs) or out.shape != out_ref.shape:
+        raise AssertionError(f"K2 vs plain at {g}, B={x.shape[0]}: scales, int8 values, "
+                             f"sums, outputs differ by {errs}")
+    return float(sums_ref.abs().max()), errs[3]
+
+
 def k2_checks(gen) -> dict:
-    """(a) K2 against its plain version on the card, exact (0 on the int8
-    activations, the int32 sums and the outputs), at every distinct shape of
-    the generator's int8 convs at B=1 and INT8_FRAMES, with the module's own
-    int8 weights; each timed by CUDA events beside the plain version,
-    cuDNN's float32 conv on the same float32 weights, and im2col +
-    ``torch._int_mm`` (the GEMM alone, on the quantized input). Then the edge
-    cases: T=1, a T that is no multiple of the 64-step tile, an all-zero
-    input, a saturated one, |acc| > 2^24, a static scale, and the
-    non-causal conv and transposed conv."""
+    """(a) K2 against its plain version on the card, exact (0 on the scales,
+    the int8 activations, the int32 sums and the outputs), at every
+    distinct shape of the generator's int8 convs on INT8_FRAMES at B=1 and
+    B=8, with the module's own packed int8 weights; each timed by CUDA
+    events beside cuDNN's float32 conv on the same float32 weights and
+    im2col + ``torch._int_mm`` (the GEMM alone, on the quantized input),
+    and at B=1 beside the plain version. Then the edge cases: T=1, a T off
+    the tile, an all-zero input, a saturated one, |acc| > 2^24, a static
+    scale at B=1 and B=8, the non-causal conv and transposed conv, C_in not
+    a multiple of 32, T shorter than a tile, and more output tiles than the
+    cooperative grid has blocks."""
     import torch
     import torch.nn.functional as F
 
@@ -3959,83 +4041,57 @@ def k2_checks(gen) -> dict:
     from kantts_tpu_torch.ops.int8_conv import (
         int8_conv_cuda,
         int8_conv_torch,
-        int8_sums_torch,
+        pack_weight,
         quantize_sym,
         quantize_weight,
         scales,
     )
 
     rng = np.random.RandomState(14)
-    mel = torch.from_numpy(rng.randn(1, INT8_FRAMES, 80).astype(np.float32)).cuda()
-    calls = int8_conv_shapes(gen, mel)
-    distinct = {}
-    for mod, shape in calls:
-        g = conv_geometry(mod, shape)
-        key = tuple(sorted(g.items()))
-        distinct.setdefault(key, {"g": g, "mod": mod, "count": 0})["count"] += 1
-
+    n_calls, distinct = k2_distinct(gen)
     out_errs = []
 
-    def exact(g, x, w_q, s_w, bias, s_static=None) -> float:
-        """-> the largest |int32 sum|, after holding K2 to the plain version."""
-        args = (g["stride"], g["dilation"], g["pad_left"], g["pad_right"],
-                g["transposed"], g["causal"])
-        pads = (0, 0) if g["transposed"] else (g["pad_left"], g["pad_right"])
-        q, s_x = int8_conv_cuda.quantize(x, s_static, *pads)
-        s_ref = scales(x, s_static)
-        q_ref = quantize_sym(x, s_ref[:, None, None])
-        T = x.shape[2]
-        q_got = q[:, pads[0]:pads[0] + T, :x.shape[1]].permute(0, 2, 1)
-        zero_pad = (q[:, :pads[0]].abs().sum() + q[:, pads[0] + T:].abs().sum()
-                    + q[:, :, x.shape[1]:].abs().sum()).item()
-        sums = int8_conv_cuda(x, w_q, s_w, bias, s_static, *args, sums=True)
-        sums_ref = int8_sums_torch(q_ref, w_q, *args)
-        out = int8_conv_cuda(x, w_q, s_w, bias, s_static, *args)
-        out_ref = int8_conv_torch(x, w_q, s_w, bias, s_static, *args)
-        torch.cuda.synchronize()
-        errs = [float((s_x != s_ref).sum()), float((q_got != q_ref).sum()), zero_pad,
-                float((sums.long() - sums_ref.long()).abs().max()),
-                float((out - out_ref).abs().max())]
-        out_errs.append(errs[4])
-        if any(errs) or out.shape != out_ref.shape:
-            raise AssertionError(f"K2 vs plain at {g}: scales, int8 values, padding, "
-                                 f"sums, outputs differ by {errs}")
-        return float(sums_ref.abs().max())
+    def exact(*args, **kw) -> float:
+        acc, err = k2_exact(*args, **kw)
+        out_errs.append(err)
+        return acc
 
-    shapes = []
-    for entry in distinct.values():
-        g, mod = entry["g"], entry["mod"]
-        x = torch.from_numpy(rng.randn(1, g["C_in"], g["T"]).astype(np.float32)).cuda()
-        w32 = effective_weight(mod.params).detach()
-        bias = mod.params.bias.detach()
-        exact(g, x, mod.w_q, mod.s_w, bias)
-        args = (g["stride"], g["dilation"], g["pad_left"], g["pad_right"],
-                g["transposed"], g["causal"])
-        q_nct = quantize_sym(x, scales(x, None)[:, None, None])
-        lib = int_mm_call(g, q_nct, mod.w_q)
-        if g["transposed"]:
-            def cudnn():
-                return F.conv_transpose1d(x, w32, bias, g["stride"])
-        else:
-            def cudnn():
-                return F.conv1d(F.pad(x, (g["pad_left"], g["pad_right"])), w32, bias,
-                                g["stride"], 0, g["dilation"])
-        with torch.inference_mode():
-            ms = cuda_ms(lambda: int8_conv_cuda(x, mod.w_q, mod.s_w, bias, None, *args), 10)
-            plain_ms = cuda_ms(lambda: int8_conv_torch(x, mod.w_q, mod.s_w, bias, None,
-                                                       *args), 5)
-            cudnn_ms = cuda_ms(cudnn, 10)
-            library_ms = cuda_ms(lib, 10) if callable(lib) else None
-        bound_ms, bound_by, ops_ms, bytes_ms = k2_bound(g)
-        shapes.append({"conv": ("convT" if g["transposed"] else "conv")
-                       + f" {g['C_in']}->{g['C_out']} k{g['k']} s{g['stride']} "
-                       f"d{g['dilation']} T{g['T']}",
-                       "count": entry["count"], "ms": ms, "plain_ms": plain_ms,
-                       "cudnn_f32_ms": cudnn_ms, "library_ms": library_ms,
-                       "library_refused": None if callable(lib) else lib,
-                       "bound_ms": bound_ms, "bound_by": bound_by,
-                       "ops_ms": ops_ms, "bytes_ms": bytes_ms,
-                       "share_of_bound": bound_ms / ms})
+    shapes = {B: [] for B in K2_BATCHES}
+    for B in K2_BATCHES:
+        for entry in distinct:
+            g, mod = entry["g"], entry["mod"]
+            x = torch.from_numpy(rng.randn(B, g["C_in"], g["T"]).astype(np.float32)).cuda()
+            w32 = effective_weight(mod.params).detach()
+            bias = mod.params.bias.detach()
+            exact(g, x, mod.w_q, mod.w_p, mod.s_w, bias)
+            args = k2_call_args(g)
+            lib = int_mm_call(g, quantize_sym(x, scales(x, None)[:, None, None]), mod.w_q)
+            if g["transposed"]:
+                def cudnn():
+                    return F.conv_transpose1d(x, w32, bias, g["stride"])
+            else:
+                def cudnn():
+                    return F.conv1d(F.pad(x, (g["pad_left"], g["pad_right"])), w32, bias,
+                                    g["stride"], 0, g["dilation"])
+            with torch.inference_mode():
+                ms = cuda_ms(lambda: int8_conv_cuda(x, mod.w_p, mod.s_w, bias, None, *args),
+                             10)
+                plain_ms = (cuda_ms(lambda: int8_conv_torch(x, mod.w_q, mod.s_w, bias, None,
+                                                            *args[1:]), 5)
+                            if B == 1 else None)
+                cudnn_ms = cuda_ms(cudnn, 10)
+                library_ms = cuda_ms(lib, 10) if callable(lib) else None
+            bound_ms, bound_by, ops_ms, bytes_ms = k2_bound(g, B)
+            shapes[B].append({
+                "conv": ("convT" if g["transposed"] else "conv")
+                + f" {g['C_in']}->{g['C_out']} k{g['k']} s{g['stride']} "
+                f"d{g['dilation']} T{g['T']}",
+                "B": B, "count": entry["count"], "ms": ms, "plain_ms": plain_ms,
+                "cudnn_f32_ms": cudnn_ms, "library_ms": library_ms,
+                "library_refused": None if callable(lib) else lib,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "ops_ms": ops_ms, "bytes_ms": bytes_ms, "share_of_bound": bound_ms / ms})
+            del x
 
     # edge cases at the widest stage's widths
     edge = {}
@@ -4043,6 +4099,7 @@ def k2_checks(gen) -> dict:
               causal=True, C_in=128, C_out=128, k=7, T=1)
     w = torch.from_numpy(rng.randn(128, 128, 7).astype(np.float32)).cuda()
     w_q, s_w = quantize_weight(w, False)
+    w_p = pack_weight(w_q, False)
     b = torch.from_numpy(rng.randn(128).astype(np.float32)).cuda()
     for name, T, fill in (("T1", 1, None), ("T4037", 4037, None), ("zeros", 300, 0.0),
                           ("saturated", 300, "sat")):
@@ -4051,35 +4108,108 @@ def k2_checks(gen) -> dict:
             x.zero_()
         elif fill == "sat":
             x = torch.where(x >= 0, 1e3, -1e3).float()
-        edge[name] = exact(dict(g0, T=T), x, w_q, s_w, b)
+        edge[name] = exact(dict(g0, T=T), x, w_q, w_p, s_w, b)
     big = dict(g0, C_in=256, k=7, dilation=1, pad_left=6, T=50)
     wb = torch.ones((128, 256, 7), device="cuda")
     wb[:, 100, 3] = 126.0 / 127.0
     wb_q, wb_s = quantize_weight(wb, False)
     xb = torch.ones((1, 256, 50), device="cuda")
-    edge["acc_over_2^24"] = exact(big, xb, wb_q, wb_s, None)
+    edge["acc_over_2^24"] = exact(big, xb, wb_q, pack_weight(wb_q, False), wb_s, None)
     if not edge["acc_over_2^24"] > 2 ** 24:
         raise AssertionError(f"the |acc| case reached {edge['acc_over_2^24']}")
-    edge["static_scale"] = exact(dict(g0, T=500), torch.from_numpy(
-        rng.randn(1, 128, 500).astype(np.float32)).cuda(), w_q, s_w, b,
-        s_static=torch.tensor(0.01, device="cuda"))
+    s_static = torch.tensor(0.01, device="cuda")
+    for B in K2_BATCHES:
+        edge[f"static_scale_B{B}"] = exact(dict(g0, T=500), torch.from_numpy(
+            rng.randn(B, 128, 500).astype(np.float32)).cuda(), w_q, w_p, s_w, b,
+            s_static=s_static)
     same = dict(g0, causal=False, pad_left=9, pad_right=9, T=333)
     edge["same_padded"] = exact(same, torch.from_numpy(
-        rng.randn(1, 128, 333).astype(np.float32)).cuda(), w_q, s_w, b)
+        rng.randn(1, 128, 333).astype(np.float32)).cuda(), w_q, w_p, s_w, b)
     wt = torch.from_numpy(rng.randn(64, 32, 10).astype(np.float32)).cuda()
     wt_q, wt_s = quantize_weight(wt, True)
     for causal in (True, False):
         gt = dict(transposed=True, stride=5, dilation=1, pad_left=2, pad_right=2,
                   causal=causal, C_in=64, C_out=32, k=10, T=77)
         edge[f"transposed_causal_{causal}"] = exact(gt, torch.from_numpy(
-            rng.randn(2, 64, 77).astype(np.float32)).cuda(), wt_q, wt_s, None)
-    return {"calls": len(calls), "shapes": shapes, "edge_max_abs_acc": edge,
+            rng.randn(2, 64, 77).astype(np.float32)).cuda(), wt_q,
+            pack_weight(wt_q, True, 5), wt_s, None)
+    # C_in off 32: a conv 20 -> 24 and a transposed conv 36 -> 20, k=7 s=3
+    w20 = torch.from_numpy(rng.randn(24, 20, 5).astype(np.float32)).cuda()
+    w20_q, w20_s = quantize_weight(w20, False)
+    edge["C_in20"] = exact(dict(g0, C_in=20, C_out=24, k=5, dilation=2, pad_left=8,
+                                   T=333), torch.from_numpy(rng.randn(3, 20, 333).astype(
+                                       np.float32)).cuda(), w20_q,
+                              pack_weight(w20_q, False), w20_s, None)
+    w36 = torch.from_numpy(rng.randn(36, 20, 7).astype(np.float32)).cuda()
+    w36_q, w36_s = quantize_weight(w36, True)
+    edge["C_in36_transposed_k7_s3"] = exact(
+        dict(transposed=True, stride=3, dilation=1, pad_left=2, pad_right=2, causal=False,
+             C_in=36, C_out=20, k=7, T=50),
+        torch.from_numpy(rng.randn(2, 36, 50).astype(np.float32)).cuda(), w36_q,
+        pack_weight(w36_q, True, 3), w36_s, None)
+    # the 16-channel stage: T shorter than one tile (256 positions), and at
+    # B=8 on 80000 samples more tiles than the grid has blocks
+    w16 = torch.from_numpy(rng.randn(16, 16, 11).astype(np.float32)).cuda()
+    w16_q, w16_s = quantize_weight(w16, False)
+    w16_p = pack_weight(w16_q, False)
+    g16 = dict(g0, C_in=16, C_out=16, k=11, dilation=5, pad_left=50)
+    edge["T100_one_short_tile"] = exact(dict(g16, T=100), torch.from_numpy(
+        rng.randn(2, 16, 100).astype(np.float32)).cuda(), w16_q, w16_p, w16_s, b[:16])
+    x16 = torch.from_numpy(rng.randn(8, 16, 80000).astype(np.float32)).cuda()
+    edge["tiles_over_grid"] = exact(dict(g16, T=80000), x16, w16_q, w16_p, w16_s,
+                                       b[:16])
+    grid = [v[1] for k, v in int8_conv_cuda._plans.items()
+            if k[1:4] == (16, 16, 11) and k[5] == 5][0]
+    edge["tiles_over_grid_tiles_per_block"] = 8 * -(-80000 // 256) / grid
+    if not edge["tiles_over_grid_tiles_per_block"] > 1:
+        raise AssertionError(f"the tiles-over-grid case has {grid} blocks")
+    return {"calls": n_calls, "shapes": shapes, "edge_max_abs_acc": edge,
             "max_abs_err": max(out_errs)}
+
+
+def k2_sums(rows: list) -> dict:
+    """Per-call sums (each shape times its convs a call) of a batch's rows."""
+    keys = ("ms", "plain_ms", "bound_ms", "cudnn_f32_ms", "library_ms", "ops_ms",
+            "bytes_ms")
+    res = {key: (sum(r[key] * r["count"] for r in rows)
+                 if all(r[key] is not None for r in rows) else None) for key in keys}
+    res["bound_by"] = "operations" if res["ops_ms"] >= res["bytes_ms"] else "bytes"
+    res["share_of_bound"] = res["bound_ms"] / res["ms"]
+    return res
+
+
+def k2_profile(gen, mel) -> dict:
+    """One int8 vocoder call under torch.profiler: K2's device launches (one
+    kernel a conv, and no other K2 kernel: no amax, no quantize) and their
+    device ms, beside the call's wall ms by CUDA events. A window whose
+    records the profiler lost is profiled again (``kernel_ms``)."""
+    import torch
+
+    with torch.inference_mode():
+        wall = cuda_ms(lambda: gen(mel), 5)
+        seen = []
+        for _ in range(PROFILE_WINDOWS):
+            durs = profile_window(lambda: gen(mel), ("i8_",), 1)
+            n = sum(len(d) for d in durs.values())
+            if n == 104:
+                break
+            seen.append(n)
+            log("profiler_drop", kernels="i8_", calls=1, seen=n)
+        else:
+            raise AssertionError(f"profiler saw {seen} K2 launches in a call")
+    others = [name for name in durs if "i8_conv_kernel" not in name]
+    if others:
+        raise AssertionError(f"K2 kernels other than the conv in a call: {others}")
+    return {"device_launches": n, "device_ms": sum(sum(d) for d in durs.values()) / 1e3,
+            "wall_ms": wall, "kernels": sorted(durs)}
 
 
 def int8_vocoder(voc_ckpt: str) -> dict:
     """(b) The int8 vocoder at B=1 on INT8_FRAMES against float32: SNR,
-    ms of both by CUDA events in turns, K2's launches a call; B=4 batch
+    ms of both by CUDA events in turns, K2's launches a call, and one call
+    under torch.profiler (``k2_profile``: 104 K2 device launches, K2's
+    device ms beside the call's wall ms); both at B=8 (the service's
+    vocoder batch) by CUDA events in turns; B=4 batch
     invariance and static calibrated chunked-8 against plain static, bit
     for bit with cuDNN's float32 edge convs, as the port runs them
     (PyTorch's own CUDA conv sums an output in an order that depends on
@@ -4118,6 +4248,15 @@ def int8_vocoder(voc_ckpt: str) -> dict:
         for name in ("f32", "int8", "int8", "f32"):
             times[name].append(cuda_ms(runs[name], 10))
         res.update({f"{k}_ms": float(np.mean(v)) for k, v in times.items()})
+        mels8 = torch.from_numpy(rng.randn(8, INT8_FRAMES, 80).astype(np.float32)).cuda()
+        runs8 = {"f32": lambda: gen32(mels8), "int8": lambda: gen8(mels8)}
+        times8 = collections.defaultdict(list)
+        for name in ("f32", "int8", "int8", "f32"):
+            times8[name].append(cuda_ms(runs8[name], 5))
+        res.update({f"{k}_b8_ms": float(np.mean(v)) for k, v in times8.items()})
+        del mels8
+    res["k2_profile"] = k2_profile(gen8, mel)
+    with torch.inference_mode():
         res["batch4_gap"] = float((gen8(mels)[:1] - y8).abs().max())
         with torch.backends.cudnn.flags(enabled=False):
             alone = gen8(mel)
@@ -4305,9 +4444,9 @@ def exported_artifacts(tmp: str, am_ckpt: str, voc_ckpt: str) -> dict:
     seconds and bytes; meanwhile, in this process, the whole-program
     export's size and a small artifact (24 symbols, 144 frames) card vs
     CPU. (e) ``export_tts synth`` in a subprocess that cannot import
-    ``kantts_tpu_torch.models``; ``ExportedTTS`` on the card held to
-    ``fused_infer`` within 1e-5 (float32 and int8), its first call and a
-    warm utterance beside a warm ``fused_infer``."""
+    ``kantts_tpu_torch.models``, beside this process's runs: ``ExportedTTS``
+    on the card held to ``fused_infer`` within 1e-5 (float32 and int8), its
+    first call and a warm utterance beside a warm ``fused_infer``."""
     import torch
 
     from kantts_tpu_torch.bin.infer_hifigan import load_vocoder
@@ -4357,16 +4496,13 @@ def exported_artifacts(tmp: str, am_ckpt: str, voc_ckpt: str) -> dict:
     sym_file = os.path.join(tmp, "export_symbols.txt")
     with open(sym_file, "w", encoding="utf-8") as f:
         f.write(f"u0\t{seq}\n")
+    # the synth CLI runs beside this process's artifact and fused_infer runs
     t0 = time.perf_counter()
     synth_dir = os.path.join(tmp, "export_synth")
-    proc = subprocess.run([sys.executable, "-c", SYNTH_BLOCKED, arts["f32"], sym_file,
-                           synth_dir], cwd=ROOT, capture_output=True, text=True,
-                          timeout=600, env=dict(os.environ, NVIDIA_TF32_OVERRIDE="0"))
-    if proc.returncode != 0:
-        raise RuntimeError(f"export_tts synth exited {proc.returncode}:\n"
-                           f"{proc.stderr[-4000:]}")
-    res["synth_cli_s"] = time.perf_counter() - t0
-    cli_wav = np.load(os.path.join(synth_dir, "floats.npz"))["u0"]
+    synth = subprocess.Popen([sys.executable, "-c", SYNTH_BLOCKED, arts["f32"], sym_file,
+                              synth_dir], cwd=ROOT, stdout=subprocess.DEVNULL,
+                             stderr=subprocess.PIPE, text=True,
+                             env=dict(os.environ, NVIDIA_TF32_OVERRIDE="0"))
 
     dev = torch.device("cuda")
     am, ling_unit = load_am(am_ckpt, dev)
@@ -4401,6 +4537,11 @@ def exported_artifacts(tmp: str, am_ckpt: str, voc_ckpt: str) -> dict:
         errs[f"{name}_vs_fused_infer"] = float(np.abs(
             wav - live[0, :n * tts.meta["hop_total"], 0].cpu().numpy()).max())
         del tts, gen
+    _, err = synth.communicate(timeout=600)
+    if synth.returncode != 0:
+        raise RuntimeError(f"export_tts synth exited {synth.returncode}:\n{err[-4000:]}")
+    res["synth_cli_s_beside_the_other_work"] = time.perf_counter() - t0
+    cli_wav = np.load(os.path.join(synth_dir, "floats.npz"))["u0"]
     errs["synth_cli_vs_here"] = float(np.abs(cli_wav - wavs["f32"]).max())
     res.update(max_abs=errs, ms=ms, frames=n, int8_vs_f32_rel=float(
         np.linalg.norm(wavs["int8"] - wavs["f32"]) / np.linalg.norm(wavs["f32"])))
@@ -4427,9 +4568,14 @@ def phase_int8_export(tmp: str, am_ckpt: str, voc_ckpt: str) -> dict:
     b_mas_cuda.launches = 0
     gen8, _ = load_vocoder(voc_ckpt, torch.device("cuda"), quant=True)
     checks = k2_checks(gen8)
-    for shape in checks["shapes"]:
-        log("k2_shape", **{k: (round(v, 5) if isinstance(v, float) else v)
-                           for k, v in shape.items()})
+    per_call = {}
+    for B, rows in checks["shapes"].items():
+        for shape in rows:
+            log("k2_shape", **{k: (round(v, 5) if isinstance(v, float) else v)
+                               for k, v in shape.items()})
+        per_call[B] = k2_sums(rows)
+        log("k2_per_call", B=B, **{k: (round(v, 5) if isinstance(v, float) else v)
+                                   for k, v in per_call[B].items()})
     log("k2_edge", calls=checks["calls"], **checks["edge_max_abs_acc"])
     del gen8
     t = time.perf_counter()
@@ -4450,22 +4596,123 @@ def phase_int8_export(tmp: str, am_ckpt: str, voc_ckpt: str) -> dict:
         raise AssertionError(f"K1 launched {b_mas_cuda.launches} times in phase 14")
     seconds = time.perf_counter() - t_phase
     log("int8_export", seconds=round(seconds, 3))
-    n_shapes = {s["conv"]: s["count"] for s in checks["shapes"]}
-    totals = {key: sum(s[key] * s["count"] for s in checks["shapes"])
-              for key in ("ms", "plain_ms", "bound_ms", "cudnn_f32_ms", "ops_ms",
-                          "bytes_ms")}
-    totals["bound_by"] = ("operations" if totals["ops_ms"] >= totals["bytes_ms"]
-                          else "bytes")
-    lib = [s["library_ms"] for s in checks["shapes"]]
     return {"k2": checks, "vocoder": voc, "clis": clis, "export": art,
-            "seconds": seconds, "per_call": totals,
-            "library_ms_per_call": (sum(s["library_ms"] * s["count"]
-                                        for s in checks["shapes"])
-                                    if all(v is not None for v in lib) else None),
+            "seconds": seconds, "per_call": per_call,
             "launches_by_path": {"int8_vocoder": voc["k2_launches_per_call"],
                                  **clis["k2_launches"],
                                  "int8_artifact_and_fused_infer": art["k2_launches"]},
-            "distinct_shapes": len(n_shapes)}
+            "distinct_shapes": len(checks["shapes"][1])}
+
+
+def old_k2(src: str):
+    """Build an earlier K2 source with the same nvcc flags; it has the first
+    K2's C interface (a quantize call of one or two launches into a padded
+    channels-last int8 buffer, then a conv launch, from w_q). -> a callable
+    with that wrapper's work around the launches."""
+    import ctypes
+
+    import torch
+
+    from kantts_tpu_torch.ops.int8_conv import out_len
+    from kantts_tpu_torch.ops.nvcc import BUILD_DIR, NVCC_FLAGS, find_nvcc
+
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    lib_path = os.path.join(BUILD_DIR, "libkantts_int8_conv_before.so")
+    subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", lib_path, src], check=True,
+                   capture_output=True, text=True)
+    lib = ctypes.CDLL(lib_path)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.kantts_i8_quantize_act.argtypes = [p] * 5 + [i] * 6 + [p]
+    lib.kantts_i8_quantize_act.restype = i
+    lib.kantts_i8_conv.argtypes = [p] * 6 + [i] * 12 + [p]
+    lib.kantts_i8_conv.restype = i
+    lib.kantts_i8_partials.argtypes = [ctypes.c_longlong]
+    lib.kantts_i8_partials.restype = i
+
+    def call(x, w_q, s_w, bias, s_static, k, stride, dilation, pad_left, pad_right,
+             transposed, causal):
+        B, C, T = x.shape
+        pads = (0, 0) if transposed else (pad_left, pad_right)
+        Cp = -(-C // 4) * 4
+        Tp = T + pads[0] + pads[1]
+        stream = torch.cuda.current_stream().cuda_stream
+        q = torch.empty((B, Tp, Cp), dtype=torch.int8, device=x.device)
+        s_x = torch.empty(B, dtype=torch.float32, device=x.device)
+        partial = (torch.empty(B * lib.kantts_i8_partials(C * T), device=x.device)
+                   if s_static is None else None)
+        err = lib.kantts_i8_quantize_act(
+            x.data_ptr(), None if partial is None else partial.data_ptr(),
+            None if s_static is None else s_static.data_ptr(), s_x.data_ptr(),
+            q.data_ptr(), B, C, T, Cp, pads[0], pads[1], stream)
+        C_out = w_q.shape[1] if transposed else w_q.shape[0]
+        T_out = out_len(T, k, stride, dilation, pad_left, pad_right, transposed, causal)
+        out = torch.empty((B, C_out, T_out), device=x.device)
+        err = err or lib.kantts_i8_conv(
+            q.data_ptr(), w_q.data_ptr(), s_x.data_ptr(), s_w.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(), 0, B, C, Cp, Tp,
+            C_out, k, T_out, stride, dilation, int(transposed),
+            (0 if causal else pad_left) if transposed else 0, stream)
+        if err != 0:
+            raise RuntimeError(f"earlier K2 launch failed: cudaError {err}")
+        return out
+
+    return call
+
+
+def phase_k2_before(src: str) -> dict:
+    """The earlier K2 (``src``) and this one on the 56 distinct int8 conv
+    shapes of a seeded hifigan_v1_16k at B=1 and B=8 on INT8_FRAMES, each
+    output held equal, then ms per call by CUDA events in the order earlier,
+    this, this, earlier; -> the sums over the 104 convs of a vocoder call,
+    with the library call (im2col + ``torch._int_mm``) and the bound."""
+    import torch
+
+    from kantts_tpu_torch.bin.infer_hifigan import load_vocoder
+    from kantts_tpu_torch.configs import get_config
+    from kantts_tpu_torch.models.builder import model_builder, save_checkpoint
+    from kantts_tpu_torch.ops.int8_conv import int8_conv_cuda, quantize_sym, scales
+
+    before = old_k2(src)
+    with tempfile.TemporaryDirectory(prefix="kantts_smoke_") as tmp:
+        cfg = get_config("hifigan_v1_16k")
+        path = os.path.join(tmp, "voc.pt")
+        save_checkpoint(path, model_builder(cfg, seed=2), cfg)
+        gen8, _ = load_vocoder(path, torch.device("cuda"), quant=True)
+    _, distinct = k2_distinct(gen8)
+    rng = np.random.RandomState(17)
+    res = {}
+    for B in K2_BATCHES:
+        sums = collections.defaultdict(float)
+        for entry in distinct:
+            g, mod = entry["g"], entry["mod"]
+            x = torch.from_numpy(rng.randn(B, g["C_in"], g["T"]).astype(np.float32)).cuda()
+            bias = mod.params.bias.detach()
+            args = k2_call_args(g)
+            runs = {"before": lambda: before(x, mod.w_q, mod.s_w, bias, None, *args),
+                    "after": lambda: int8_conv_cuda(x, mod.w_p, mod.s_w, bias, None,
+                                                    *args)}
+            with torch.inference_mode():
+                if not torch.equal(runs["before"](), runs["after"]()):
+                    raise AssertionError(f"the earlier K2 and this one differ at {g}, B={B}")
+                times = collections.defaultdict(list)
+                for who in ("before", "after", "after", "before"):
+                    times[who].append(cuda_ms(runs[who], 10))
+                lib = int_mm_call(g, quantize_sym(x, scales(x, None)[:, None, None]),
+                                  mod.w_q)
+                library_ms = cuda_ms(lib, 10) if callable(lib) else None
+            n = entry["count"]
+            for who, v in times.items():
+                sums[f"{who}_ms"] += n * float(np.mean(v))
+                sums[f"{who}_ms_first"] += n * v[0]
+                sums[f"{who}_ms_second"] += n * v[1]
+            sums["library_ms"] += n * library_ms if library_ms is not None else float("nan")
+            sums["bound_ms"] += n * k2_bound(g, B)[0]
+            del x
+        sums = dict(sums)
+        sums["speedup"] = sums["before_ms"] / sums["after_ms"]
+        log("k2_before_after", B=B, **{k: round(v, 5) for k, v in sums.items()})
+        res[B] = sums
+    return res
 
 
 def main(argv) -> int:
@@ -4477,6 +4724,10 @@ def main(argv) -> int:
         print(json.dumps({"k1_before_after": phase_k1_before(argv[1])}))
         print(smi)
         return 0
+    if argv[:1] == ["--k2-before"]:
+        print(json.dumps({"k2_before_after": phase_k2_before(argv[1])}))
+        print(smi)
+        return 0
     if argv[:1] == ["--profiler-drops"]:
         print(json.dumps({"profiler_drops": phase_profiler_drops(int(argv[1]))}))
         print(smi)
@@ -4485,7 +4736,8 @@ def main(argv) -> int:
         with tempfile.TemporaryDirectory(prefix="kantts_smoke_") as tmp:
             res = phase_int8_export(tmp, *seeded_checkpoints(tmp))
         print(json.dumps({"int8_export": {k: res[k] for k in (
-            "per_call", "library_ms_per_call", "launches_by_path", "seconds")},
+            "per_call", "launches_by_path", "seconds")},
+            "k2_profile": res["vocoder"]["k2_profile"],
             "max_abs_err": res["k2"]["max_abs_err"]}))
         print(smi)
         return 0
@@ -4514,6 +4766,7 @@ def main(argv) -> int:
     import torch
 
     train = k1["train"]
+    b1, b8 = int8["per_call"][1], int8["per_call"][8]
     print(json.dumps({"kernels": [{
         "name": "K1 mas_width1 (MAS Viterbi)", "route": "cuda",
         "source": "kantts_tpu_torch/csrc/mas.cu",
@@ -4543,13 +4796,15 @@ def main(argv) -> int:
         "launches": sum(int8["launches_by_path"].values()),
         "launches_by_path": int8["launches_by_path"],
         "max_abs_err": int8["k2"]["max_abs_err"],
-        "ms": int8["per_call"]["ms"], "plain_ms": int8["per_call"]["plain_ms"],
-        "bound_ms": int8["per_call"]["bound_ms"],
-        "bound_by": int8["per_call"]["bound_by"],
-        "library_ms": int8["library_ms_per_call"],
-        "cudnn_f32_ms": int8["per_call"]["cudnn_f32_ms"],
+        "ms": b1["ms"], "plain_ms": b1["plain_ms"], "bound_ms": b1["bound_ms"],
+        "bound_by": b1["bound_by"], "library_ms": b1["library_ms"],
+        "cudnn_f32_ms": b1["cudnn_f32_ms"],
         "per": "one hifigan_v1_16k call at B=1 on 400 frames: the sum over its "
                "104 int8 convs",
+        "b8": {k: b8[k] for k in ("ms", "bound_ms", "bound_by", "library_ms",
+                                  "cudnn_f32_ms")},
+        "device_launches_per_call": int8["vocoder"]["k2_profile"]["device_launches"],
+        "device_ms_per_call": int8["vocoder"]["k2_profile"]["device_ms"],
         "distinct_shapes": int8["distinct_shapes"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,8 @@ conv goes through ``ops.int8_conv.int8_conv1d`` (kernel K2 on the card)
 with per-output-channel weight scales and a dynamic per-example activation
 scale, or with ``quant_static`` the static scale in the ``s_x`` buffer (the
 JAX ``quant`` collection). ``quantize_weights`` quantizes the weights once,
-after they are loaded and folded; the parameters are not touched. While
+after they are loaded and folded, and packs them once in K2's layout
+(``pack_weight``); the parameters are not touched. While
 ``calibrate`` is set the conv runs in float32 and records the running
 max(|x|) / 127 into ``s_x``.
 """
@@ -35,7 +36,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from kantts_tpu_torch.ops.int8_conv import div127, int8_conv1d, quantize_weight
+from kantts_tpu_torch.ops.int8_conv import (
+    div127,
+    int8_conv1d,
+    pack_weight,
+    quantize_weight,
+)
 from kantts_tpu_torch.utils.precision import Dtype, add_bias, weak_scalar
 
 
@@ -112,8 +118,9 @@ def effective_weight(params: nn.Module) -> torch.Tensor:
 
 class Int8ConvMixin:
     """int8 state of a conv: the flags, the static scale ``s_x`` (a buffer
-    with ``quant_static`` or ``calibrate``, in the state dict) and the
-    quantized weight ``w_q`` with its scales ``s_w`` (buffers kept out of
+    with ``quant_static`` or ``calibrate``, in the state dict), the
+    quantized weight ``w_q`` with its scales ``s_w``, and ``w_p``, w_q
+    packed in the layout K2 reads, which the conv uses (buffers kept out of
     the state dict, made by ``quantize_weights``)."""
 
     transposed = False
@@ -124,11 +131,13 @@ class Int8ConvMixin:
             self.register_buffer("s_x", torch.zeros(()))
         self.register_buffer("w_q", None, persistent=False)
         self.register_buffer("s_w", None, persistent=False)
+        self.register_buffer("w_p", None, persistent=False)
 
     @torch.no_grad()
     def quantize_weight_(self) -> None:
         self.w_q, self.s_w = quantize_weight(
             effective_weight(self.params).float(), self.transposed)
+        self.w_p = pack_weight(self.w_q, self.transposed, self.stride)
 
     def _int8_ready(self, x: torch.Tensor) -> bool:
         """True: run the int8 conv; False: the float path (no ``quant``, or
@@ -148,9 +157,10 @@ class Int8ConvMixin:
 
     def _int8(self, x: torch.Tensor, pad_left: int, pad_right: int, stride: int,
               dilation: int, causal: bool) -> torch.Tensor:
-        return int8_conv1d(x.contiguous(), self.w_q, self.s_w, self.params.bias,
-                           self.s_x if self.quant_static else None, stride, dilation,
-                           pad_left, pad_right, self.transposed, causal)
+        return int8_conv1d(x.contiguous(), self.w_p, self.s_w, self.params.bias,
+                           self.s_x if self.quant_static else None, self.w_q.shape[2],
+                           stride, dilation, pad_left, pad_right, self.transposed,
+                           causal)
 
 
 class WNConv1d(Int8ConvMixin, nn.Module):

@@ -6,14 +6,16 @@ int8 (``kantts_tpu/models/hifigan/layers.py:46-86,154-171,231-245``) and
 lets XLA compute them. PyTorch has no int8 ``conv1d`` on CUDA, so the port's
 is K2; it replaces no Pallas kernel.
 
-``int8_conv1d`` is the operator the layers call, registered as
-``kantts::int8_conv1d`` so that ``torch.export`` captures it as one node:
+``int8_conv1d`` is what the layers call; it is the operator
+``kantts::int8_conv1d``, which ``torch.export`` captures as one node:
 
 - x (B, C_in, T) float32 is quantized with a per-example scale
   ``act_scale(x)`` = max(amax |x|, 1e-12) / 127 over (C_in, T), or with a
   static calibrated scale max(s_static, 1e-12);
-- w_q int8 is (C_out, C_in, k) for a conv, (C_in, C_out, k) for a
-  transposed conv, quantized once per output channel (``quantize_weight``);
+- the weight is ``w_p``, the int8 weight w_q of ``quantize_weight`` packed
+  once by ``pack_weight`` in the order K2's MMA reads it (w_q is (C_out,
+  C_in, k) for a conv, (C_in, C_out, k) for a transposed conv, quantized
+  per output channel with scales s_w);
 - the sum is int32; the output is float(acc) * (s_x[b] * s_w[o]) + bias[o]
   in float32, (B, C_out, T').
 
@@ -22,11 +24,12 @@ is zero in int8) and convolves with ``stride`` and ``dilation``. A
 transposed conv (stride s, kernel k) keeps the first T * s outputs when
 ``causal``, else trims ``pad_left`` from both ends of its (T - 1) * s + k.
 
-A CUDA tensor goes to K2, a CPU tensor to ``int8_conv_torch``, which
-computes the same int32 sums exactly (float64 convolutions of the int8
-values) and the same float32 epilogue. K2 is compiled at first use with
-``nvcc`` (``ops/nvcc.py``) and bound with ``ctypes``; nothing is built at
-import.
+A CUDA tensor goes to K2 (one launch a conv), a CPU tensor to
+``int8_conv_packed_torch``: ``int8_conv_torch``, the plain version, on the
+unpacked weight, which computes the same int32 sums exactly (float64
+convolutions of the int8 values) and the same float32 epilogue. K2 is
+compiled at first use with ``nvcc`` (``ops/nvcc.py``) and bound with
+``ctypes``; nothing is built at import.
 """
 
 from __future__ import annotations
@@ -115,19 +118,88 @@ def epilogue(acc: torch.Tensor, s_x: torch.Tensor, s_w: torch.Tensor,
 def int8_conv_torch(x, w_q, s_w, bias, s_static, stride: int, dilation: int,
                     pad_left: int, pad_right: int, transposed: bool,
                     causal: bool) -> torch.Tensor:
-    """The plain version of ``int8_conv1d``, on any device."""
+    """The plain version of ``int8_conv1d``, on any device, from w_q."""
     s_x = scales(x, s_static)
     acc = int8_sums_torch(quantize_sym(x, s_x[:, None, None]), w_q, stride,
                           dilation, pad_left, pad_right, transposed, causal)
     return epilogue(acc, s_x, s_w, bias)
 
 
+# ----------------------------------------------------------- packed weights
+
+def _phase_taps(k: int, stride: int) -> torch.Tensor:
+    """(stride, ceil(k / stride)): the tap j of a transposed conv that
+    packed tap (phase ph, jl) holds, j = ph + (M - 1 - jl) * stride (M taps a
+    phase, reversed so that phase ph is a plain conv of M taps over the
+    input rows q - M + 1 .. q); j >= k is a zero tap."""
+    M = -(-k // stride)
+    return (torch.arange(stride)[:, None]
+            + (M - 1 - torch.arange(M))[None, :] * stride)
+
+
+def pack_weight(w_q: torch.Tensor, transposed: bool, stride: int = 1) -> torch.Tensor:
+    """w_q int8 -> the layout K2's MMA reads: (ceil(C_out / 16), taps,
+    ceil(C_in / 32), 512) int8, zero-padded, one m16n8k32 A fragment
+    (16 output channels x 32 input channels of one tap) per 512 bytes, in
+    lane order: lane 4g + t holds rows g and g + 8 at channels 4t..4t+3
+    and 16 + 4t..16 + 4t + 3. A conv has its k taps; a transposed conv of
+    stride s has s phases x ceil(k / s) taps (``_phase_taps``)."""
+    if transposed:
+        C_in, C_out, k = w_q.shape
+        j = _phase_taps(k, stride).reshape(-1).to(w_q.device)
+        w = w_q.permute(1, 2, 0)[:, j.clamp(max=k - 1)]
+        w = w * (j < k).to(w.dtype)[None, :, None]
+    else:
+        C_out, C_in, k = w_q.shape
+        w = w_q.permute(0, 2, 1)
+    KT = w.shape[1]
+    Mp, Cp = -(-C_out // 16) * 16, -(-C_in // 32) * 32
+    full = w.new_zeros((Mp, KT, Cp))
+    full[:C_out, :, :C_in] = w
+    # (mi, h, g, tap, c, q, t, e) -> (mi, tap, c, g, t, q, h, e)
+    frag = full.reshape(Mp // 16, 2, 8, KT, Cp // 32, 2, 4, 4).permute(
+        0, 3, 4, 2, 6, 5, 1, 7)
+    return frag.reshape(Mp // 16, KT, Cp // 32, 512).contiguous()
+
+
+def unpack_weight(w_p: torch.Tensor, C_in: int, C_out: int, k: int,
+                  transposed: bool, stride: int = 1) -> torch.Tensor:
+    """The inverse of ``pack_weight``: -> w_q."""
+    n16, KT, nC, _ = w_p.shape
+    full = w_p.reshape(n16, KT, nC, 8, 4, 2, 2, 4).permute(
+        0, 6, 3, 1, 2, 5, 4, 7).reshape(n16 * 16, KT, nC * 32)
+    w = full[:C_out, :, :C_in]
+    if not transposed:
+        return w.permute(0, 2, 1).contiguous()
+    # tap j = ph + m * s sits at packed tap ph * M + (M - 1 - m)
+    M = -(-k // stride)
+    j = torch.arange(k)
+    idx = (j % stride) * M + (M - 1 - j // stride)
+    return w[:, idx.to(w.device)].permute(2, 0, 1).contiguous()
+
+
+def int8_conv_packed_torch(x, w_p, s_w, bias, s_static, kernel_size: int,
+                           stride: int, dilation: int, pad_left: int,
+                           pad_right: int, transposed: bool,
+                           causal: bool) -> torch.Tensor:
+    """The plain version from the packed weight: ``int8_conv_torch`` on
+    ``unpack_weight(w_p)``. The CPU's route of ``int8_conv1d``."""
+    w_q = unpack_weight(w_p, x.shape[1], s_w.shape[0], kernel_size, transposed,
+                        stride)
+    return int8_conv_torch(x, w_q, s_w, bias, s_static, stride, dilation,
+                           pad_left, pad_right, transposed, causal)
+
+
 # --------------------------------------------------------------------- K2
 
 class Int8ConvKernel:
-    """The built library; ``launches`` counts conv launches and nothing else
-    (each conv launch is preceded by its quantize launch, and by an amax
-    launch with a dynamic scale)."""
+    """The built library. ``launches`` counts conv launches, which are the
+    device launches: one a conv.
+
+    A layer's geometry is planned once a device (``_plan``: tile sizes,
+    shared memory, the cooperative grid), and the dynamic scale's scratch
+    (per-example partial maxima) is kept per device and stream and reused;
+    a call allocates only its output."""
 
     def __init__(self) -> None:
         self.launches = 0
@@ -135,6 +207,8 @@ class Int8ConvKernel:
         self.build_seconds = 0.0
         self._lib = None
         self._lock = threading.Lock()
+        self._plans = {}
+        self._scratch = {}
 
     def build(self) -> ctypes.CDLL:
         """Compile (once per source hash) and load the library."""
@@ -144,135 +218,141 @@ class Int8ConvKernel:
             lib, self.build_log, self.build_seconds = build_library(
                 SOURCE, "libkantts_int8_conv")
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.kantts_i8_quantize_act.argtypes = [p] * 5 + [i] * 6 + [p]
-            lib.kantts_i8_quantize_act.restype = i
-            lib.kantts_i8_conv.argtypes = [p] * 6 + [i] * 12 + [p]
+            ip = ctypes.POINTER(ctypes.c_int)
+            lib.kantts_i8_plan.argtypes = [i] * 8 + [ip, ip]
+            lib.kantts_i8_plan.restype = p
+            lib.kantts_i8_conv.argtypes = [p] * 9 + [i] * 4 + [p]
             lib.kantts_i8_conv.restype = i
-            lib.kantts_i8_partials.argtypes = [ctypes.c_longlong]
-            lib.kantts_i8_partials.restype = i
-            lib.kantts_i8_conv_smem.argtypes = [i] * 4
-            lib.kantts_i8_conv_smem.restype = ctypes.c_longlong
             self._lib = lib
             return lib
 
-    @staticmethod
-    def _check(name: str, t: torch.Tensor, dtype: torch.dtype, device) -> None:
-        if t.device != device or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"K2 takes {name} as contiguous {dtype} on {device}, "
-                             f"got {t.dtype} on {t.device}")
-
-    def quantize(self, x: torch.Tensor, s_static: Optional[torch.Tensor],
-                 pad_left: int = 0, pad_right: int = 0
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x (B, C, T) float32 CUDA -> (q (B, T + pads, Cp) int8 channels-last
-        with zero padding, Cp = C rounded up to 4; s_x (B,))."""
-        if x.device.type != "cuda":
-            raise ValueError(f"K2 takes CUDA tensors, got {x.device}")
-        if x.dim() != 3 or x.shape[2] < 1:
-            raise ValueError(f"K2 takes x of shape (B, C, T >= 1), got {tuple(x.shape)}")
-        self._check("x", x, torch.float32, x.device)
-        if s_static is not None:
-            if s_static.numel() != 1:
-                raise ValueError("K2 takes a static scale of one element")
-            self._check("s_static", s_static, torch.float32, x.device)
+    def _plan(self, key: tuple) -> tuple:
+        """-> (handle, blocks of the cooperative grid) of a geometry on a
+        device, made once and kept."""
+        dev, C_in, C_out, k, stride, dilation, pad_left, transposed, causal = key
         lib = self.build()
-        B, C, T = x.shape
-        Cp = -(-C // 4) * 4
-        q = torch.empty((B, T + pad_left + pad_right, Cp), dtype=torch.int8,
-                        device=x.device)
-        s_x = torch.empty(B, dtype=torch.float32, device=x.device)
-        partial = (torch.empty(B * lib.kantts_i8_partials(C * T), dtype=torch.float32,
-                               device=x.device) if s_static is None else None)
-        with torch.cuda.device(x.device):
-            err = lib.kantts_i8_quantize_act(
-                x.data_ptr(), None if partial is None else partial.data_ptr(),
-                None if s_static is None else s_static.data_ptr(), s_x.data_ptr(),
-                q.data_ptr(), B, C, T, Cp, pad_left, pad_right,
-                torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"K2 quantize launch failed: cudaError {err}")
-        return q, s_x
+        if transposed:  # s phases of ceil(k / s) taps over the input rows
+            taps = -(-k // stride)
+            geo = (taps, 1, 1, taps - 1, stride, 0 if causal else pad_left)
+        else:
+            geo = (k, dilation, stride, pad_left, 1, 0)
+        grid, err = ctypes.c_int(0), ctypes.c_int(0)
+        with self._lock, torch.cuda.device(dev):
+            if key in self._plans:
+                return self._plans[key]
+            handle = lib.kantts_i8_plan(C_in, C_out, *geo, ctypes.byref(grid),
+                                        ctypes.byref(err))
+            if not handle:
+                raise ValueError(f"K2 cannot plan the conv {key}: cudaError "
+                                 f"{err.value} (1: its window needs more shared "
+                                 "memory than a block has)")
+            plan = (handle, grid.value)
+            self._plans[key] = plan
+        return plan
 
-    def conv(self, q: torch.Tensor, s_x: torch.Tensor, w_q: torch.Tensor,
-             s_w: torch.Tensor, bias: Optional[torch.Tensor], C_in: int,
-             T_out: int, stride: int, dilation: int, transposed: bool, trim: int,
-             sums: bool = False) -> torch.Tensor:
-        """The conv launch on ``quantize``'s output -> (B, C_out, T_out)
-        float32, or its int32 sums with ``sums``."""
-        dev = q.device
-        self._check("q", q, torch.int8, dev)
-        self._check("s_x", s_x, torch.float32, dev)
-        self._check("w_q", w_q, torch.int8, dev)
-        self._check("s_w", s_w, torch.float32, dev)
-        if bias is not None:
-            self._check("bias", bias, torch.float32, dev)
-        if w_q.dim() != 3 or w_q.shape[1 if not transposed else 0] != C_in:
-            raise ValueError(f"K2: weight {tuple(w_q.shape)} does not take "
-                             f"{C_in} input channels")
-        C_out = w_q.shape[1] if transposed else w_q.shape[0]
-        k = w_q.shape[2]
-        if s_w.shape != (C_out,) or (bias is not None and bias.shape != (C_out,)):
-            raise ValueError(f"K2 takes s_w and bias of shape ({C_out},)")
-        B, Tp, Cp = q.shape
+    def _partials(self, dev: torch.device, stream: int, n: int) -> torch.Tensor:
+        """The scratch of (device, stream), grown to n floats. Work on one
+        stream is ordered, so one buffer serves every launch on it."""
+        buf = self._scratch.get((dev, stream))
+        if buf is None or buf.numel() < n:
+            buf = torch.empty(max(n, 4096), dtype=torch.float32, device=dev)
+            self._scratch[(dev, stream)] = buf
+        return buf
+
+    def __call__(self, x, w_p, s_w, bias, s_static, kernel_size: int, stride: int,
+                 dilation: int, pad_left: int, pad_right: int, transposed: bool,
+                 causal: bool, sums: bool = False,
+                 s_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One conv -> (B, C_out, T') float32, or its int32 sums with
+        ``sums``; ``s_out`` (B,) float32, if given, gets the scales used."""
+        dev = x.device
+        if not (dev.type == "cuda" and x.dtype == torch.float32 and x.dim() == 3
+                and x.is_contiguous() and x.shape[2] >= 1
+                and w_p.device == dev and w_p.dtype == torch.int8
+                and w_p.is_contiguous() and w_p.dim() == 4
+                and s_w.device == dev and s_w.dtype == torch.float32
+                and s_w.dim() == 1
+                and (bias is None or (bias.device == dev and bias.dtype == torch.float32
+                                      and bias.shape == s_w.shape))
+                and (s_static is None or (s_static.device == dev and s_static.numel() == 1
+                                          and s_static.dtype == torch.float32))
+                and (s_out is None or (s_out.device == dev and s_out.dtype == torch.float32
+                                       and s_out.shape == (x.shape[0],)))):
+            raise ValueError(
+                "K2 takes x (B, C_in, T) contiguous float32, a packed int8 w_p, float32 "
+                "s_w, bias and s_static (one element) on one CUDA device; got "
+                f"x {x.dtype} {tuple(x.shape)} on {dev}, w_p {w_p.dtype} on {w_p.device}")
+        B, C_in, T = x.shape
+        C_out = s_w.shape[0]
+        taps = -(-kernel_size // stride) * stride if transposed else kernel_size
+        if w_p.shape != (-(-C_out // 16), taps, -(-C_in // 32), 512):
+            raise ValueError(f"K2: packed weight {tuple(w_p.shape)} is not "
+                             f"pack_weight's of a {C_in} -> {C_out}, k={kernel_size} "
+                             f"{'transposed ' if transposed else ''}conv")
+        T_out = out_len(T, kernel_size, stride, dilation, pad_left, pad_right,
+                        transposed, causal)
         if T_out < 1:
             raise ValueError(f"K2: the conv has no output ({T_out} frames)")
-        lib = self.build()
-        if lib.kantts_i8_conv_smem(k, stride, dilation, int(transposed)) > 232448:
-            raise ValueError(f"K2: kernel {k} at dilation {dilation} needs more "
-                             "shared memory than a block has")
+        key = (dev, C_in, C_out, kernel_size, stride, dilation, pad_left, transposed,
+               causal)
+        handle, grid = self._plans.get(key) or self._plan(key)
         out = torch.empty((B, C_out, T_out),
                           dtype=torch.int32 if sums else torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            err = lib.kantts_i8_conv(
-                q.data_ptr(), w_q.data_ptr(), s_x.data_ptr(), s_w.data_ptr(),
+        # the raw handle: building a torch.cuda.Stream costs ~6 us a call
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
+        partial = (None if s_static is not None
+                   else self._partials(dev, stream, B * grid).data_ptr())
+        args = (handle, x.data_ptr(), w_p.data_ptr(), s_w.data_ptr(),
                 None if bias is None or sums else bias.data_ptr(),
-                out.data_ptr(), int(sums), B, C_in, Cp, Tp, C_out, k, T_out, stride,
-                dilation, int(transposed), trim,
-                torch.cuda.current_stream().cuda_stream)
+                None if s_static is None else s_static.data_ptr(), partial,
+                None if s_out is None else s_out.data_ptr(), out.data_ptr(), int(sums),
+                B, T, T_out, stream)
+        if dev.index == torch.cuda.current_device():
+            err = self._lib.kantts_i8_conv(*args)
+        else:
+            with torch.cuda.device(dev):
+                err = self._lib.kantts_i8_conv(*args)
         if err != 0:
-            raise RuntimeError(f"K2 conv launch failed: cudaError {err}")
+            raise RuntimeError(f"K2 launch failed: cudaError {err}")
         self.launches += 1
         return out
-
-    def __call__(self, x, w_q, s_w, bias, s_static, stride: int, dilation: int,
-                 pad_left: int, pad_right: int, transposed: bool, causal: bool,
-                 sums: bool = False) -> torch.Tensor:
-        C_in, T = x.shape[1], x.shape[2]
-        k = w_q.shape[2]
-        if transposed:
-            q, s_x = self.quantize(x, s_static)
-            trim = 0 if causal else pad_left
-        else:
-            q, s_x = self.quantize(x, s_static, pad_left, pad_right)
-            trim = 0
-        T_out = out_len(T, k, stride, dilation, pad_left, pad_right, transposed, causal)
-        return self.conv(q, s_x, w_q, s_w, bias, C_in, T_out, stride, dilation,
-                         transposed, trim, sums)
 
 
 int8_conv_cuda = Int8ConvKernel()
 
 
-@torch.library.custom_op("kantts::int8_conv1d", mutates_args=())
-def int8_conv1d(x: torch.Tensor, w_q: torch.Tensor, s_w: torch.Tensor,
-                bias: Optional[torch.Tensor], s_static: Optional[torch.Tensor],
-                stride: int, dilation: int, pad_left: int, pad_right: int,
-                transposed: bool, causal: bool) -> torch.Tensor:
-    """The int8 W8A8 conv (module docstring): K2 for a CUDA tensor, the
-    plain version for a CPU one."""
-    if x.device.type == "cuda":
-        return int8_conv_cuda(x, w_q, s_w, bias, s_static, stride, dilation,
-                              pad_left, pad_right, transposed, causal)
-    if x.device.type == "cpu":
-        return int8_conv_torch(x, w_q, s_w, bias, s_static, stride, dilation,
-                               pad_left, pad_right, transposed, causal)
-    raise ValueError(f"int8_conv1d runs on cuda or cpu, got {x.device}")
+# ------------------------------------------------- the kantts::int8_conv1d op
+
+_LIB = torch.library.Library("kantts", "DEF")
+_LIB.define("int8_conv1d(Tensor x, Tensor w_p, Tensor s_w, Tensor? bias, "
+            "Tensor? s_static, int kernel_size, int stride, int dilation, "
+            "int pad_left, int pad_right, bool transposed, bool causal) -> Tensor")
+_LIB.impl("int8_conv1d", lambda *args: int8_conv_cuda(*args), "CUDA")
+_LIB.impl("int8_conv1d", int8_conv_packed_torch, "CPU")
 
 
-@int8_conv1d.register_fake
-def _int8_conv1d_fake(x, w_q, s_w, bias, s_static, stride, dilation, pad_left,
-                      pad_right, transposed, causal):
-    C_out = w_q.shape[1] if transposed else w_q.shape[0]
-    T = out_len(x.shape[2], w_q.shape[2], stride, dilation, pad_left, pad_right,
+@torch.library.register_fake("kantts::int8_conv1d", lib=_LIB)
+def _int8_conv1d_fake(x, w_p, s_w, bias, s_static, kernel_size, stride, dilation,
+                      pad_left, pad_right, transposed, causal):
+    T = out_len(x.shape[2], kernel_size, stride, dilation, pad_left, pad_right,
                 transposed, causal)
-    return x.new_empty((x.shape[0], C_out, T))
+    return x.new_empty((x.shape[0], s_w.shape[0], T))
+
+
+def int8_conv1d(x: torch.Tensor, w_p: torch.Tensor, s_w: torch.Tensor,
+                bias: Optional[torch.Tensor], s_static: Optional[torch.Tensor],
+                kernel_size: int, stride: int, dilation: int, pad_left: int,
+                pad_right: int, transposed: bool, causal: bool) -> torch.Tensor:
+    """The int8 W8A8 conv (module docstring): K2 for a CUDA tensor, the
+    plain version for a CPU one. An eager call goes straight to them; a
+    traced one (``torch.export``, whose tensors are fake) is the operator
+    ``kantts::int8_conv1d``, one node, which dispatches the same way."""
+    args = (x, w_p, s_w, bias, s_static, kernel_size, stride, dilation, pad_left,
+            pad_right, transposed, causal)
+    if type(x) is not torch.Tensor:
+        return torch.ops.kantts.int8_conv1d.default(*args)
+    if x.device.type == "cuda":
+        return int8_conv_cuda(*args)
+    if x.device.type == "cpu":
+        return int8_conv_packed_torch(*args)
+    raise ValueError(f"int8_conv1d runs on cuda or cpu, got {x.device}")

@@ -170,37 +170,56 @@ def test_gan_steps_on_the_card(cuda, tmp_path):
     dict(transposed=False, causal=True, k=3, stride=1, dilation=1, pl=2, pr=0, T=1),
     dict(transposed=True, causal=True, k=20, stride=10, dilation=1, pl=5, pr=5, T=41),
     dict(transposed=True, causal=False, k=4, stride=2, dilation=1, pl=1, pr=1, T=130),
+    dict(transposed=True, causal=False, k=7, stride=3, dilation=1, pl=2, pr=2, T=50),
+    dict(transposed=False, causal=False, k=3, stride=2, dilation=1, pl=1, pr=1, T=99),
+    dict(transposed=False, causal=True, k=11, stride=1, dilation=7, pl=70, pr=0, T=4000,
+         c_in=128, c_out=128),
+    dict(transposed=False, causal=True, k=7, stride=1, dilation=1, pl=6, pr=0, T=3000,
+         c_in=256, c_out=128),
+    dict(transposed=True, causal=True, k=20, stride=10, dilation=1, pl=5, pr=5, T=400,
+         c_in=256, c_out=128),
+    dict(transposed=False, causal=True, k=11, stride=1, dilation=5, pl=50, pr=0,
+         T=80000, c_in=16, c_out=16),
+    dict(transposed=False, causal=True, k=3, stride=1, dilation=1, pl=2, pr=0, T=40,
+         B=70),
 ])
 def test_k2_equals_plain_version(cuda, geom):
-    """K2 against ``int8_conv_torch`` on the card, exact: the int8 sums and
-    the float32 outputs, dynamic and static scales; through the operator
-    the layers call, which counts one launch."""
+    """K2 against ``int8_conv_torch`` on the card, exact: the scales, the
+    int32 sums and the float32 outputs, dynamic and static scales, from the
+    packed weight; through the function the layers call, which counts one
+    launch."""
     from kantts_tpu_torch.ops.int8_conv import (
         int8_conv1d,
         int8_conv_cuda,
         int8_conv_torch,
         int8_sums_torch,
+        pack_weight,
         quantize_sym,
         quantize_weight,
         scales,
     )
 
     rng = np.random.RandomState(geom["k"])
-    c_in, c_out = 36, 20
-    w_shape = (c_in, c_out, geom["k"]) if geom["transposed"] else (c_out, c_in, geom["k"])
+    c_in, c_out, k = geom.get("c_in", 36), geom.get("c_out", 20), geom["k"]
+    w_shape = (c_in, c_out, k) if geom["transposed"] else (c_out, c_in, k)
     w_q, s_w = quantize_weight(torch.from_numpy(rng.randn(*w_shape).astype(np.float32))
                                .to(cuda), geom["transposed"])
+    w_p = pack_weight(w_q, geom["transposed"], geom["stride"])
     bias = torch.from_numpy(rng.randn(c_out).astype(np.float32)).to(cuda)
-    x = torch.from_numpy(rng.randn(3, c_in, geom["T"]).astype(np.float32)).to(cuda)
+    B = geom.get("B", 3)  # 70: past the 64 scales a block holds at a time
+    x = torch.from_numpy(rng.randn(B, c_in, geom["T"]).astype(np.float32)).to(cuda)
     args = (geom["stride"], geom["dilation"], geom["pl"], geom["pr"], geom["transposed"],
             geom["causal"])
     for s_static in (None, torch.tensor(0.02, device=cuda)):
-        sums = int8_conv_cuda(x, w_q, s_w, bias, s_static, *args, sums=True)
         s_x = scales(x, s_static)
+        s_got = torch.empty(B, device=cuda)
+        sums = int8_conv_cuda(x, w_p, s_w, bias, s_static, k, *args, sums=True,
+                              s_out=s_got)
         want = int8_sums_torch(quantize_sym(x, s_x[:, None, None]), w_q, *args)
+        assert torch.equal(s_got, s_x)
         assert torch.equal(sums, want)
         before = int8_conv_cuda.launches
-        out = int8_conv1d(x, w_q, s_w, bias, s_static, *args)
+        out = int8_conv1d(x, w_p, s_w, bias, s_static, k, *args)
         torch.cuda.synchronize()
         assert int8_conv_cuda.launches == before + 1
         assert torch.equal(out, int8_conv_torch(x, w_q, s_w, bias, s_static, *args))
