@@ -232,17 +232,47 @@ def model_builder(config: Dict[str, Any], seed: int = 0, **build: Any) -> nn.Mod
     return builders[config["model_type"]](config, seed, **build)
 
 
-def save_checkpoint(path: str, model: Union[nn.Module, Mapping[str, Any]],
-                    config: Dict[str, Any], **training_state: Any) -> None:
-    """``model`` is a module or a (nested) dict of state dicts. Write to a
-    temporary file in the target directory, then rename it into place, so
-    that a crash mid-write never leaves a torn checkpoint."""
+def checkpoint_payload(model: Union[nn.Module, Mapping[str, Any]],
+                       config: Dict[str, Any], **training_state: Any
+                       ) -> Dict[str, Any]:
+    """What a checkpoint file holds. ``model`` is a module or a (nested)
+    dict of state dicts; their tensors are the live ones, not copies."""
+    state = model.state_dict() if isinstance(model, nn.Module) else model
+    return {"model": state, "config": config, **training_state}
+
+
+def host_copy(tree: Any) -> Any:
+    """``tree`` with each tensor on the host: a device tensor is copied
+    there (blocking), a host tensor is kept as it is."""
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    if isinstance(tree, dict):
+        return {k: host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(host_copy(v) for v in tree)
+    return tree
+
+
+def write_checkpoint(payload: Mapping[str, Any], path: str) -> None:
+    """``torch.save`` to ``path.tmp`` in the target directory, flushed and
+    fsynced, then renamed into place: a crash mid-write never leaves a torn
+    checkpoint, and a crash after the rename never loses it."""
     path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.tmp"
-    state = model.state_dict() if isinstance(model, nn.Module) else model
-    torch.save({"model": state, "config": config, **training_state}, tmp)
+    with open(tmp, "wb") as f:
+        torch.save(payload, f)
+        f.flush()
+        os.fsync(f.fileno())
     os.replace(tmp, path)
+
+
+def save_checkpoint(path: str, model: Union[nn.Module, Mapping[str, Any]],
+                    config: Dict[str, Any], **training_state: Any) -> None:
+    """Write ``checkpoint_payload(model, config, **training_state)`` with
+    its tensors on the host (``write_checkpoint``)."""
+    write_checkpoint(host_copy(checkpoint_payload(model, config, **training_state)),
+                     path)
 
 
 def load_checkpoint(path: str, device: torch.device,

@@ -11,8 +11,20 @@ does not save there). Metrics stay device scalars until a log or eval
 interval reads them, the only host syncs the loop adds.
 
 Checkpoints are ``stage/ckpt/checkpoint_{steps}.ckpt`` in the format of
-``models/builder.py``, written atomically; ``keep_last_checkpoints`` keeps
-the newest k (0 keeps all). A crash writes ``checkpoint-{steps}.ckpt``.
+``models/builder.py``, written atomically and fsynced;
+``keep_last_checkpoints`` keeps the newest k (0 keeps all), pruned once the
+newest has landed. With ``async_checkpoint: true`` the interval saves are
+written on a background thread (``AsyncCheckpointWriter``) from host copies
+taken on the train thread (``HostSnapshot``); ``train`` ends when the last
+write has landed. A crash drains the writer, then writes
+``checkpoint-{steps}.ckpt`` synchronously.
+
+Rank 0 writes the log interval's train means (and ``train/steps_per_sec``
+from the second interval on) and each eval's means as TensorBoard scalars
+in ``stage/log``, through tensorboardX or ``torch.utils.tensorboard``
+(whichever is installed; neither: no scalars, one log line), and draws the
+eval plots of ``utils/plot.py`` beside the intermediate results' ``.npy``
+and wav files when matplotlib is installed.
 
 Under data parallelism (``parallel/mesh.py``) every rank runs the loop, the
 steps and the evaluation, whose metrics are the global batch's and so equal
@@ -27,8 +39,11 @@ the steps (``allreduce``, device time from CUDA events on the card).
 from __future__ import annotations
 
 import contextlib
+import copy
 import logging
 import os
+import queue
+import threading
 import time
 from collections import defaultdict
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -36,9 +51,14 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from kantts_tpu_torch.models.builder import save_checkpoint
+from kantts_tpu_torch.models.builder import (
+    checkpoint_payload,
+    host_copy,
+    write_checkpoint,
+)
 from kantts_tpu_torch.parallel.mesh import CollectiveTimer, barrier, is_primary
 from kantts_tpu_torch.train.steps import sambert_forward
+from kantts_tpu_torch.utils import plot
 from kantts_tpu_torch.utils.audio import save_wav
 from kantts_tpu_torch.utils.config import load_yaml, stamp_and_dump
 from kantts_tpu_torch.utils.log import log_to_file
@@ -69,18 +89,146 @@ def stamped_config(config: Dict[str, Any], stage_dir: str) -> Dict[str, Any]:
 
 
 def run(trainer: "Trainer") -> "Trainer":
-    """``trainer.train()``; on a failure rank 0 saves
-    ``checkpoint-{steps}.ckpt`` before the error goes on."""
+    """``trainer.train()``; on a failure rank 0 lets the pending
+    asynchronous writes land, then saves ``checkpoint-{steps}.ckpt``
+    synchronously, before the error goes on."""
     try:
         trainer.train()
     except (Exception, KeyboardInterrupt):
         logging.exception("training failed at step %d", trainer.steps)
         if is_primary():
+            try:
+                trainer.wait_for_checkpoints()
+            except Exception:  # logged; the crash checkpoint still goes out
+                logging.exception("a pending checkpoint write failed")
             trainer.save_checkpoint(
                 os.path.join(trainer.ckpt_dir, f"checkpoint-{trainer.steps}.ckpt"))
             logging.info("Saved crash checkpoint at step %d", trainer.steps)
         raise
     return trainer
+
+
+class HostSnapshot:
+    """Host copies of a checkpoint payload, taken on the train thread for a
+    write on another.
+
+    A state dict's tensors are the live parameters and optimizer moments,
+    which the next ``optimizer.step()`` updates in place, so the writer gets
+    copies. A tensor on the card is copied into a pinned host buffer with
+    ``non_blocking=True`` on the current stream, and one CUDA event is
+    recorded after the last copy (``take`` returns it). The next step's
+    kernels, its in-place updates included, are queued on the same stream
+    after those copies, so stream order makes each copy read the values of
+    the step that was saved; the writer synchronises on the event before it
+    reads a buffer. A host tensor (a CPU run, Adam's ``step`` counts) is
+    copied at once. The buffers are allocated at the first snapshot and
+    reused: the caller takes a snapshot only once the previous one's write
+    has landed (``Trainer.save_checkpoint``), so no copy overwrites a
+    buffer that a write is reading."""
+
+    def __init__(self):
+        self._buffers: Dict[Tuple, torch.Tensor] = {}
+
+    def take(self, payload: Any) -> Tuple[Any, Optional[torch.cuda.Event]]:
+        """-> (the payload with host copies of its tensors, the event after
+        the device copies or None when there were none)."""
+        devices = set()
+
+        def snap(value: Any, key: Tuple) -> Any:
+            if isinstance(value, torch.Tensor):
+                buf = self._buffers.get(key)
+                if buf is None or buf.shape != value.shape or buf.dtype != value.dtype:
+                    buf = torch.empty(value.shape, dtype=value.dtype,
+                                      pin_memory=value.is_cuda)
+                    self._buffers[key] = buf
+                buf.copy_(value.detach(), non_blocking=value.is_cuda)
+                if value.is_cuda:
+                    devices.add(value.device)
+                return buf
+            if isinstance(value, dict):
+                return {k: snap(v, key + (k,)) for k, v in value.items()}
+            if isinstance(value, (list, tuple)):
+                return type(value)(snap(v, key + (i,)) for i, v in enumerate(value))
+            return copy.deepcopy(value)
+
+        tree = snap(payload, ())
+        if not devices:
+            return tree, None
+        with torch.cuda.device(devices.pop()):  # a trainer's one device
+            event = torch.cuda.Event()
+            event.record()
+        return tree, event
+
+
+class AsyncCheckpointWriter:
+    """One daemon thread and one queue, so writes land in the order they
+    were submitted, off the train loop (the JAX package's writer). A
+    payload handed over is a host copy that nothing changes until its write
+    lands (``HostSnapshot``). A failed write is logged and raised again on
+    the next ``submit`` or ``wait``; the writer stays usable after it."""
+
+    def __init__(self):
+        self._queue: "queue.Queue" = queue.Queue()
+        self._lock = threading.Lock()
+        self._error: Optional[Exception] = None
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="kantts-ckpt-writer")
+        self._thread.start()
+
+    def _run(self) -> None:
+        while True:
+            payload, path, after, ready = self._queue.get()
+            try:
+                if ready is not None:
+                    ready.synchronize()
+                write_checkpoint(payload, path)
+                if after is not None:
+                    after()
+            except Exception as e:  # raised again on the next submit or wait
+                logging.exception("async checkpoint write failed: %s", path)
+                with self._lock:
+                    self._error = e
+            finally:
+                self._queue.task_done()
+
+    def _raise_pending(self) -> None:
+        with self._lock:
+            err, self._error = self._error, None
+        if err is not None:
+            raise err
+
+    def submit(self, payload: Any, path: str, after: Optional[Callable] = None,
+               ready: Optional[torch.cuda.Event] = None) -> None:
+        """Write ``payload`` to ``path`` (``write_checkpoint``) once
+        ``ready`` (the snapshot's event) has completed; ``after`` runs on
+        the writer thread once the file has landed (the keep-last-k prune,
+        which must see the new file)."""
+        self._raise_pending()
+        self._queue.put((payload, path, after, ready))
+
+    def wait(self) -> None:
+        """Block until every submitted write has landed or failed."""
+        self._queue.join()
+        self._raise_pending()
+
+
+def summary_writer(log_dir: str):
+    """A TensorBoard writer into ``log_dir``: tensorboardX's (the JAX
+    trainer's), else ``torch.utils.tensorboard``'s; None, with one log line,
+    when neither is installed. tensorboardX comes first because
+    ``torch.utils.tensorboard`` imports TensorFlow wherever that is
+    installed, seconds of start-up for the same event files."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            logging.info("tensorboard is not installed (neither tensorboardX "
+                         "nor torch.utils.tensorboard imports): no TensorBoard "
+                         "scalars")
+            return None
+    return SummaryWriter(log_dir)
 
 
 def prune_checkpoints(ckpt_dir: str, keep_last: int) -> None:
@@ -152,9 +300,19 @@ class Trainer:
         self.phase_seconds: Dict[str, float] = defaultdict(float)
 
         self.ckpt_dir = os.path.join(save_dir, "ckpt")
-        if is_primary():
+        self.log_dir = os.path.join(save_dir, "log")
+        primary = is_primary()
+        if primary:
             os.makedirs(self.ckpt_dir, exist_ok=True)
         self.eval_rng = np.random.RandomState(config.get("seed", 0))
+        # rank 0: TensorBoard scalars and eval plots, where installed
+        self.writer = summary_writer(self.log_dir) if primary else None
+        self.plots = primary and plot.available()
+        if primary and not self.plots:
+            logging.info("matplotlib is not installed: the eval plots are not drawn")
+        # async_checkpoint: true -> interval saves on a background thread
+        self._ckpt_writer: Optional[AsyncCheckpointWriter] = None
+        self._snapshot = HostSnapshot()
 
     # ------------------------------------------------------------------ loop
 
@@ -165,6 +323,15 @@ class Trainer:
             self.train_epoch()
             self.epoch += 1
             self.check_stop_training()
+        self.wait_for_checkpoints()
+        if self.writer is not None:
+            self.writer.close()  # drains the writer's queue (flush does not)
+
+    def wait_for_checkpoints(self) -> None:
+        """Let every asynchronous checkpoint write land (none: no-op); a
+        failed one raises here."""
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.wait()
 
     def to_device(self, batch):
         """A collated batch from the loader -> what the steps take."""
@@ -209,10 +376,36 @@ class Trainer:
             return
         if self.steps % self.save_interval == 0 or self.steps == self.max_steps:
             self.save_checkpoint(
-                os.path.join(self.ckpt_dir, f"checkpoint_{self.steps}.ckpt"))
+                os.path.join(self.ckpt_dir, f"checkpoint_{self.steps}.ckpt"),
+                allow_async=True)
+            logging.info("Checkpoint saved at step %d", self.steps)
+
+    def save_checkpoint(self, path: str, allow_async: bool = False) -> None:
+        """Write ``checkpoint_payload()`` to ``path``, then prune to the
+        newest ``keep_last_checkpoints``. With ``allow_async`` and
+        ``async_checkpoint: true`` the train thread only takes the host
+        snapshot (after the previous asynchronous write has landed, whose
+        buffers it reuses) and the writer thread writes and prunes."""
+        def prune():
             prune_checkpoints(self.ckpt_dir,
                               self.config.get("keep_last_checkpoints", 0))
-            logging.info("Checkpoint saved at step %d", self.steps)
+
+        payload = self.checkpoint_payload()
+        if allow_async and self.config.get("async_checkpoint", False):
+            if self._ckpt_writer is None:
+                self._ckpt_writer = AsyncCheckpointWriter()
+            self._ckpt_writer.wait()
+            tree, ready = self._snapshot.take(payload)
+            self._ckpt_writer.submit(tree, path, after=prune, ready=ready)
+        else:
+            write_checkpoint(host_copy(payload), path)
+            prune()
+
+    def write_scalars(self, means: Dict[str, float]) -> None:
+        """TensorBoard scalars at the current step (rank 0, where installed)."""
+        if self.writer is not None:
+            for key, value in means.items():
+                self.writer.add_scalar(key, float(value), self.steps)
 
     def check_log_interval(self):
         if self.steps % self.log_interval:
@@ -233,6 +426,7 @@ class Trainer:
             self.log_phases(now)
         self._last_log_time = now
         self.history.append(("train", self.steps, means))
+        self.write_scalars(means)
         self.total_train_loss = defaultdict(float)
 
     def log_phases(self, now: float) -> None:
@@ -285,6 +479,7 @@ class Trainer:
                 logging.info("(Steps: %d) %s = %.4f.", self.steps, key, value)
             logging.info("Epoch %d evaluation finished", self.epoch)
         self.history.append(("eval", self.steps, means))
+        self.write_scalars(means)
 
     # --------------------------------------------------- subclass interface
 
@@ -300,7 +495,9 @@ class Trainer:
         """Write artifacts of ``batch`` (``out``: what ``eval_step`` returned
         for it). Rank 0 alone calls it, so it runs no collective."""
 
-    def save_checkpoint(self, path):
+    def checkpoint_payload(self) -> Dict[str, Any]:
+        """What a checkpoint of the current state holds
+        (``models/builder.py::checkpoint_payload``), its tensors the live ones."""
         raise NotImplementedError
 
     def load_checkpoint(self, path, restore_training_state=False):
@@ -337,7 +534,11 @@ class SambertTrainer(Trainer):
     @torch.no_grad()
     def generate_and_save_intermediate_result(self, batch, out=None):
         """Save the postnet mels of the first few items and the coarse,
-        output and target mels of the first item as .npy."""
+        output and target mels of the first item as .npy; with matplotlib,
+        also the JAX trainer's plots: each of the first few items' postnet
+        and target mels (and its MAS soft alignment), and the first item's
+        attention maps, one a layer and head (encoder self-attention, PNCA x
+        and h attention)."""
         out_dir = os.path.join(self.save_dir, f"intermediate_results_{self.steps}")
         os.makedirs(out_dir, exist_ok=True)
         self.model.eval()
@@ -347,6 +548,8 @@ class SambertTrainer(Trainer):
         n = min(self.config.get("num_save_intermediate_results", 4), len(lengths))
         for i in range(n):
             np.save(os.path.join(out_dir, f"{i}_mel.npy"), post[i, :lengths[i]])
+        if self.plots:
+            self.plot_intermediate(res, batch, post, n, out_dir)
         L0 = lengths[0]
         np.save(os.path.join(out_dir, "coarse_mel.npy"),
                 res["dec_outputs"][0, :L0].cpu().numpy())
@@ -354,10 +557,52 @@ class SambertTrainer(Trainer):
         np.save(os.path.join(out_dir, "target_mel.npy"),
                 batch["mel_targets"][0, :L0].cpu().numpy())
 
-    def save_checkpoint(self, path):
-        save_checkpoint(path, self.model, self.config,
-                        optimizer=self.optimizer.state_dict(),
-                        scheduler=self.scheduler.state_dict(), steps=self.steps)
+    @staticmethod
+    def plot_intermediate(res: Dict[str, Any], batch: Dict[str, Any],
+                          post: np.ndarray, n: int, out_dir: str) -> None:
+        """The JAX trainer's eval PNGs, under its names."""
+        def host(t):
+            return t.float().cpu().numpy()
+
+        lengths = batch["valid_output_lengths"].tolist()
+        target = host(batch["mel_targets"])
+        attn_soft = host(res["attn_soft"]) if res.get("attn_soft") is not None else None
+        for i in range(n):
+            plot.plot_spectrogram(post[i, :lengths[i]],
+                                  os.path.join(out_dir, f"{i}_postnet.png"))
+            plot.plot_spectrogram(target[i, :lengths[i]],
+                                  os.path.join(out_dir, f"{i}_target.png"))
+            if attn_soft is not None:
+                plot.plot_alignment(attn_soft[i, 0],
+                                    os.path.join(out_dir, f"{i}_mas_attn.png"))
+        L0 = int(batch["valid_input_lengths"][0])
+        for li, slf_attn in enumerate(res.get("enc_slf_attn_lst") or []):
+            heads = host(slf_attn[0])  # (n_head, T_in, T_in)
+            for hi in range(heads.shape[0]):
+                plot.plot_alignment(
+                    heads[hi, :L0, :L0],
+                    os.path.join(out_dir, f"enc_slf_attn_dev_layer{li}_head{hi}.png"),
+                    info=f"valid_len_{L0}")
+        x_bw, h_bw = res.get("x_band_width"), res.get("h_band_width")
+        pnca_pairs = zip(res.get("pnca_x_attn_lst") or [],
+                         res.get("pnca_h_attn_lst") or [])
+        for li, (x_attn, h_attn) in enumerate(pnca_pairs):
+            x_attn, h_attn = host(x_attn[0]), host(h_attn[0])
+            for hi in range(x_attn.shape[0]):
+                plot.plot_alignment(
+                    x_attn[hi],
+                    os.path.join(out_dir, f"pnca_x_attn_dev_layer{li}_head{hi}.png"),
+                    info=f"x_band_width_{int(x_bw)}" if x_bw is not None else None)
+                plot.plot_alignment(
+                    h_attn[hi],
+                    os.path.join(out_dir, f"pnca_h_attn_dev_layer{li}_head{hi}.png"),
+                    info=f"h_band_width_{int(h_bw)}" if h_bw is not None else None)
+
+    def checkpoint_payload(self):
+        return checkpoint_payload(self.model, self.config,
+                                  optimizer=self.optimizer.state_dict(),
+                                  scheduler=self.scheduler.state_dict(),
+                                  steps=self.steps)
 
     def load_checkpoint(self, path, restore_training_state=False):
         """Load the model; with ``restore_training_state`` also the optimizer
@@ -420,8 +665,9 @@ class GanTrainer(Trainer):
         return y_gen
 
     def generate_and_save_intermediate_result(self, batch, out=None):
-        """``{i}_ref.wav`` and ``{i}_gen.wav`` of the first few items; the
-        generated waveform is the eval step's, ``out``."""
+        """``{i}_ref.wav`` and ``{i}_gen.wav`` of the first few items, with
+        matplotlib also their waveform plots ``{i}_ref.png`` and
+        ``{i}_gen.png``; the generated waveform is the eval step's, ``out``."""
         wav, _ = batch
         y_gen = out
         out_dir = os.path.join(self.save_dir, f"intermediate_results_{self.steps}")
@@ -431,8 +677,13 @@ class GanTrainer(Trainer):
         for i in range(n):
             save_wav(ref[i], os.path.join(out_dir, f"{i}_ref.wav"), self.sampling_rate)
             save_wav(gen[i], os.path.join(out_dir, f"{i}_gen.wav"), self.sampling_rate)
+            if self.plots:
+                plot.plot_waveform(ref[i], os.path.join(out_dir, f"{i}_ref.png"),
+                                   self.sampling_rate)
+                plot.plot_waveform(gen[i], os.path.join(out_dir, f"{i}_gen.png"),
+                                   self.sampling_rate)
 
-    def save_checkpoint(self, path):
+    def checkpoint_payload(self):
         """The model is {"generator": state dict, "discriminator": {class
         name: state dict}} (the spectral vectors are buffers of the
         discriminators); optimizer and scheduler are nested the same way."""
@@ -440,8 +691,8 @@ class GanTrainer(Trainer):
             return {"generator": gen.state_dict(),
                     "discriminator": {n: d.state_dict() for n, d in discs.items()}}
 
-        save_checkpoint(
-            path, nested(self.generator, self.discriminators), self.config,
+        return checkpoint_payload(
+            nested(self.generator, self.discriminators), self.config,
             optimizer=nested(self.gen_optimizer, self.disc_optimizers),
             scheduler=nested(self.gen_scheduler, self.disc_schedulers),
             steps=self.steps)

@@ -15,6 +15,7 @@ regenerated, shows at once), every metric rtol 1e-5. Three Adam steps: see
 """
 
 import glob
+import logging
 import os
 import subprocess
 import sys
@@ -64,8 +65,14 @@ from kantts_tpu_torch.utils.convert import (
     mpd_state_dict_from_jax,
     msd_state_dict_from_jax,
 )
+from kantts_tpu_torch.utils import plot
 from kantts_tpu_torch.utils.corpus import write_voc_corpus
 from test_sambert import TINY
+from test_torch_port_tools import (  # noqa: F401 - torch_one_thread is a fixture
+    assert_same_checkpoint,
+    assert_scalars_match_log,
+    torch_one_thread,
+)
 from test_train_steps import GEN_CFG, LOSS_CFG
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -511,15 +518,20 @@ def _ckpts(stage):
     return sorted(os.path.basename(p) for p in glob.glob(os.path.join(stage, "ckpt", "*")))
 
 
-def test_train_hifigan_cli_resume_and_serve(tmp_path):
+@pytest.mark.usefixtures("torch_one_thread")
+def test_train_hifigan_cli_resume_and_serve(tmp_path, caplog):
     data, stage = str(tmp_path / "data"), str(tmp_path / "stage")
     write_voc_corpus(data, 8, (0.4, 0.6), seed=0)
     cfg = gan_config(stage)
-    train_hifigan.main(["--model_config", cfg, "--root_dir", data,
-                        "--stage_dir", stage, "--device", "cpu"])
+    with caplog.at_level(logging.INFO):
+        train_hifigan.main(["--model_config", cfg, "--root_dir", data,
+                            "--stage_dir", stage, "--device", "cpu"])
     assert _ckpts(stage) == ["checkpoint_2.ckpt", "checkpoint_4.ckpt"]
-    assert sorted(os.listdir(os.path.join(stage, "intermediate_results_4"))) == [
-        "0_gen.wav", "0_ref.wav", "1_gen.wav", "1_ref.wav"]
+    # the JAX trainer's waveform PNGs beside the wavs
+    pngs = ["0_gen.png", "0_ref.png", "1_gen.png", "1_ref.png"] if plot.available() else []
+    assert sorted(os.listdir(os.path.join(stage, "intermediate_results_4"))) == sorted(
+        ["0_gen.wav", "0_ref.wav", "1_gen.wav", "1_ref.wav"] + pngs)
+    assert_scalars_match_log(os.path.join(stage, "log"), caplog.records)
     ckpt2 = os.path.join(stage, "ckpt", "checkpoint_2.ckpt")
     payload = torch.load(ckpt2, weights_only=True)
     assert set(payload) == {"model", "config", "optimizer", "scheduler", "steps"}
@@ -532,14 +544,20 @@ def test_train_hifigan_cli_resume_and_serve(tmp_path):
     u_key = "discriminators.0.convs.0.0.weight_u"
     assert u_key in payload["model"]["discriminator"]["MultiScaleDiscriminator"]
 
-    # a true resume: steps 3 and 4, schedules and spectral state restored
+    # a true resume: steps 3 and 4, schedules and spectral state restored;
+    # the saves go through the writer thread and equal a synchronous save
     resumed = str(tmp_path / "resumed")
-    trainer = train_hifigan.train(gan_config(resumed), data, resumed,
-                                  resume_path=ckpt2, resume_training_state=True,
-                                  device="cpu")
+    trainer = train_hifigan.train(gan_config(resumed, async_checkpoint=True), data,
+                                  resumed, resume_path=ckpt2,
+                                  resume_training_state=True, device="cpu")
     assert trainer.steps_taken == 2 and trainer.steps == 5
     assert trainer.gen_scheduler.last_epoch == 4
     assert _ckpts(resumed) == ["checkpoint_4.ckpt"]
+    assert trainer._ckpt_writer is not None
+    trainer.steps = 4
+    trainer.save_checkpoint(str(tmp_path / "sync_4.ckpt"))
+    assert_same_checkpoint(os.path.join(resumed, "ckpt", "checkpoint_4.ckpt"),
+                           str(tmp_path / "sync_4.ckpt"))
 
     # weights only (fine-tune start): step 1 on, fresh optimizers
     tuned = str(tmp_path / "tuned")
@@ -567,6 +585,7 @@ def test_train_hifigan_cli_resume_and_serve(tmp_path):
     assert wavs and all(np.isfinite(wavfile.read(w)[1]).all() for w in wavs)
 
 
+@pytest.mark.usefixtures("torch_one_thread")
 def test_train_hifigan_refuses_what_it_cannot_do(tmp_path):
     """bf16 trains (2 steps, float32 parameters and Adam moments after); bf16
     with a multi-band generator is refused before the data loads; without a

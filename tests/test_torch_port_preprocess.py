@@ -131,13 +131,33 @@ def test_failed_pitch_build_raises(tmp_path, monkeypatch):
     assert not os.listdir(tmp_path / "build")
 
 
+def _energy_float64(wav: np.ndarray, hop: int, win: int, n_fft: int) -> np.ndarray:
+    """``get_energy`` in float64 numpy: a periodic Hann window of ``win``
+    centred in ``n_fft``, reflect padding of n_fft // 2, |rfft| summed."""
+    window = 0.5 - 0.5 * np.cos(2 * np.pi * np.arange(win) / win)
+    lpad = (n_fft - win) // 2
+    window = np.pad(window, (lpad, n_fft - win - lpad))
+    x = np.pad(wav.astype(np.float64), n_fft // 2, mode="reflect")
+    frames = np.stack([x[i:i + n_fft] for i in range(0, len(x) - n_fft + 1, hop)])
+    mag = np.abs(np.fft.rfft(frames * window, axis=-1))
+    return np.sqrt(np.sum(mag ** 2, axis=1)).reshape(-1, 1)
+
+
 @pytest.mark.parametrize("n_fft,hop,win", [(2048, 200, 1000), (1024, 240, 1024)])
 def test_get_energy_matches_jax(n_fft, hop, win):
+    """Each side is first held to the float64 energy under the same
+    tolerance, so that a miss names the side that moved (both sit far
+    inside it)."""
     wav = _harmonic(1.1, 4)
     want = j_au.get_energy(wav, hop, win, n_fft)
     got = t_au.get_energy(wav, hop, win, n_fft, "cpu")
     assert got.shape == want.shape == (1 + len(wav) // hop, 1)
     assert got.dtype == np.float32
+    exact = _energy_float64(wav, hop, win, n_fft)
+    np.testing.assert_allclose(want, exact, rtol=1e-5, atol=1e-6,
+                               err_msg="the JAX package's energy against float64")
+    np.testing.assert_allclose(got, exact, rtol=1e-5, atol=1e-6,
+                               err_msg="the port's energy against float64")
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 

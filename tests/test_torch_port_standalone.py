@@ -25,6 +25,7 @@ from kantts_tpu.text.ling_unit import KanTtsLinguisticUnit as JLingUnit
 from kantts_tpu.text.ling_unit import get_fpdict as j_get_fpdict
 from kantts_tpu.utils import config as jconfig
 from kantts_tpu.utils import metrics as j_metrics
+from kantts_tpu.utils import profiling as j_profiling
 from kantts_tpu.utils import torch_convert as jconvert
 from kantts_tpu_torch.bin.train_hifigan import VocLoader
 from kantts_tpu_torch.configs import get_config
@@ -50,6 +51,7 @@ from kantts_tpu_torch.text.ling_unit import KanTtsLinguisticUnit, get_fpdict
 from kantts_tpu_torch.utils import config as tconfig
 from kantts_tpu_torch.utils import convert as tconvert
 from kantts_tpu_torch.utils import metrics as t_metrics
+from kantts_tpu_torch.utils import profiling as t_profiling
 from kantts_tpu_torch.utils import torch_convert as tconvert_fwd
 from kantts_tpu_torch.utils.audio import save_wav
 from kantts_tpu_torch.utils.corpus import (
@@ -437,6 +439,16 @@ def test_metrics_numpy_copy_is_exact():
                 == j_metrics.mel_cepstral_distortion(a, b, 10, dtw))
 
 
+@pytest.mark.parametrize("audio,wall", [(5.0, 0.25), (1e-12, 0.5), (3.2, 0.0)])
+def test_rtf_report_copy_is_exact(audio, wall, caplog):
+    with caplog.at_level("INFO"):
+        got = t_profiling.rtf_report(audio, wall, "vocoder")
+        want = j_profiling.rtf_report(audio, wall, "vocoder")
+    assert got == want
+    assert [r.getMessage() for r in caplog.records][-2:] == [
+        caplog.records[-1].getMessage()] * 2
+
+
 @pytest.mark.parametrize("sr,bins,n", [(16000, 80, 4000), (8000, 40, 1234),
                                        (16000, 80, 300)])
 def test_kaldi_fbank_copy_is_exact(sr, bins, n):
@@ -468,8 +480,8 @@ def test_text_script_convertor(voice, tmp_path):
 
 
 def test_new_modules_import_without_jax():
-    """The preprocessing, data-parallel, int8 and export modules import with
-    JAX and the JAX package made unimportable."""
+    """The preprocessing, data-parallel, int8, export and tooling modules
+    import with JAX and the JAX package made unimportable."""
     code = ("import sys\n"
             "for name in ('jax', 'flax', 'optax', 'kantts_tpu'):\n"
             "    sys.modules[name] = None\n"
@@ -480,7 +492,9 @@ def test_new_modules_import_without_jax():
             "import kantts_tpu_torch.parallel.mesh, kantts_tpu_torch.bin.train_sybert\n"
             "import kantts_tpu_torch.ops.int8_conv, kantts_tpu_torch.infer.exported\n"
             "import kantts_tpu_torch.infer.symbols, kantts_tpu_torch.bin.export_tts\n"
-            "import kantts_tpu_torch.bin.infer_hifigan, kantts_tpu_torch.bin.serve_tts\n")
+            "import kantts_tpu_torch.bin.infer_hifigan, kantts_tpu_torch.bin.serve_tts\n"
+            "import kantts_tpu_torch.utils.profiling, kantts_tpu_torch.utils.plot\n"
+            "import kantts_tpu_torch.train.trainer\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]

@@ -11,6 +11,7 @@ with every dropout's p at 0 (the JAX side with ``deterministic=True``).
 """
 
 import glob
+import logging
 import os
 
 import jax
@@ -42,10 +43,16 @@ from kantts_tpu_torch.train import schedulers as ts
 from kantts_tpu_torch.train.optim import optimizer_builder
 from kantts_tpu_torch.train.steps import make_sambert_step, sambert_losses
 from kantts_tpu_torch.utils.convert import sambert_state_dict_from_jax
+from kantts_tpu_torch.utils import plot
 from kantts_tpu_torch.utils.corpus import write_mas_corpus
 from test_e2e import SAMBERT_TINY
 from test_sambert import TINY
 from test_torch_port_hifigan import small_generator_cfg
+from test_torch_port_tools import (  # noqa: F401 - torch_one_thread is a fixture
+    assert_same_checkpoint,
+    assert_scalars_match_log,
+    torch_one_thread,
+)
 
 MAS_LOSSES = {
     "MelReconLoss": {"enable": True, "params": {"loss_type": "mae"}},
@@ -354,6 +361,7 @@ def _flat(tree, prefix=""):
 # ---------------------------------------------------------- step and CLI
 
 
+@pytest.mark.usefixtures("torch_one_thread")
 def test_step_lowers_the_loss():
     torch.manual_seed(0)
     cfg = dict(TINY, MAS=True)
@@ -396,23 +404,39 @@ def _ckpts(stage):
     return sorted(os.path.basename(p) for p in glob.glob(os.path.join(stage, "ckpt", "*")))
 
 
-def test_train_sambert_cli_resume_and_serve(tmp_path):
+# what an eval of the TINY MAS config writes: 2 validation items, 1 encoder
+# and 1 PNCA layer of 2 heads (the PNGs: the JAX trainer's names)
+SAMBERT_EVAL_NPY = ["0_mel.npy", "1_mel.npy", "coarse_mel.npy", "output_mel.npy",
+                    "target_mel.npy"]
+SAMBERT_EVAL_PNG = ["0_mas_attn.png", "0_postnet.png", "0_target.png",
+                    "1_mas_attn.png", "1_postnet.png", "1_target.png",
+                    "enc_slf_attn_dev_layer0_head0.png", "enc_slf_attn_dev_layer0_head1.png",
+                    "pnca_h_attn_dev_layer0_head0.png", "pnca_h_attn_dev_layer0_head1.png",
+                    "pnca_x_attn_dev_layer0_head0.png", "pnca_x_attn_dev_layer0_head1.png"]
+
+
+@pytest.mark.usefixtures("torch_one_thread")
+def test_train_sambert_cli_resume_and_serve(tmp_path, caplog):
     data, stage = str(tmp_path / "data"), str(tmp_path / "stage")
     write_mas_corpus(data, 12, (6, 10), (24, 40), seed=0)
     cfg = train_config(stage)
-    train_sambert.main(["--model_config", cfg, "--root_dir", data,
-                        "--stage_dir", stage, "--device", "cpu"])
+    with caplog.at_level(logging.INFO):
+        train_sambert.main(["--model_config", cfg, "--root_dir", data,
+                            "--stage_dir", stage, "--device", "cpu"])
     assert _ckpts(stage) == ["checkpoint_2.ckpt", "checkpoint_4.ckpt"]
-    assert glob.glob(os.path.join(stage, "intermediate_results_4", "*_mel.npy"))
+    assert sorted(os.listdir(os.path.join(stage, "intermediate_results_4"))) == sorted(
+        SAMBERT_EVAL_NPY + (SAMBERT_EVAL_PNG if plot.available() else []))
+    assert_scalars_match_log(os.path.join(stage, "log"), caplog.records)
     payload = torch.load(os.path.join(stage, "ckpt", "checkpoint_4.ckpt"),
                          weights_only=True)
     assert payload["steps"] == 4
     assert payload["scheduler"]["last_epoch"] == 4
     assert set(payload) == {"model", "config", "optimizer", "scheduler", "steps"}
 
-    # resume from step 2: exactly steps 3 and 4 run; keep only the newest
+    # resume from step 2: exactly steps 3 and 4 run; keep only the newest;
+    # the saves go through the writer thread and equal a synchronous save
     resumed = str(tmp_path / "resumed")
-    cfg2 = train_config(resumed, keep_last_checkpoints=1)
+    cfg2 = train_config(resumed, keep_last_checkpoints=1, async_checkpoint=True)
     trainer = train_sambert.train(cfg2, data, resumed,
                                   resume_path=os.path.join(stage, "ckpt",
                                                            "checkpoint_2.ckpt"),
@@ -420,6 +444,11 @@ def test_train_sambert_cli_resume_and_serve(tmp_path):
     assert trainer.steps_taken == 2 and trainer.steps == 5
     assert trainer.scheduler.last_epoch == 4
     assert _ckpts(resumed) == ["checkpoint_4.ckpt"]
+    assert trainer._ckpt_writer is not None
+    trainer.steps = 4
+    trainer.save_checkpoint(str(tmp_path / "sync_4.ckpt"))
+    assert_same_checkpoint(os.path.join(resumed, "ckpt", "checkpoint_4.ckpt"),
+                           str(tmp_path / "sync_4.ckpt"))
     assert [h[:2] for h in trainer.history if h[0] == "train"] == [("train", 4)]
 
     # a resume already at train_max_steps runs nothing
