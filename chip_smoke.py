@@ -4186,6 +4186,359 @@ def phase_ddp(tmp: str) -> dict:
             "seconds": seconds}
 
 
+# ------------------------------------------------------------------ phase 16
+
+TP_KEYS = dict(train_max_steps=2, save_interval_steps=2, eval_interval_steps=2,
+               log_interval_steps=1, tensor_parallel=2)
+TP_TIMED = 3  # timed TP steps of (a), after the checked one and a warm-up
+SP_FRAMES = 400  # (c): 5 s at hop 200, the vocoder's B=1 shape
+PP_SHAPE = (32, 96)  # (d): B, T of the pipelined encoder, the AM step's text batch
+PP_MICRO = 4
+
+
+def tp_am(grid=None, timer=None):
+    """Seeded full-width sambert_16k_MAS on the card with dropout off (as in
+    ``ddp_models``); with ``grid``, sharded over its model group with the
+    tensor-parallel clip. Its clip records the whole pre-clip gradients and
+    norm of the first step into ``seen``. -> (step, model, optimizer, cfg,
+    seen)."""
+    import torch
+    import yaml
+
+    from kantts_tpu_torch.losses import criterion_builder
+    from kantts_tpu_torch.models.builder import sambert_model_builder
+    from kantts_tpu_torch.parallel import tp
+    from kantts_tpu_torch.train.steps import make_sambert_step
+
+    with open(os.path.join(CONFIGS, "sambert_16k_MAS.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    built = sambert_model_builder(cfg, 0, torch.device("cuda"))
+    model, optimizer = built["model"], built["optimizer"]
+    for sub in model.modules():
+        if isinstance(sub, torch.nn.Dropout):
+            sub.p = 0.0
+    clip = built["clip"]
+    if grid is not None:
+        tp.shard_module(model, grid, optimizer, timer)
+        clip = tp.make_clip(model, cfg["grad_norm"])
+    seen = {}
+
+    def recorded_clip():
+        if not seen:
+            seen["grads"] = tp.gather_grads(model)
+            seen["norm"] = float(clip())
+            return
+        clip()
+
+    step = make_sambert_step(model, criterion_builder(cfg), optimizer, built["scheduler"],
+                             recorded_clip, True, data_parallel=grid is not None,
+                             group=grid.data_group if grid is not None else None)
+    return step, model, optimizer, cfg, seen
+
+
+def wall_ms(fn, n: int) -> float:
+    """ms per call of ``fn`` by the host clock between device syncs (the
+    parallel calls wait on host collectives, so CUDA events alone would miss
+    their host side)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def sp_generator(causal: bool):
+    """The seeded hifigan_v1_16k generator (its config's widths), causal or
+    not, on the card."""
+    import yaml
+
+    from kantts_tpu_torch.models.builder import hifigan_model_builder
+
+    with open(os.path.join(CONFIGS, "hifigan_v1_16k.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["Model"]["Generator"]["params"]["causal"] = causal
+    return hifigan_model_builder(cfg, 3).cuda().eval()
+
+
+def pp_encoder_and_inputs():
+    """sambert_16k's text encoder widths (8 FFT layers, d_model 128, 8 heads,
+    FFN 1024) with its input at d_model (the stacked layers must be alike),
+    seeded, and a ragged (32, 96) batch."""
+    import torch
+
+    from kantts_tpu_torch.models.sambert.sambert import SelfAttentionEncoder
+
+    torch.manual_seed(5)
+    enc = SelfAttentionEncoder(128, 8, 128, 8, 16, 1024, 0.0, 0.0, 0.0, 800).cuda().eval()
+    B, T = PP_SHAPE
+    rng = np.random.RandomState(6)
+    x = torch.from_numpy(rng.randn(B, T, 128).astype(np.float32)).cuda()
+    lengths = torch.from_numpy(rng.randint(T // 2, T + 1, B)).cuda()
+    lengths[0] = T
+    mask = torch.arange(T, device=x.device)[None, :] >= lengths[:, None]
+    return enc, x, mask
+
+
+def tp_worker(rank: int, port: int, out: str) -> int:
+    """One of two ranks on cuda:0 over gloo with CUDA tensors, a 1 x 2 grid.
+    (a) a tensor-parallel step of full-width sambert_16k_MAS on the 32 x 96
+    x 576 batch of phase 13 (whole pre-clip gradients, parameters after it)
+    and the gathered checkpoint; (c) the sequence-parallel hifigan_v1_16k
+    call on 400 frames, causal and not; (d) the 2-stage pipelined encoder,
+    forward and backward. Once the parent writes ``go`` (the CLI beside
+    them has ended): 2 + ``TP_TIMED`` more steps, timed with the model
+    group's collectives, one step's host syncs, then (c) and (d) timed. K1's
+    launches are counted inside every TP step. Then rank 0 alone runs the
+    references: the one-process step on the same batch, the plain load of
+    the checkpoint, the unsharded vocoder calls and the sequential encoder,
+    each timed."""
+    import torch
+    import torch.distributed as dist
+
+    from kantts_tpu_torch.models.builder import checkpoint_payload, load_checkpoint, save_checkpoint
+    from kantts_tpu_torch.parallel import mesh, pp, tp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(torchrun_env(rank, 2, port, 0))
+    mesh.distributed_init("cuda", backend="gloo")
+    grid = mesh.make_mesh_2d(1, 2)
+    res = {}
+    # (a)
+    items = ddp_am_items(*DDP_AM)
+    args = (padded_batch(items, am_lengths(items)), 0)
+    timer = mesh.CollectiveTimer()
+    step, model, optimizer, cfg, seen = tp_am(grid, timer)
+    tally = [0]
+    step = counted(step, tally)
+    metrics = {k: v.item() for k, v in step(*args).items()}
+    first = dict(metrics=metrics, grads=seen["grads"], norm=seen["norm"],
+                 state={k: v.clone() for k, v in tp.gather_state_dict(model).items()})
+    ckpt = os.path.join(out, "tp_checkpoint.ckpt")
+    payload = checkpoint_payload(tp.gather_state_dict(model), cfg,
+                                 optimizer=tp.gather_optimizer_state(optimizer, model))
+    saved = {k: v.clone() for k, v in payload["model"].items()}
+    if rank == 0:
+        save_checkpoint(ckpt, payload["model"], cfg, optimizer=payload["optimizer"])
+    del payload
+    # (c)
+    mel = torch.from_numpy(np.random.RandomState(8).randn(1, SP_FRAMES, 80)
+                           .astype(np.float32)).cuda()
+    gens = {causal: sp_generator(causal) for causal in (True, False)}
+    with torch.no_grad():
+        sp = {causal: tp.sequence_parallel_apply(gen, mel) for causal, gen in gens.items()}
+    # (d)
+    enc, x, mask = pp_encoder_and_inputs()
+    pipe = pp.make_pipe_mesh(2)
+
+    def pipelined():
+        enc.zero_grad(set_to_none=True)
+        out_ = pp.sambert_encoder_pipeline(enc, x, mask, pipe, PP_MICRO)
+        out_.square().sum().backward()
+        return out_
+
+    pp_out = pipelined().detach()
+    pp_grads = {}
+    for k, p in enc.named_parameters():
+        g = p.grad.clone()
+        if k.startswith("fft."):  # each stage holds its own layers' share
+            dist.all_reduce(g)
+        pp_grads[k] = g
+    # the timings, once (b)'s CLI has left the card (the parent writes go)
+    while not os.path.exists(os.path.join(out, "go")):
+        time.sleep(0.2)
+    timer.take_intervals()
+    step(*args)  # warm-up; its collectives give the count a step
+    per_step = len(timer.take_intervals())
+    res["tp_ms"] = wall_ms(lambda: step(*args), TP_TIMED)
+    spans = timer.take_intervals()[per_step:]  # wall_ms's own first call
+    res["collective_ms"] = float(np.median([sum(spans[i:i + per_step]) for i in
+                                            range(0, len(spans), per_step)])) * 1e3
+    res["collectives_per_step"] = per_step
+    res["host_syncs_tp"] = len(host_syncs(lambda: step(*args)))
+    res["k1_launches"] = tally[0]
+    del step, model, optimizer
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        for causal, gen in gens.items():
+            res[f"sp_ms_{causal}"] = wall_ms(lambda: tp.sequence_parallel_apply(gen, mel), 5)
+    res["pp_ms"] = wall_ms(pipelined, 3)
+    dist.barrier()
+    mesh.destroy()
+    if rank == 1:
+        with open(os.path.join(out, "tp_rank1.json"), "w") as f:
+            json.dump(res, f)
+        return 0
+
+    # the references, rank 0 alone
+    ref_step, ref_model, _, _, ref_seen = tp_am()
+    ref_metrics = {k: v.item() for k, v in ref_step(*args).items()}
+    grads, norm = ref_seen["grads"], ref_seen["norm"]
+    worst_grad = max(float((first["grads"][k] - g).abs().max()) for k, g in grads.items())
+    worst_param = max(float((first["state"][k] - v).abs().max())
+                      for k, v in ref_model.state_dict().items() if v.is_floating_point())
+    loss_rel = abs(metrics["TotalLoss"] - ref_metrics["TotalLoss"]) / abs(ref_metrics["TotalLoss"])
+    res.update(loss_rel=loss_rel, grad_err_over_norm=worst_grad / norm, grad_norm=norm,
+               norm_rel=abs(first["norm"] - norm) / norm, max_param_err=worst_param,
+               plain_ms=wall_ms(lambda: ref_step(*args), TP_TIMED),
+               host_syncs_plain=len(host_syncs(lambda: ref_step(*args))))
+    plain, _ = load_checkpoint(ckpt, torch.device("cuda"))
+    res["checkpoint_bit_equal"] = (plain.state_dict().keys() == saved.keys() and all(
+        torch.equal(v, saved[k]) for k, v in plain.state_dict().items()))
+    del ref_step, ref_model, plain, first
+    torch.cuda.empty_cache()
+    for causal, gen in gens.items():
+        with torch.no_grad():
+            want = gen(mel)
+            res[f"sp_max_abs_err_{causal}"] = float((sp[causal] - want).abs().max())
+            res[f"unsharded_ms_{causal}"] = wall_ms(lambda: gen(mel), 5)
+    got_grads = pp_grads
+
+    def sequential():
+        enc.zero_grad(set_to_none=True)
+        out_, _ = enc(x, mask)
+        out_.square().sum().backward()
+        return out_
+
+    want = sequential().detach()
+    res["pp_max_abs_err"] = float((pp_out - want).abs().max())
+    gnorm = float(torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(p.grad) for p in enc.parameters()])))
+    res["pp_grad_err_over_norm"] = max(float((got_grads[k] - p.grad).abs().max())
+                                       for k, p in enc.named_parameters()) / gnorm
+    res["sequential_ms"] = wall_ms(sequential, 3)
+    with open(os.path.join(out, "tp_rank0.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def tp_two_ranks(tmp: str, before_timing) -> dict:
+    """(a), (c), (d): two ``tp_worker`` processes; once ``before_timing()``
+    has returned (the CLI beside them has ended), they time. -> rank 0's
+    results and both ranks' K1 launches."""
+    out = os.path.join(tmp, "tp_two_ranks")
+    os.makedirs(out, exist_ok=True)
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-worker",
+                               str(rank), str(port), out], cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for rank in range(2)]
+    logs = []
+    try:
+        before = before_timing()
+        open(os.path.join(out, "go"), "w").close()
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            print(text, end="", flush=True)
+            raise RuntimeError(f"tp worker {rank} exited {p.returncode}")
+    res = [json.load(open(os.path.join(out, f"tp_rank{r}.json"))) for r in range(2)]
+    return dict(res[0], k1_launches=[r["k1_launches"] for r in res],
+                tp_ms_rank1=res[1]["tp_ms"], cli=before)
+
+
+def audited_train(argv) -> int:
+    """``--audited-train STAGE ARGS``: ``train_sambert.main(ARGS)`` with every
+    write under STAGE recorded into ``STAGE.writes_rankR.json`` (R: this
+    rank), for (b)'s check that rank 1 writes nothing."""
+    import logging
+
+    from kantts_tpu_torch.bin import train_sambert
+
+    stage, rest = os.path.abspath(argv[0]), argv[1:]
+    writes = []
+
+    def audit(event, args):
+        if event in ("open", "os.mkdir", "os.rename", "os.replace", "os.remove"):
+            path = args[0]
+            if event == "open" and (not isinstance(args[1], str)
+                                    or not set(args[1]) & set("wax+")):
+                return
+            if isinstance(path, str) and os.path.abspath(path).startswith(stage + os.sep):
+                writes.append(f"{event} {os.path.relpath(path, stage)}")
+
+    logging.basicConfig(level=logging.INFO, force=True,
+                        format="%(asctime)s, %(levelname)-4s [%(filename)s:%(lineno)d] "
+                               "%(message)s")
+    sys.addaudithook(audit)
+    train_sambert.main(rest)
+    with open(f"{stage}.writes_rank{os.environ.get('RANK', '0')}.json", "w") as f:
+        json.dump(writes, f)
+    return 0
+
+
+def tp_cli(tmp: str):
+    """(b): ``train_sambert`` under torchrun, two ranks on the card over gloo
+    (``KANTTS_DIST_BACKEND``), ``tensor_parallel: 2``, 2 steps at B=32 on
+    phase 4's corpus, started now. -> finish() -> its results."""
+    import torch
+
+    stage = os.path.join(tmp, "tp_cli")
+    cfg = train_config(os.path.join(tmp, "tp_cli_model.yaml"), **TP_KEYS)
+    cli = Cli("tp_cli", ["-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+                         "2", os.path.abspath(__file__), "--audited-train", stage,
+                         "--model_config", cfg, "--root_dir", os.path.join(tmp, "corpus"),
+                         "--stage_dir", stage],
+              env=dict(os.environ, KANTTS_DIST_BACKEND="gloo"))
+
+    def finish() -> dict:
+        from kantts_tpu_torch.models.builder import load_checkpoint
+
+        cli.result(timeout=300)
+        writes = [json.load(open(f"{stage}.writes_rank{r}.json")) for r in range(2)]
+        with open(os.path.join(stage, "stdout.log")) as f:
+            log_text = f.read()
+        if writes[1] or not any("checkpoint_2.ckpt" in w for w in writes[0]):
+            raise AssertionError(f"tp_cli writes: rank 0 {writes[0][:8]}, rank 1 {writes[1][:8]}")
+        if "tensor parallel: 2-way over the model group" not in log_text:
+            raise AssertionError("tp_cli ran without tensor parallelism")
+        model, _ = load_checkpoint(ckpt_path(stage, 2), torch.device("cuda"))
+        heads = model.text_encoder.ling_enc.fft[0].slf_attn.n_head
+        losses = [float(ln.rsplit("=", 1)[1].strip(" .\n")) for ln in log_text.splitlines()
+                  if "train/TotalLoss" in ln]
+        if heads != 8 or len(losses) != 2 or not all(np.isfinite(losses)):
+            raise AssertionError(f"tp_cli: heads {heads}, losses {losses}")
+        return dict(seconds=round(cli.seconds, 3), losses=losses, rank0_writes=len(writes[0]))
+
+    return finish
+
+
+def phase_model_parallel(tmp: str) -> dict:
+    """Phase 16: (b) the tensor-parallel CLI started, the checks of (a), (c)
+    and (d) on two ranks beside it, (b) checked, then (a), (c) and (d)
+    timed with the card to themselves. -> K1's launches in (a)'s steps and
+    the results."""
+    t_phase = time.perf_counter()
+    res = tp_two_ranks(tmp, tp_cli(tmp))
+    seconds = time.perf_counter() - t_phase
+    log("model_parallel", seconds=round(seconds, 3),
+        **{k: (round(v, 9) if isinstance(v, float) else v) for k, v in res.items()
+           if k != "cli"}, cli=json.dumps(res["cli"]).replace(" ", ""))
+    failures = []
+    if 0 in res["k1_launches"]:
+        failures.append(f"K1 did not launch in a rank's TP steps: {res['k1_launches']}")
+    if not (res["loss_rel"] <= 1e-5 and res["grad_err_over_norm"] <= 1e-5
+            and res["max_param_err"] <= 3e-4 and res["checkpoint_bit_equal"]):
+        failures.append("the TP step is off the one-process step")
+    if not all(res[f"sp_max_abs_err_{c}"] <= 1e-4 for c in (True, False)):
+        failures.append("sequence-parallel vocoding is off the unsharded call")
+    if not (res["pp_max_abs_err"] <= 1e-4 and res["pp_grad_err_over_norm"] <= 1e-5):
+        failures.append("the pipelined encoder is off the sequential one")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return dict(res, k1_launches=sum(res["k1_launches"]), seconds=seconds)
+
+
 # ------------------------------------------------------------------ phase 14
 
 INT8_FRAMES = 400  # 5 s at hop 200: the B=1 shape of K2's checks and timings
@@ -5085,6 +5438,10 @@ def phase_k2_before(src: str) -> dict:
 def main(argv) -> int:
     if argv[:1] == ["--ddp-worker"]:
         return ddp_worker(int(argv[1]), int(argv[2]), argv[3])
+    if argv[:1] == ["--tp-worker"]:
+        return tp_worker(int(argv[1]), int(argv[2]), argv[3])
+    if argv[:1] == ["--audited-train"]:
+        return audited_train(argv[1:])
     smi = phase_device()
     phase_build()
     if argv[:1] == ["--k1-before"]:
@@ -5114,6 +5471,17 @@ def main(argv) -> int:
             res = phase_tools(tmp, trainer, checked)
             res["trace"] = start_tracer(tmp, ckpt_path(*checked["train_hifigan"]))()
         print(json.dumps({"tools": res}))
+        print(smi)
+        return 0
+    if argv[:1] == ["--model-parallel"]:
+        from kantts_tpu_torch.utils.corpus import write_mas_corpus
+
+        with tempfile.TemporaryDirectory(prefix="kantts_smoke_") as tmp, \
+                contextlib.ExitStack() as stack:
+            stack.callback(Cli.stop_all)
+            write_mas_corpus(os.path.join(tmp, "corpus"), 72, (60, 90), (400, 570), seed=0)
+            res = phase_model_parallel(tmp)
+        print(json.dumps({"model_parallel": res}))
         print(smi)
         return 0
     if argv[:1] == ["--int8-export"]:
@@ -5165,6 +5533,7 @@ def main(argv) -> int:
         fp = phase("11_fp_sybert", phase_fp_sybert, tmp)
         pre = phase("12_preprocess", phase_preprocess, tmp)
         ddp = phase("13_ddp", phase_ddp, tmp)
+        mp_ = phase("16_model_parallel", phase_model_parallel, tmp)
         int8 = phase("14_int8_export", phase_int8_export, tmp, am_ckpt, voc_ckpt)
     log("phase_seconds", total=round(time.perf_counter() - T_START, 3),
         phases=json.dumps(seconds).replace(" ", ""))
@@ -5178,7 +5547,7 @@ def main(argv) -> int:
         "replaces": "kantts_tpu/ops/mas_pallas.py:91",
         "launches": (fwd_launches + train_launches
                      + sum(bf16["k1_launches"].values()) + pre["k1_launches"]
-                     + ddp["k1_launches"] + tools["k1_launches"]),
+                     + ddp["k1_launches"] + tools["k1_launches"] + mp_["k1_launches"]),
         "launches_by_path": {"mas_forward": fwd_launches,
                              "train_sambert": train_launches,
                              "serve": serve["k1_launches"],
@@ -5186,7 +5555,8 @@ def main(argv) -> int:
                              "fp_sybert": fp["k1_launches"],
                              "preprocess": pre["k1_launches"],
                              "ddp": ddp["k1_launches"],
-                             "tools": tools["k1_launches"]},
+                             "tools": tools["k1_launches"],
+                             "tp": mp_["k1_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
         "ms": train["ms"], "plain_ms": train["plain_ms"],
         "bound_ms": train["bound_ms"], "bound_by": train["bound_by"],

@@ -22,6 +22,14 @@ is ``batch_size`` x the world size; every loss is the global batch's, and
 rank 0 alone writes the stage directory:
 
     torchrun --nproc_per_node N -m kantts_tpu_torch.bin.train_sambert ...
+
+Tensor parallelism: ``tensor_parallel: K`` in the config, as the JAX CLI
+reads it, arranges the N ranks as a (N / K) x K grid when K divides N
+(otherwise it stays 1, and the log says so). The attention and FFN layers
+are sharded over each group of K ranks (``parallel/tp.py``), which see the
+same batch; ``batch_size`` is per data rank, and the global batch is
+``batch_size`` x N / K. Checkpoints hold the unsharded model. Ranks that
+share a card run over gloo (``KANTTS_DIST_BACKEND=gloo``).
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ import torch
 from kantts_tpu_torch.data.dataset import DataLoader, DistributedSampler, get_am_datasets
 from kantts_tpu_torch.losses import criterion_builder
 from kantts_tpu_torch.models.builder import sambert_model_builder
-from kantts_tpu_torch.parallel import mesh
+from kantts_tpu_torch.parallel import mesh, tp
 from kantts_tpu_torch.train.steps import make_sambert_step
 from kantts_tpu_torch.train.trainer import (
     SambertTrainer,
@@ -83,34 +91,40 @@ def _train(model_config, roots, stage_dir, resume_path, resume_bert_path,
     logging.info("train + valid: %d + %d", len(train_dataset), len(valid_dataset))
     params.update(train_dataset.ling_unit.get_unit_size())
 
-    lengths_max = mesh.lengths_max()  # every rank pads as the global batch
+    grid = tensor_parallel_grid(int(config.get("tensor_parallel", 1)))
+    n_data, data_index = ((grid.n_data, grid.data_index) if grid is not None
+                          else (mesh.world_size(), mesh.rank()))
+    # every rank pads as the global batch; a model group's ranks share theirs
+    lengths_max = mesh.lengths_max(grid.data_gloo if grid is not None else None)
     train_loader = DataLoader(
         train_dataset, config["batch_size"],
-        sampler=DistributedSampler(len(train_dataset), mesh.world_size(),
-                                   mesh.rank(), shuffle=True),
+        sampler=DistributedSampler(len(train_dataset), n_data, data_index, shuffle=True),
         num_workers=config.get("num_workers", 0), lengths_max=lengths_max)
     valid_loader = DataLoader(
         valid_dataset, config["batch_size"],
-        sampler=DistributedSampler(len(valid_dataset), mesh.world_size(),
-                                   mesh.rank(), shuffle=False),
+        sampler=DistributedSampler(len(valid_dataset), n_data, data_index, shuffle=False),
         drop_last=False, lengths_max=lengths_max)
 
     seed = config.get("seed", 0)
-    torch.manual_seed(mesh.rank_seed(seed))  # dropout, this rank's own
+    torch.manual_seed(mesh.rank_seed(seed, data_index))  # dropout, this data rank's own
     built = sambert_model_builder(config, seed, device)
     model, optimizer, scheduler = built["model"], built["optimizer"], built["scheduler"]
     criterion = criterion_builder(config)
     with_mas = params.get("MAS", False)
-    generator = torch.Generator(device=device).manual_seed(mesh.rank_seed(seed))
+    generator = torch.Generator(device=device).manual_seed(mesh.rank_seed(seed, data_index))
     fp_dict_lings = (array_to_device(train_dataset.fp_dict_lings, device)
                      if params.get("FP", False) else None)
     timer = collective_timer()
-    train_step = make_sambert_step(model, criterion, optimizer, scheduler,
-                                   built["clip"], with_mas, generator=generator,
-                                   fp_dict_lings=fp_dict_lings, timer=timer)
-    eval_step = make_sambert_step(model, criterion, optimizer, scheduler,
-                                  built["clip"], with_mas, train=False,
-                                  fp_dict_lings=fp_dict_lings, timer=timer)
+    clip = built["clip"]
+    if grid is not None and clip is not None:  # the clip of the sharded model
+        clip = tp.make_clip(model, config["grad_norm"])
+    group = grid.data_group if grid is not None else None
+    train_step = make_sambert_step(model, criterion, optimizer, scheduler, clip,
+                                   with_mas, generator=generator,
+                                   fp_dict_lings=fp_dict_lings, timer=timer, group=group)
+    eval_step = make_sambert_step(model, criterion, optimizer, scheduler, clip,
+                                  with_mas, train=False, fp_dict_lings=fp_dict_lings,
+                                  timer=timer, group=group)
     trainer = SambertTrainer(
         config, model, optimizer, scheduler, train_step, eval_step,
         train_loader, valid_loader, stage_dir, device,
@@ -127,7 +141,25 @@ def _train(model_config, roots, stage_dir, resume_path, resume_bert_path,
         logging.info("Warm-started the text encoder from %s: %d tensors copied",
                      resume_bert_path, len(trainer.warm_started))
     mesh.replicate([model])
+    if grid is not None:
+        tp.shard_module(model, grid, optimizer, timer)
     return run(trainer)
+
+
+def tensor_parallel_grid(n_model: int) -> Optional[mesh.Grid]:
+    """The (world / n_model) x n_model grid of ``tensor_parallel: n_model``,
+    or None: at 1, and, with a log line, where it does not divide the world
+    size (the JAX CLI's rule)."""
+    world = mesh.world_size()
+    if n_model > 1 and world % n_model == 0:
+        grid = mesh.make_mesh_2d(world // n_model, n_model)
+        logging.info("tensor parallel: %d-way over the model group, %d data ranks (%s)",
+                     n_model, grid.n_data, grid.describe())
+        return grid
+    if n_model > 1:
+        logging.info("tensor_parallel: %d does not divide the world size %d: "
+                     "it stays 1", n_model, world)
+    return None
 
 
 def main(argv=None):

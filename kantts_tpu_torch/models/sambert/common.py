@@ -12,6 +12,16 @@ after the product in it, as flax's ``Dense`` and ``Conv`` do; parameters
 stay float32. LayerNorm runs in float32 on a float32 copy of its input,
 attention scores and softmax run in float32 and the weighted sum in v's
 dtype, and a residual sum is cast back to the residual's dtype.
+
+Tensor parallelism (``parallel/tp.py``): the attention and FFN modules here
+and in ``pnca.py`` and ``fsmn.py`` name their column-parallel layers
+(``TP_COL``: output features split, q/k/v chunks each split head-aligned)
+and row-parallel ones (``TP_ROW``: input features split) and the count that
+is split (``tp_units``: heads or inner channels). Once sharded, ``tp`` holds
+the model group; the input of each column layer passes ``copy_to_model``
+and the partial products of the row layers are summed by
+``reduce_from_model`` before their bias is added, once. Without it (``tp``
+None) they compute exactly as before.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from kantts_tpu_torch.parallel.tp import ModelParallel, copy_to_model, reduce_from_model
 from kantts_tpu_torch.utils.precision import Dtype, add_bias
 
 NEG_INF = -1e9
@@ -47,8 +58,17 @@ class Linear(nn.Linear):
         dt = self.compute_dtype
         if dt is None:
             return super().forward(x)
-        y = F.linear(x.to(dt), self.weight.to(dt))
-        return y if self.bias is None else y + self.bias.to(dt)
+        return self.add_bias(self.partial(x))
+
+    def partial(self, x: torch.Tensor) -> torch.Tensor:
+        """The product without the bias, in the compute dtype."""
+        dt = self.compute_dtype
+        if dt is None:
+            return F.linear(x, self.weight)
+        return F.linear(x.to(dt), self.weight.to(dt))
+
+    def add_bias(self, y: torch.Tensor) -> torch.Tensor:
+        return y if self.bias is None else y + self.bias.to(y.dtype)
 
 
 def torch_linear(in_features: int, out_features: int, bias: bool = True,
@@ -72,6 +92,26 @@ class Conv1dBTC(nn.Conv1d):
         y = F.conv1d(x.to(dt), self.weight.to(dt), None, self.stride,
                      self.padding, self.dilation, self.groups)
         return add_bias(y, self.bias).transpose(1, 2)
+
+    def partial(self, x: torch.Tensor) -> torch.Tensor:
+        """The convolution without the bias, in the compute dtype, (B, T, C)."""
+        dt = self.compute_dtype
+        x, w = (x, self.weight) if dt is None else (x.to(dt), self.weight.to(dt))
+        return F.conv1d(x.transpose(1, 2), w, None, self.stride, self.padding,
+                        self.dilation, self.groups).transpose(1, 2)
+
+    def add_bias(self, y: torch.Tensor) -> torch.Tensor:
+        return y if self.bias is None else y + self.bias.to(y.dtype)
+
+
+def row_parallel(layer, x: torch.Tensor, tp: Optional[ModelParallel]) -> torch.Tensor:
+    """``layer(x)`` (a ``Linear`` or ``Conv1dBTC``); sharded (``tp``), the
+    layer holds its slice of the input features, so its partial product is
+    summed over the model group and the bias, which every rank holds whole,
+    is added after."""
+    if tp is None:
+        return layer(x)
+    return layer.add_bias(reduce_from_model(layer.partial(x), tp))
 
 
 def conv1d_same(in_channels: int, out_channels: int, kernel_size: int,
@@ -134,12 +174,17 @@ def merge_heads(t: torch.Tensor) -> torch.Tensor:
 
 
 class MultiHeadSelfAttention(nn.Module):
-    """Pre-LN multi-head self attention with a fused qkv projection."""
+    """Pre-LN multi-head self attention with a fused qkv projection. Sharded,
+    ``n_head`` is this rank's heads."""
+
+    TP_COL = {"w_qkv": 3}  # layer -> its chunks (q, k, v), each split by head
+    TP_ROW = ("fc",)
 
     def __init__(self, d_in: int, n_head: int, d_head: int, d_model: int,
                  dropout: float = 0.1, dropatt: float = 0.0, dtype: Dtype = None):
         super().__init__()
         self.n_head, self.d_head = n_head, d_head
+        self.tp: Optional[ModelParallel] = None
         self.layer_norm = nn.LayerNorm(d_in, eps=1e-6)
         self.w_qkv = torch_linear(d_in, 3 * n_head * d_head, dtype=dtype)
         self.fc = torch_linear(n_head * d_head, d_model, dtype=dtype)
@@ -149,20 +194,28 @@ class MultiHeadSelfAttention(nn.Module):
     def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None):
         """x (B, T, d_in); key_mask (B, T) True = padding key."""
         residual = x
-        q, k, v = self.w_qkv(self.layer_norm(x.float())).chunk(3, dim=-1)
+        h = copy_to_model(self.layer_norm(x.float()), self.tp)
+        q, k, v = self.w_qkv(h).chunk(3, dim=-1)
         mask = key_mask[:, None, None, :] if key_mask is not None else None
         out, attn = scaled_dot_attention(
             split_heads(q, self.n_head), split_heads(k, self.n_head),
             split_heads(v, self.n_head), math.sqrt(self.d_head), mask,
             self.dropatt)
-        out = self.drop(self.fc(merge_heads(out)))
+        out = self.drop(row_parallel(self.fc, merge_heads(out), self.tp))
         if out.shape[-1] == residual.shape[-1]:
             out = (out + residual).to(residual.dtype)
         return out, attn
 
+    def tp_units(self) -> int:
+        return self.n_head
+
 
 class PositionwiseConvFeedForward(nn.Module):
-    """Pre-LN conv FFN: conv(k0) -> ReLU -> conv(k1), residual."""
+    """Pre-LN conv FFN: conv(k0) -> ReLU -> conv(k1), residual. Sharded, each
+    rank holds a slice of the inner channels."""
+
+    TP_COL = {"w_1": 1}
+    TP_ROW = ("w_2",)
 
     def __init__(self, d_model: int, d_inner: int,
                  kernel_sizes: Sequence[int] = (3, 1),
@@ -174,11 +227,15 @@ class PositionwiseConvFeedForward(nn.Module):
         self.w_2 = conv1d_same(d_inner, d_model, kernel_sizes[1], dtype=dtype)
         self.dropout_inner = nn.Dropout(dropout_inner)
         self.dropout = nn.Dropout(dropout)
+        self.tp: Optional[ModelParallel] = None
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
-        h = torch.relu(self.w_1(self.layer_norm(x.float())))
+        h = torch.relu(self.w_1(copy_to_model(self.layer_norm(x.float()), self.tp)))
         h = self.dropout_inner(masked_zero(h, mask))
-        return (self.dropout(self.w_2(h)) + x).to(x.dtype)
+        return (self.dropout(row_parallel(self.w_2, h, self.tp)) + x).to(x.dtype)
+
+    def tp_units(self) -> int:
+        return self.w_1.out_channels
 
 
 class FFTBlock(nn.Module):

@@ -1,7 +1,8 @@
 """FSMN encoder (counterpart of ``kantts_tpu/models/sambert/fsmn.py``):
 FeedForwardNet (1x1 conv pair, the second without bias), MemoryBlockV2
 (depthwise conv with ``shift``-controlled asymmetric padding, residual), and
-the residual stack ``FsmnEncoderV2``."""
+the residual stack ``FsmnEncoderV2``. A sharded FeedForwardNet holds a
+slice of its hidden channels (``common.py``)."""
 
 from __future__ import annotations
 
@@ -11,18 +12,27 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from kantts_tpu_torch.models.sambert.common import conv1d_same, masked_zero
+from kantts_tpu_torch.models.sambert.common import conv1d_same, masked_zero, row_parallel
+from kantts_tpu_torch.parallel.tp import ModelParallel, copy_to_model
 
 
 class FeedForwardNet(nn.Module):
+    TP_COL = {"w_1": 1}
+    TP_ROW = ("w_2",)
+
     def __init__(self, d_in: int, d_hid: int, d_out: int, dropout: float = 0.1):
         super().__init__()
         self.w_1 = conv1d_same(d_in, d_hid, 1)
         self.w_2 = conv1d_same(d_hid, d_out, 1, bias=False)
         self.dropout = nn.Dropout(dropout)
+        self.tp: Optional[ModelParallel] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.w_2(self.dropout(torch.relu(self.w_1(x))))
+        h = self.dropout(torch.relu(self.w_1(copy_to_model(x, self.tp))))
+        return row_parallel(self.w_2, h, self.tp)
+
+    def tp_units(self) -> int:
+        return self.w_1.out_channels
 
 
 class MemoryBlockV2(nn.Module):

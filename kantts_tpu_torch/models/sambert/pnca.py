@@ -36,6 +36,7 @@ from kantts_tpu_torch.models.sambert.common import (
     split_heads,
     torch_linear,
 )
+from kantts_tpu_torch.parallel.tp import ModelParallel, copy_to_model, reduce_from_model
 from kantts_tpu_torch.utils.precision import Dtype, weak_scalar
 
 
@@ -57,12 +58,18 @@ def pnca_band_masks(T: int, x_band_width: torch.Tensor,
 
 
 class MultiHeadPNCAAttention(nn.Module):
-    """Dual-source multi-head attention."""
+    """Dual-source multi-head attention. Sharded (``common.py``), ``n_head``
+    is this rank's heads and the two output projections' partial sums are
+    reduced in one collective."""
+
+    TP_COL = {"w_x_qkv": 3, "w_h_kv": 2}
+    TP_ROW = ("fc_x", "fc_h")
 
     def __init__(self, n_head: int, d_model: int, d_mem: int, d_head: int,
                  dropout: float = 0.1, dropatt: float = 0.0, dtype: Dtype = None):
         super().__init__()
         self.n_head, self.d_head = n_head, d_head
+        self.tp: Optional[ModelParallel] = None
         self.layer_norm = nn.LayerNorm(d_model, eps=1e-6)
         self.w_x_qkv = torch_linear(d_model, 3 * n_head * d_head, dtype=dtype)
         self.fc_x = torch_linear(n_head * d_head, d_model, dtype=dtype)
@@ -73,7 +80,7 @@ class MultiHeadPNCAAttention(nn.Module):
 
     def compute_h_kv(self, memory: torch.Tensor):
         """memory (B, T, d_mem) -> h_k, h_v each (B, H, T, d_head)."""
-        h_k, h_v = self.w_h_kv(memory).chunk(2, dim=-1)
+        h_k, h_v = self.w_h_kv(copy_to_model(memory, self.tp)).chunk(2, dim=-1)
         return split_heads(h_k, self.n_head), split_heads(h_v, self.n_head)
 
     def _attend(self, q, k, v, mask):
@@ -81,14 +88,25 @@ class MultiHeadPNCAAttention(nn.Module):
                                     self.dropatt)
 
     def _project_out(self, x_t, out_x, out_h):
-        out = self.fc_x(merge_heads(out_x)) + self.fc_h(merge_heads(out_h))
+        if self.tp is None:
+            out = self.fc_x(merge_heads(out_x)) + self.fc_h(merge_heads(out_h))
+        else:
+            out = reduce_from_model(self.fc_x.partial(merge_heads(out_x))
+                                    + self.fc_h.partial(merge_heads(out_h)), self.tp)
+            out = self.fc_h.add_bias(self.fc_x.add_bias(out))
         return (self.drop(out) + x_t).to(x_t.dtype)
+
+    def _qkv(self, x):
+        x = copy_to_model(self.layer_norm(x.float()), self.tp)
+        return (split_heads(t, self.n_head) for t in self.w_x_qkv(x).chunk(3, dim=-1))
+
+    def tp_units(self) -> int:
+        return self.n_head
 
     def forward(self, x, memory, x_attn_mask=None, h_attn_mask=None):
         """Teacher-forced pass. Masks (B|1, Tq, Tk), True = disallowed."""
         h_k, h_v = self.compute_h_kv(memory)
-        q, k, v = (split_heads(t, self.n_head)
-                   for t in self.w_x_qkv(self.layer_norm(x.float())).chunk(3, dim=-1))
+        q, k, v = self._qkv(x)
         xm = x_attn_mask[:, None] if x_attn_mask is not None else None
         hm = h_attn_mask[:, None] if h_attn_mask is not None else None
         out_x, attn_x = self._attend(q, k, v, xm)
@@ -99,8 +117,7 @@ class MultiHeadPNCAAttention(nn.Module):
              x_band_width, h_band_width, mem_pad_mask=None):
         """One incremental step. x_t (B, 1, d_model); t a 0-d int64 tensor;
         cache_k/cache_v (B, H, T, dh), written in place at row t."""
-        q, k, v = (split_heads(u, self.n_head)
-                   for u in self.w_x_qkv(self.layer_norm(x_t.float())).chunk(3, dim=-1))
+        q, k, v = self._qkv(x_t)
         index = t.reshape(1)
         cache_k.index_copy_(2, index, k)
         cache_v.index_copy_(2, index, v)

@@ -19,6 +19,13 @@ holds one card, a full copy of the models and one shard of the batch:
 - ``is_primary`` gates what a run writes (checkpoints, ``config.yaml``,
   ``stdout.log``, evaluation artifacts) on rank 0.
 
+With tensor parallelism (``parallel/tp.py``) the ranks form a 2-D grid
+(``make_mesh_2d``): rank = data_index * n_model + model_index. Each
+data-parallel collective above then takes the grid's data group, so that
+the ranks of one model group see the same batch, the same padded lengths
+and the same draws, and the model group carries the layers' own
+collectives.
+
 The models are not wrapped in ``DistributedDataParallel``: the GAN step
 freezes the discriminators by toggling ``requires_grad``, so the gradients
 are reduced explicitly. Without a process group every function here returns
@@ -32,6 +39,7 @@ from __future__ import annotations
 import datetime
 import os
 import time
+from dataclasses import dataclass
 from typing import Callable, Iterable, List, Optional, Sequence, Tuple, TypeVar, Union
 
 import torch
@@ -40,6 +48,8 @@ from torch import nn
 
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=10)
 _ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+BACKEND_ENV = "KANTTS_DIST_BACKEND"
+Group = Optional[dist.ProcessGroup]
 
 T = TypeVar("T")
 
@@ -56,10 +66,12 @@ def distributed_init(device: Union[str, torch.device] = "cuda",
     ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``). Without
     that environment, or when the group exists already, it does nothing.
 
-    The backend is NCCL for a CUDA ``device`` and gloo for the CPU unless
-    ``backend`` names one; on the card each rank takes ``cuda:LOCAL_RANK``.
-    A failed rendezvous raises after ``timeout``, as does a dead peer in a
-    later collective: a run never goes on alone at world size 1."""
+    The backend is ``backend``, else ``KANTTS_DIST_BACKEND`` when set, else
+    NCCL for a CUDA ``device`` and gloo for the CPU; on the card each rank
+    takes ``cuda:LOCAL_RANK`` (``local_device``: over gloo, ranks beyond
+    the visible cards share them). A failed rendezvous raises after
+    ``timeout``, as does a dead peer in a later collective: a run never goes
+    on alone at world size 1."""
     if is_distributed() or "WORLD_SIZE" not in os.environ:
         return
     missing = [k for k in _ENV if k not in os.environ]
@@ -68,10 +80,10 @@ def distributed_init(device: Union[str, torch.device] = "cuda",
                            "launch through torchrun")
     world, rank_ = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
     device = torch.device(device)
-    if backend is None:
-        backend = "nccl" if device.type == "cuda" else "gloo"
+    backend = backend or os.environ.get(BACKEND_ENV) or (
+        "nccl" if device.type == "cuda" else "gloo")
     if device.type == "cuda":
-        torch.cuda.set_device(local_device(device))
+        torch.cuda.set_device(local_device(device, backend))
     dist.init_process_group(
         backend,
         init_method=f"tcp://{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}",
@@ -120,17 +132,20 @@ def primary_first(fn: Callable[[], T]) -> T:
     return out if is_primary() else fn()
 
 
-def lengths_max() -> Optional[Callable[[Sequence[int]], Tuple[int, ...]]]:
+def lengths_max(group: Group = None
+                ) -> Optional[Callable[[Sequence[int]], Tuple[int, ...]]]:
     """What a loader takes a batch's padded lengths to the largest over the
     ranks with (``data.dataset.DataLoader(lengths_max=)``); None without a
     process group. The model's MAS attention normalises over padded text
     positions too, so a shard's loss depends on the length it is padded to:
     padded as the global batch is, it is the global batch's share. The
-    lengths go over a gloo group of their own, made here in the same order
-    on every rank, so that agreeing on them reads nothing back from a card."""
+    lengths go over a gloo group, so that agreeing on them reads nothing
+    back from a card: ``group`` (a grid's ``data_gloo``), else one made here
+    over the world, in the same order on every rank."""
     if not is_distributed():
         return None
-    group = dist.new_group(backend="gloo")
+    if group is None:
+        group = dist.new_group(backend="gloo")
 
     def agree(values: Sequence[int]) -> Tuple[int, ...]:
         t = torch.tensor(list(values), dtype=torch.int64)
@@ -140,21 +155,75 @@ def lengths_max() -> Optional[Callable[[Sequence[int]], Tuple[int, ...]]]:
     return agree
 
 
-def local_device(device: Union[str, torch.device]) -> torch.device:
+def local_device(device: Union[str, torch.device],
+                 backend: Optional[str] = None) -> torch.device:
     """The card of this rank for a CUDA ``device``: ``cuda:LOCAL_RANK`` under
-    torchrun, ``device`` as it is outside; the CPU stays the CPU."""
+    torchrun, ``device`` as it is outside; the CPU stays the CPU. Over gloo
+    (``backend``, else ``KANTTS_DIST_BACKEND``) ranks beyond the visible
+    cards share them (``LOCAL_RANK`` modulo their count), which NCCL
+    refuses."""
     device = torch.device(device)
     if device.type != "cuda" or "LOCAL_RANK" not in os.environ:
         return device
-    return torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    index = int(os.environ["LOCAL_RANK"])
+    if (backend or os.environ.get(BACKEND_ENV)) == "gloo" and torch.cuda.is_available():
+        index %= torch.cuda.device_count()
+    return torch.device("cuda", index)
 
 
-def rank_seed(seed: int) -> int:
+def rank_seed(seed: int, index: Optional[int] = None) -> int:
     """The seed of this rank's own draws (dropout, scheduled sampling), made
-    from (seed, rank): rank 0 keeps ``seed``, so a run at world size 1 draws
-    as a plain one does, and the other ranks draw masks of their own, as one
-    draw over the global batch would."""
-    return (seed + 0x9E3779B1 * rank()) % (2 ** 63)
+    from (seed, index), ``index`` being the rank (a grid's data index, so
+    that the ranks of one model group draw alike): index 0 keeps ``seed``,
+    so a run at world size 1 draws as a plain one does, and the other ranks
+    draw masks of their own, as one draw over the global batch would."""
+    index = rank() if index is None else index
+    return (seed + 0x9E3779B1 * index) % (2 ** 63)
+
+
+@dataclass
+class Grid:
+    """A 2-D process grid (``make_mesh_2d``): this rank's data and model
+    groups, its index in each, and a gloo group over its data group for the
+    loaders' padded lengths."""
+    n_data: int
+    n_model: int
+    data_index: int
+    model_index: int
+    data_group: dist.ProcessGroup
+    model_group: dist.ProcessGroup
+    data_gloo: dist.ProcessGroup
+
+    def describe(self) -> str:
+        return (f"data {self.data_index} of {self.n_data}, "
+                f"model {self.model_index} of {self.n_model}")
+
+
+def make_mesh_2d(n_data: int, n_model: int) -> Grid:
+    """The ("data", "model") grid over the world, rank = data_index * n_model
+    + model_index, as the JAX package reshapes its devices to (n_data,
+    n_model). Every rank makes every group, in the same order, as
+    ``torch.distributed.new_group`` requires."""
+    if not is_distributed():
+        raise RuntimeError("a process grid needs a process group")
+    world, me = world_size(), rank()
+    if n_data * n_model != world:
+        raise ValueError(f"a {n_data} x {n_model} grid does not cover a world of {world}")
+    gloo = dist.get_backend() == "gloo"
+    mine = {}
+    for m in range(n_model):
+        ranks = [d * n_model + m for d in range(n_data)]
+        group = dist.new_group(ranks)
+        host = group if gloo else dist.new_group(ranks, backend="gloo")
+        if me in ranks:
+            mine["data"], mine["data_gloo"] = group, host
+    for d in range(n_data):
+        ranks = [d * n_model + m for m in range(n_model)]
+        group = dist.new_group(ranks)
+        if me in ranks:
+            mine["model"] = group
+    return Grid(n_data, n_model, me // n_model, me % n_model, mine["data"],
+                mine["model"], mine["data_gloo"])
 
 
 class CollectiveTimer:
@@ -233,40 +302,45 @@ def optimizer_params(optimizer: torch.optim.Optimizer) -> List[nn.Parameter]:
 
 
 def all_reduce_grads(params: Iterable[nn.Parameter],
-                     timer: Optional[CollectiveTimer] = None) -> None:
-    """Sum the gradients of ``params`` over the ranks in one collective over a
-    flat buffer (one per dtype); parameters without a gradient are skipped,
-    which every rank does alike because every rank runs the same graph."""
+                     timer: Optional[CollectiveTimer] = None,
+                     group: Group = None) -> None:
+    """Sum the gradients of ``params`` over the ranks of ``group`` (the
+    world by default) in one collective over a flat buffer (one per dtype);
+    parameters without a gradient are skipped, which every rank does alike
+    because every rank runs the same graph."""
     if not is_distributed():
         return
     grads = [p.grad for p in params if p.grad is not None]
     if grads:
-        _collective(grads, lambda flat: dist.all_reduce(flat), timer)
+        _collective(grads, lambda flat: dist.all_reduce(flat, group=group), timer)
 
 
-def global_sum(*scalars: torch.Tensor, timer: Optional[CollectiveTimer] = None
-               ) -> Tuple[torch.Tensor, ...]:
-    """Each 0-d tensor summed over the ranks, in one collective over a stacked
-    float64 vector (exact for counts below 2**53), each returned in its own
-    dtype and without gradient."""
+def global_sum(*scalars: torch.Tensor, timer: Optional[CollectiveTimer] = None,
+               group: Group = None) -> Tuple[torch.Tensor, ...]:
+    """Each 0-d tensor summed over the ranks of ``group`` (the world by
+    default), in one collective over a stacked float64 vector (exact for
+    counts below 2**53), each returned in its own dtype and without
+    gradient."""
     if not is_distributed():
         return scalars
     vec = torch.stack([s.detach().to(torch.float64) for s in scalars])
     if timer is not None:
-        timer.run(vec.device, lambda: dist.all_reduce(vec))
+        timer.run(vec.device, lambda: dist.all_reduce(vec, group=group))
     else:
-        dist.all_reduce(vec)
+        dist.all_reduce(vec, group=group)
     return tuple(v.to(s.dtype) for v, s in zip(vec.unbind(), scalars))
 
 
-def global_max(x: torch.Tensor, timer: Optional[CollectiveTimer] = None
-               ) -> torch.Tensor:
-    """A 0-d tensor's largest value over the ranks, without gradient."""
+def global_max(x: torch.Tensor, timer: Optional[CollectiveTimer] = None,
+               group: Group = None) -> torch.Tensor:
+    """A 0-d tensor's largest value over the ranks of ``group`` (the world by
+    default), without gradient."""
     if not is_distributed():
         return x
     out = x.detach().clone()
     if timer is not None:
-        timer.run(out.device, lambda: dist.all_reduce(out, op=dist.ReduceOp.MAX))
+        timer.run(out.device, lambda: dist.all_reduce(out, op=dist.ReduceOp.MAX,
+                                                      group=group))
     else:
-        dist.all_reduce(out, op=dist.ReduceOp.MAX)
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
     return out

@@ -2,8 +2,8 @@
 ``kantts_tpu/preprocess/audio_utils.py``): volume normalisation, silence
 trim, the f0 ensemble, energy, interval parsing, feature normalisation.
 
-Everything is numpy on the host but ``get_energy``, whose STFT runs on a
-given device through the port's ``dsp/stft.py``. The f0 ensemble calls the
+Everything is numpy on the host but ``get_energy``, which runs on a given
+device. The f0 ensemble calls the
 native RAPT-style and YIN trackers of ``native/pitch.cpp`` with KAN-TTS's
 adaptive-range median recipe; sox's amplitude statistics are a numpy RMS and
 librosa's trim is a frame-RMS dB gate with the same threshold semantics.
@@ -19,7 +19,7 @@ import numpy as np
 
 import torch
 
-from kantts_tpu_torch.dsp.stft import stft_magnitude
+from kantts_tpu_torch.dsp.stft import hann_window, pad_center
 from kantts_tpu_torch.native.pitch import rapt, yin
 from kantts_tpu_torch.utils.audio import read_wav
 
@@ -201,13 +201,30 @@ def get_pitch(pcm: np.ndarray, sampling_rate: int = 16000,
 
 def get_energy(wav: np.ndarray, hop_length: int, win_length: int,
                n_fft: int, device="cpu") -> np.ndarray:
-    """Frame-wise spectral L2 magnitude, (frames, 1), computed on
-    ``device`` (reference utils.py:372-377)."""
+    """Frame-wise spectral L2 magnitude, (frames, 1) float32, computed on
+    ``device`` (reference utils.py:372-377): sqrt of the summed power of the
+    one-sided spectrum of each reflect-padded, Hann-windowed frame.
+
+    The sum is taken by Parseval in the time domain, in float64: over the
+    bins 0..n_fft/2 of a real frame x it is (n_fft * sum(x^2) + X_0^2 +
+    X_{n/2}^2) / 2, with X_0 = sum(x) and X_{n/2} = sum((-1)^t x) (no
+    Nyquist bin for an odd n_fft). So the result does not rest on a float32
+    FFT: its rounding error is ~1e-7 relative under round-to-nearest, but a
+    thread left in a directed rounding mode by other code of the process
+    takes it to 1e-5 and more."""
     with torch.no_grad():
-        mag = stft_magnitude(
-            torch.as_tensor(wav.astype(np.float32), device=device), n_fft,
-            hop_length, win_length, min_power=0.0)
-        return mag.square().sum(-1).sqrt().reshape(-1, 1).cpu().numpy()
+        x = torch.as_tensor(wav.astype(np.float64), device=device)
+        pad = n_fft // 2
+        x = torch.nn.functional.pad(x[None, None], (pad, pad), mode="reflect")[0, 0]
+        window = torch.from_numpy(pad_center(hann_window(win_length, np.float64),
+                                             n_fft)).to(device)
+        frames = x.unfold(0, n_fft, hop_length) * window  # (frames, n_fft)
+        power = n_fft * frames.square().sum(-1) + frames.sum(-1).square()
+        if n_fft % 2 == 0:
+            sign = torch.ones(n_fft, dtype=torch.float64, device=device)
+            sign[1::2] = -1.0
+            power = power + (frames * sign).sum(-1).square()
+        return (power / 2).sqrt().float().reshape(-1, 1).cpu().numpy()
 
 
 # --------------------------------------------------------------- alignment

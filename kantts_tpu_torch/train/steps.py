@@ -20,7 +20,11 @@ rank's loss is its share of the global-batch loss; the SAM-BERT band width is
 the global batch's; after the backward the gradients are summed over the
 ranks, one collective per optimizer, before the clip and the update; the
 metrics returned are the global ones, summed as one device vector. None of
-it reads a value back to the host.
+it reads a value back to the host. Under tensor parallelism (``group``, a
+grid's data group; ``parallel/tp.py``) all of it goes over the data group,
+while the sharded layers reduce over the model group inside the forward and
+backward, and the clip (``tp.make_clip``) takes the norm of the logical
+parameters.
 """
 
 from __future__ import annotations
@@ -42,22 +46,26 @@ REPLICATED_METRICS = ("x_band_width", "h_band_width")
 class DataParallel:
     """What a step does across ranks, or nothing (``enabled`` False): the
     reducer of the criteria, the band-width maximum, the gradient all-reduce
-    and the metrics' sum. ``timer`` (a ``mesh.CollectiveTimer``) times the
-    collectives."""
+    and the metrics' sum, over ``group`` (the world by default). ``timer``
+    (a ``mesh.CollectiveTimer``) times the collectives."""
 
     def __init__(self, enabled: Optional[bool] = None,
-                 timer: Optional[mesh.CollectiveTimer] = None):
+                 timer: Optional[mesh.CollectiveTimer] = None,
+                 group: mesh.Group = None):
         self.enabled = mesh.is_distributed() if enabled is None else enabled
         self.timer = timer
+        self.group = group
         self.reduce: Optional[Reduce] = (
-            functools.partial(mesh.global_sum, timer=timer) if self.enabled else None)
-        self.global_max = (functools.partial(mesh.global_max, timer=timer)
+            functools.partial(mesh.global_sum, timer=timer, group=group)
+            if self.enabled else None)
+        self.global_max = (functools.partial(mesh.global_max, timer=timer, group=group)
                            if self.enabled else None)
 
     def grads(self, optimizer: torch.optim.Optimizer) -> None:
         """Sum the gradients of ``optimizer``'s parameters over the ranks."""
         if self.enabled:
-            mesh.all_reduce_grads(mesh.optimizer_params(optimizer), self.timer)
+            mesh.all_reduce_grads(mesh.optimizer_params(optimizer), self.timer,
+                                  self.group)
 
     def metrics(self, metrics: Metrics) -> Metrics:
         """The global metrics: every share summed over the ranks in one call."""
@@ -158,7 +166,8 @@ def make_sambert_step(model: nn.Module, criterion: Dict[str, Any],
                       generator: Optional[torch.Generator] = None,
                       fp_dict_lings: Optional[torch.Tensor] = None,
                       data_parallel: Optional[bool] = None,
-                      timer: Optional[mesh.CollectiveTimer] = None
+                      timer: Optional[mesh.CollectiveTimer] = None,
+                      group: mesh.Group = None
                       ) -> Callable[[Dict[str, torch.Tensor], int], Metrics]:
     """-> step(batch, epoch) -> metrics. ``clip`` is the global-norm clip of
     ``optimizer_builder`` (None: no clip). The train step runs in ``train()``
@@ -170,9 +179,10 @@ def make_sambert_step(model: nn.Module, criterion: Dict[str, Any],
     ``scheduled_sampling_ramp_steps`` (the updates over which it ramps up
     linearly from 0); the update count is the scheduler's, so it resumes
     with it. Its draws come from ``generator``. An FP model's steps splice
-    in ``fp_dict_lings``. ``data_parallel`` and ``timer``: see
-    ``DataParallel``."""
-    dp = DataParallel(data_parallel, timer)
+    in ``fp_dict_lings``. ``data_parallel``, ``timer`` and ``group``: see
+    ``DataParallel``; under tensor parallelism ``group`` is the grid's data
+    group and ``clip`` is ``tp.make_clip``'s."""
+    dp = DataParallel(data_parallel, timer, group)
     cfg = getattr(model, "config", {}) or {}
     ss_max = float(cfg.get("scheduled_sampling_prob", 0.0))
     ss_ramp = float(cfg.get("scheduled_sampling_ramp_steps", 10_000))

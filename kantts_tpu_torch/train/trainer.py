@@ -29,7 +29,11 @@ and wav files when matplotlib is installed.
 Under data parallelism (``parallel/mesh.py``) every rank runs the loop, the
 steps and the evaluation, whose metrics are the global batch's and so equal
 on every rank; rank 0 alone writes checkpoints and intermediate results and
-logs. With ``KANTTS_TRAIN_PROFILE=1`` rank 0 also logs, at each log
+logs. Under tensor parallelism (``parallel/tp.py``) a SAM-BERT checkpoint is
+the gathered, unsharded state, so every rank takes part in a save and rank 0
+writes it; the evaluation runs on the sharded model, and its intermediate
+results on rank 0 from a plain copy loaded with the gathered state; a crash
+leaves no checkpoint (the gather needs every rank). With ``KANTTS_TRAIN_PROFILE=1`` rank 0 also logs, at each log
 interval, the wall seconds of the loop's phases: loader wait, device put,
 step (the host's dispatch, and its waits on the device), eval, save and log
 (the one host sync of the interval), and the collectives' seconds inside
@@ -56,6 +60,7 @@ from kantts_tpu_torch.models.builder import (
     host_copy,
     write_checkpoint,
 )
+from kantts_tpu_torch.parallel import tp
 from kantts_tpu_torch.parallel.mesh import CollectiveTimer, barrier, is_primary
 from kantts_tpu_torch.train.steps import sambert_forward
 from kantts_tpu_torch.utils import plot
@@ -96,7 +101,11 @@ def run(trainer: "Trainer") -> "Trainer":
         trainer.train()
     except (Exception, KeyboardInterrupt):
         logging.exception("training failed at step %d", trainer.steps)
-        if is_primary():
+        if trainer.collective_payload():
+            logging.error("no crash checkpoint: a tensor-parallel state is saved "
+                          "gathered over the model group, which a failed run "
+                          "cannot promise")
+        elif is_primary():
             try:
                 trainer.wait_for_checkpoints()
             except Exception:  # logged; the crash checkpoint still goes out
@@ -371,26 +380,38 @@ class Trainer:
 
     # ------------------------------------------------------------- intervals
 
+    def collective_payload(self) -> bool:
+        """Whether ``checkpoint_payload`` is a collective (a tensor-parallel
+        model's gather), which every rank must call."""
+        return False
+
     def check_save_interval(self):
+        if not (self.steps % self.save_interval == 0 or self.steps == self.max_steps):
+            return
+        payload = None
+        if self.collective_payload():
+            payload = self.checkpoint_payload()
         if not is_primary():
             return
-        if self.steps % self.save_interval == 0 or self.steps == self.max_steps:
-            self.save_checkpoint(
-                os.path.join(self.ckpt_dir, f"checkpoint_{self.steps}.ckpt"),
-                allow_async=True)
-            logging.info("Checkpoint saved at step %d", self.steps)
+        self.save_checkpoint(
+            os.path.join(self.ckpt_dir, f"checkpoint_{self.steps}.ckpt"),
+            allow_async=True, payload=payload)
+        logging.info("Checkpoint saved at step %d", self.steps)
 
-    def save_checkpoint(self, path: str, allow_async: bool = False) -> None:
-        """Write ``checkpoint_payload()`` to ``path``, then prune to the
-        newest ``keep_last_checkpoints``. With ``allow_async`` and
-        ``async_checkpoint: true`` the train thread only takes the host
-        snapshot (after the previous asynchronous write has landed, whose
-        buffers it reuses) and the writer thread writes and prunes."""
+    def save_checkpoint(self, path: str, allow_async: bool = False,
+                        payload: Optional[Dict[str, Any]] = None) -> None:
+        """Write ``payload`` (by default ``checkpoint_payload()``) to ``path``,
+        then prune to the newest ``keep_last_checkpoints``. With
+        ``allow_async`` and ``async_checkpoint: true`` the train thread only
+        takes the host snapshot (after the previous asynchronous write has
+        landed, whose buffers it reuses) and the writer thread writes and
+        prunes."""
         def prune():
             prune_checkpoints(self.ckpt_dir,
                               self.config.get("keep_last_checkpoints", 0))
 
-        payload = self.checkpoint_payload()
+        if payload is None:
+            payload = self.checkpoint_payload()
         if allow_async and self.config.get("async_checkpoint", False):
             if self._ckpt_writer is None:
                 self._ckpt_writer = AsyncCheckpointWriter()
@@ -470,8 +491,8 @@ class Trainer:
         for idx, batch in enumerate(self.valid_loader):
             batch = self.to_device(batch)
             out = self.eval_step(batch)
-            if idx == rand_idx and primary:
-                self.generate_and_save_intermediate_result(batch, out)
+            if idx == rand_idx:
+                self.intermediate_result(batch, out)
         means = {key: float(value) / num_batches
                  for key, value in self.total_eval_loss.items()}
         if primary:
@@ -490,6 +511,12 @@ class Trainer:
         """Accumulate the eval metrics of ``batch``; -> what the intermediate
         results of that batch need from the step, if anything."""
         raise NotImplementedError
+
+    def intermediate_result(self, batch, out=None):
+        """Every rank calls it for the drawn batch; rank 0 writes its
+        intermediate results."""
+        if is_primary():
+            self.generate_and_save_intermediate_result(batch, out)
 
     def generate_and_save_intermediate_result(self, batch, out=None):
         """Write artifacts of ``batch`` (``out``: what ``eval_step`` returned
@@ -522,6 +549,7 @@ class SambertTrainer(Trainer):
         self.eval_step_fn = eval_step_fn
         self.fp_dict_lings = fp_dict_lings
         self.warm_started: List[str] = []  # tensors a warm start copied
+        self._plain: Optional[torch.nn.Module] = None  # rank 0's gathered copy
 
     def train_step(self, batch):
         self.accumulate(self.total_train_loss,
@@ -531,18 +559,37 @@ class SambertTrainer(Trainer):
         self.accumulate(self.total_eval_loss,
                         self.eval_step_fn(batch, self.epoch), "eval")
 
+    def collective_payload(self) -> bool:
+        return tp.is_sharded(self.model)
+
+    def intermediate_result(self, batch, out=None):
+        """Sharded, the model group gathers the state and rank 0 draws from a
+        plain copy that holds it, with every head of every attention."""
+        model = self.model
+        if tp.is_sharded(model):
+            state = tp.gather_state_dict(model)
+            if not is_primary():
+                return
+            if self._plain is None:
+                self._plain = type(model)(model.config).to(self.device)
+            self._plain.load_state_dict(state)
+            model = self._plain
+        if is_primary():
+            self.generate_and_save_intermediate_result(batch, out, model)
+
     @torch.no_grad()
-    def generate_and_save_intermediate_result(self, batch, out=None):
+    def generate_and_save_intermediate_result(self, batch, out=None, model=None):
         """Save the postnet mels of the first few items and the coarse,
         output and target mels of the first item as .npy; with matplotlib,
         also the JAX trainer's plots: each of the first few items' postnet
         and target mels (and its MAS soft alignment), and the first item's
         attention maps, one a layer and head (encoder self-attention, PNCA x
-        and h attention)."""
+        and h attention). ``model`` defaults to the trained one."""
         out_dir = os.path.join(self.save_dir, f"intermediate_results_{self.steps}")
         os.makedirs(out_dir, exist_ok=True)
-        self.model.eval()
-        res = sambert_forward(self.model, batch, fp_dict_lings=self.fp_dict_lings)
+        model = self.model if model is None else model
+        model.eval()
+        res = sambert_forward(model, batch, fp_dict_lings=self.fp_dict_lings)
         lengths = batch["valid_output_lengths"].tolist()
         post = res["postnet_outputs"].cpu().numpy()
         n = min(self.config.get("num_save_intermediate_results", 4), len(lengths))
@@ -599,18 +646,23 @@ class SambertTrainer(Trainer):
                     info=f"h_band_width_{int(h_bw)}" if h_bw is not None else None)
 
     def checkpoint_payload(self):
-        return checkpoint_payload(self.model, self.config,
-                                  optimizer=self.optimizer.state_dict(),
-                                  scheduler=self.scheduler.state_dict(),
-                                  steps=self.steps)
+        """The unsharded state: a sharded model's is gathered (a collective
+        of the model group)."""
+        return checkpoint_payload(
+            tp.gather_state_dict(self.model), self.config,
+            optimizer=tp.gather_optimizer_state(self.optimizer, self.model),
+            scheduler=self.scheduler.state_dict(), steps=self.steps)
 
     def load_checkpoint(self, path, restore_training_state=False):
         """Load the model; with ``restore_training_state`` also the optimizer
-        and the schedule, and resume at the step after the saved one."""
+        and the schedule, and resume at the step after the saved one. A
+        sharded model takes its slices of the unsharded file."""
         payload = torch.load(path, map_location="cpu", weights_only=True)
-        self.model.load_state_dict(payload["model"], strict=True)
+        self.model.load_state_dict(tp.shard_state_dict(payload["model"], self.model),
+                                   strict=True)
         if restore_training_state:
-            self.optimizer.load_state_dict(payload["optimizer"])
+            self.optimizer.load_state_dict(tp.shard_optimizer_state(
+                payload["optimizer"], self.optimizer, self.model))
             self.scheduler.load_state_dict(payload["scheduler"])
             self.steps = int(payload["steps"]) + 1
 
@@ -726,7 +778,7 @@ class TextsyBertTrainer(SambertTrainer):
     def eval_step(self, batch):
         self.accumulate(self.total_eval_loss, self.eval_step_fn(batch), "eval")
 
-    def generate_and_save_intermediate_result(self, batch, out=None):
+    def generate_and_save_intermediate_result(self, batch, out=None, model=None):
         pass
 
 

@@ -480,8 +480,9 @@ def test_text_script_convertor(voice, tmp_path):
 
 
 def test_new_modules_import_without_jax():
-    """The preprocessing, data-parallel, int8, export and tooling modules
-    import with JAX and the JAX package made unimportable."""
+    """The preprocessing, data-parallel, tensor/pipeline-parallel, int8,
+    export and tooling modules import with JAX and the JAX package made
+    unimportable."""
     code = ("import sys\n"
             "for name in ('jax', 'flax', 'optax', 'kantts_tpu'):\n"
             "    sys.modules[name] = None\n"
@@ -490,6 +491,7 @@ def test_new_modules_import_without_jax():
             "import kantts_tpu_torch.preprocess.se_processor\n"
             "import kantts_tpu_torch.utils.metrics\n"
             "import kantts_tpu_torch.parallel.mesh, kantts_tpu_torch.bin.train_sybert\n"
+            "import kantts_tpu_torch.parallel.tp, kantts_tpu_torch.parallel.pp\n"
             "import kantts_tpu_torch.ops.int8_conv, kantts_tpu_torch.infer.exported\n"
             "import kantts_tpu_torch.infer.symbols, kantts_tpu_torch.bin.export_tts\n"
             "import kantts_tpu_torch.bin.infer_hifigan, kantts_tpu_torch.bin.serve_tts\n"
