@@ -4191,32 +4191,53 @@ def phase_ddp(tmp: str) -> dict:
 TP_KEYS = dict(train_max_steps=2, save_interval_steps=2, eval_interval_steps=2,
                log_interval_steps=1, tensor_parallel=2)
 TP_TIMED = 3  # timed TP steps of (a), after the checked one and a warm-up
-SP_FRAMES = 400  # (c): 5 s at hop 200, the vocoder's B=1 shape
+SP_FRAMES = 400  # (c), (g): 5 s at hop 200, the vocoder's B=1 shape
 PP_SHAPE = (32, 96)  # (d): B, T of the pipelined encoder, the AM step's text batch
 PP_MICRO = 4
+# (e): each voice the JAX CLI shards -> (its config, top-level keys); its batch
+# is (a)'s 32 x 96 x 576 (bytes for the byte voice), phase 10's SE corpus at
+# 32 x 96 x 576, phase 11's FP corpus at 16 x 96 x 480
+TP_VOICES = {"bf16": ("sambert_16k_MAS", {"mixed_precision": True}),
+             "byte": ("sambert_16k_MAS_byte", {}),
+             "fp": ("sambert_fp_8k", {}),
+             "se_nsf": ("sambert_se_nsf_global_16k", {}),
+             "warm": ("sambert_16k_MAS", {})}
+TP_VOICE_TIMED = 2  # timed TP and plain steps of each voice, after a warm-up
+TP_CRASH_STEP = 2  # (f): the step the CLI is interrupted at on both ranks
+NSF_SP = ("hifigan_v1_nsf_24k", "hifigan_noncausal_nsf_v1_16k")  # (g)
+NSF_SP_DRAW = 9  # the seed of (g)'s source draws
 
 
-def tp_am(grid=None, timer=None):
+def tp_am(grid=None, timer=None, voice=None, tmp=None, fp_dict=None):
     """Seeded full-width sambert_16k_MAS on the card with dropout off (as in
-    ``ddp_models``); with ``grid``, sharded over its model group with the
-    tensor-parallel clip. Its clip records the whole pre-clip gradients and
-    norm of the first step into ``seen``. -> (step, model, optimizer, cfg,
-    seen)."""
+    ``ddp_models``), or the (e) ``voice`` of ``TP_VOICES`` (the warm start's
+    encoder copied from ``tmp``'s Textsy-BERT checkpoint first, as
+    ``train_sambert`` copies it before it shards); with ``grid``, sharded
+    over its model group with the tensor-parallel clip. Its clip records the
+    pre-clip norm of the first step into ``seen`` (and for (a) the whole
+    pre-clip gradients). -> (step, model, optimizer, cfg, seen)."""
     import torch
     import yaml
 
     from kantts_tpu_torch.losses import criterion_builder
-    from kantts_tpu_torch.models.builder import sambert_model_builder
+    from kantts_tpu_torch.models.builder import sambert_model_builder, sambert_params
     from kantts_tpu_torch.parallel import tp
     from kantts_tpu_torch.train.steps import make_sambert_step
+    from kantts_tpu_torch.train.trainer import load_sambert_encoder_from_sybert
 
-    with open(os.path.join(CONFIGS, "sambert_16k_MAS.yaml")) as f:
+    name, keys = TP_VOICES[voice] if voice else ("sambert_16k_MAS", {})
+    with open(os.path.join(CONFIGS, f"{name}.yaml")) as f:
         cfg = yaml.safe_load(f)
+    cfg.update(keys)
     built = sambert_model_builder(cfg, 0, torch.device("cuda"))
     model, optimizer = built["model"], built["optimizer"]
     for sub in model.modules():
         if isinstance(sub, torch.nn.Dropout):
             sub.p = 0.0
+    if voice == "warm":
+        copied = load_sambert_encoder_from_sybert(model, os.path.join(tmp, "tp_bert.ckpt"))
+        if not copied:
+            raise AssertionError("the warm start copied nothing")
     clip = built["clip"]
     if grid is not None:
         tp.shard_module(model, grid, optimizer, timer)
@@ -4225,15 +4246,130 @@ def tp_am(grid=None, timer=None):
 
     def recorded_clip():
         if not seen:
-            seen["grads"] = tp.gather_grads(model)
+            if voice is None:
+                seen["grads"] = tp.gather_grads(model)
             seen["norm"] = float(clip())
             return
         clip()
 
     step = make_sambert_step(model, criterion_builder(cfg), optimizer, built["scheduler"],
-                             recorded_clip, True, data_parallel=grid is not None,
+                             recorded_clip, sambert_params(cfg).get("MAS", False),
+                             fp_dict_lings=fp_dict, data_parallel=grid is not None,
                              group=grid.data_group if grid is not None else None)
     return step, model, optimizer, cfg, seen
+
+
+def tp_voice_batch(voice: str, tmp: str):
+    """(e)'s batch of ``voice`` on the card -> (step args, fp_dict_lings or
+    None, (B, T_in, T_mel)): (a)'s MAS batch, with bytes (and the byte
+    unit's emotions and speakers) for the byte voice; the SE and FP voices
+    the longest items of phase 10's and phase 11's corpora through the AM
+    dataset (``tp_voice_corpora``)."""
+    import torch
+
+    from kantts_tpu_torch.data.dataset import get_am_datasets
+    from kantts_tpu_torch.models.builder import sambert_params
+    from kantts_tpu_torch.train.trainer import array_to_device, batch_to_device
+    from kantts_tpu_torch.utils.config import load_merged_config
+
+    name, keys = TP_VOICES[voice]
+    cuda = torch.device("cuda")
+    if voice in ("fp", "se_nsf"):
+        corpus = os.path.join(tmp, *(("fp", "fp_corpus") if voice == "fp"
+                                     else ("se", "corpus")))
+        cfg = load_merged_config(corpus, os.path.join(CONFIGS, f"{name}.yaml"))
+        params = cfg["Model"]["KanTtsSAMBERT"]["params"]
+        ds, _ = get_am_datasets([os.path.join(corpus, "raw_metafile.txt")], [corpus], cfg,
+                                se_enable=params.get("SE", False))
+        items = sorted((ds[i] for i in range(len(ds))),
+                       key=lambda it: -it[1].shape[0])[:cfg["batch_size"]]
+        batch = batch_to_device(ds.collate_fn(items), cuda)
+        fp_dict = array_to_device(ds.fp_dict_lings, cuda) if voice == "fp" else None
+    else:
+        items = ddp_am_items(*DDP_AM)
+        if voice == "byte":
+            import yaml
+
+            with open(os.path.join(CONFIGS, f"{name}.yaml")) as f:
+                unit = sambert_params(yaml.safe_load(f))
+            rng = np.random.RandomState(9)
+            for it in items:
+                n = len(it["emo"])
+                it.update(ling=rng.randint(1, unit["byte_index"], (n, 1)),
+                          emo=rng.randint(1, unit["emotion"], n),
+                          spk=rng.randint(1, unit["speaker"], n))
+        batch, fp_dict = padded_batch(items, am_lengths(items)), None
+    shape = (int(batch["mel_targets"].shape[0]), int(batch["input_lings"].shape[1]),
+             int(batch["mel_targets"].shape[1]))
+    return (batch, 0), fp_dict, shape
+
+
+def tp_voice_corpora(tmp: str) -> None:
+    """The corpora and checkpoint (e) reads: phase 10's SE corpus and phase
+    11's FP corpus, each written as that phase writes it unless it ran, and
+    a seeded full-width Textsy-BERT checkpoint for the warm start."""
+    import yaml
+
+    from kantts_tpu_torch.models.builder import save_checkpoint, sybert_model_builder
+    from kantts_tpu_torch.utils.corpus import write_am_corpus, write_fp_corpus
+
+    se = os.path.join(tmp, "se", "corpus")
+    if not os.path.isdir(se):
+        write_am_corpus(se, 40, (60, 90), (400, 570), seed=0, durations=True, nsf=True,
+                        se_units=SE_UNITS)
+    fp = os.path.join(tmp, "fp", "fp_corpus")
+    if not os.path.isdir(fp):
+        write_fp_corpus(fp, 40, (40, 70), (300, 450), seed=0, sampling_rate=FP_SR)
+    with open(os.path.join(CONFIGS, "sybert.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    save_checkpoint(os.path.join(tmp, "tp_bert.ckpt"), sybert_model_builder(cfg, 4)["model"],
+                    cfg)
+
+
+class K1Maps:
+    """Inside the block, the inputs and output of the first K1 call that
+    ``mas_align`` makes (the map the step handed it); the launches stay
+    K1's own count."""
+
+    def __enter__(self):
+        from kantts_tpu_torch.models.sambert import alignment
+
+        self.alignment, self.real, self.first = alignment, alignment.b_mas_cuda, None
+
+        def recorded(attn, in_lens, out_lens):
+            hard = self.real(attn, in_lens, out_lens)
+            if self.first is None:
+                self.first = (attn.clone(), in_lens.clone(), out_lens.clone(), hard.clone())
+            return hard
+
+        alignment.b_mas_cuda = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.alignment.b_mas_cuda = self.real
+
+    def exact(self):
+        """K1 equal to ``b_mas_torch`` on the recorded map, or None without
+        a call."""
+        import torch
+
+        from kantts_tpu_torch.models.sambert.alignment import b_mas_torch
+
+        if self.first is None:
+            return None
+        attn, in_lens, out_lens, hard = self.first
+        return bool(torch.equal(hard, b_mas_torch(attn, in_lens, out_lens)))
+
+
+def nsf_sp_generator(name: str):
+    """(g)'s seeded NSF vocoder of ``name`` at its config's widths, on the
+    card."""
+    import yaml
+
+    from kantts_tpu_torch.models.builder import hifigan_model_builder
+
+    with open(os.path.join(CONFIGS, f"{name}.yaml")) as f:
+        return hifigan_model_builder(yaml.safe_load(f), 3).cuda().eval()
 
 
 def wall_ms(fn, n: int) -> float:
@@ -4287,15 +4423,19 @@ def tp_worker(rank: int, port: int, out: str) -> int:
     """One of two ranks on cuda:0 over gloo with CUDA tensors, a 1 x 2 grid.
     (a) a tensor-parallel step of full-width sambert_16k_MAS on the 32 x 96
     x 576 batch of phase 13 (whole pre-clip gradients, parameters after it)
-    and the gathered checkpoint; (c) the sequence-parallel hifigan_v1_16k
-    call on 400 frames, causal and not; (d) the 2-stage pipelined encoder,
-    forward and backward. Once the parent writes ``go`` (the CLI beside
-    them has ended): 2 + ``TP_TIMED`` more steps, timed with the model
-    group's collectives, one step's host syncs, then (c) and (d) timed. K1's
-    launches are counted inside every TP step. Then rank 0 alone runs the
-    references: the one-process step on the same batch, the plain load of
-    the checkpoint, the unsharded vocoder calls and the sequential encoder,
-    each timed."""
+    and the gathered checkpoint; (e) one tensor-parallel step of each
+    ``TP_VOICES`` voice (its loss, pre-clip norm, and K1 exact on the map
+    the step handed it); (c) the sequence-parallel hifigan_v1_16k call on
+    400 frames, causal and not; (g) the two NSF vocoders of ``NSF_SP``
+    sequence-parallel on 400 frames, the source given and drawn on rank 0
+    and broadcast; (d) the 2-stage pipelined encoder, forward and backward.
+    Once the parent writes ``go`` (the CLIs beside them have ended): 2 +
+    ``TP_TIMED`` more steps of (a), timed with the model group's
+    collectives, one step's host syncs, 1 + ``TP_VOICE_TIMED`` steps of each
+    voice, then (c), (g) and (d) timed. K1's launches are counted inside
+    every TP step. Then rank 0 alone runs the references: the one-process
+    steps on the same batches, the plain load of the checkpoint, the
+    unsharded vocoder calls and the sequential encoder, each timed."""
     import torch
     import torch.distributed as dist
 
@@ -4307,6 +4447,7 @@ def tp_worker(rank: int, port: int, out: str) -> int:
     os.environ.update(torchrun_env(rank, 2, port, 0))
     mesh.distributed_init("cuda", backend="gloo")
     grid = mesh.make_mesh_2d(1, 2)
+    tmp = os.path.dirname(out)
     res = {}
     # (a)
     items = ddp_am_items(*DDP_AM)
@@ -4325,12 +4466,37 @@ def tp_worker(rank: int, port: int, out: str) -> int:
     if rank == 0:
         save_checkpoint(ckpt, payload["model"], cfg, optimizer=payload["optimizer"])
     del payload
+    # (e)
+    voices, voice_steps = {}, {}
+    for voice in TP_VOICES:
+        v_args, fp_dict, shape = tp_voice_batch(voice, tmp)
+        v_step, _, _, _, v_seen = tp_am(grid, None, voice, tmp, fp_dict)
+        v_tally = [0]
+        v_step = counted(v_step, v_tally)
+        with K1Maps() as maps:
+            loss = v_step(*v_args)["TotalLoss"].item()
+        voices[voice] = dict(shape=shape, loss=loss, norm=v_seen["norm"], k1_exact=maps.exact())
+        voice_steps[voice] = (v_step, v_args, v_tally)
     # (c)
     mel = torch.from_numpy(np.random.RandomState(8).randn(1, SP_FRAMES, 80)
                            .astype(np.float32)).cuda()
     gens = {causal: sp_generator(causal) for causal in (True, False)}
     with torch.no_grad():
         sp = {causal: tp.sequence_parallel_apply(gen, mel) for causal, gen in gens.items()}
+    # (g)
+    nsf_mel_ = torch.from_numpy(nsf_mel(np.random.RandomState(10), SP_FRAMES)).cuda()
+    nsf_gens = {name: nsf_sp_generator(name) for name in NSF_SP}
+
+    def draws():
+        return torch.Generator(device="cuda").manual_seed(NSF_SP_DRAW)
+
+    with torch.no_grad():
+        excitation = {name: gen(nsf_mel_, excitation_only=True, generator=draws())
+                      for name, gen in nsf_gens.items()}
+        nsf_sp = {name: dict(
+            given=tp.sequence_parallel_apply(gen, nsf_mel_, excitation=excitation[name]),
+            broadcast=tp.sequence_parallel_apply(gen, nsf_mel_, rng=draws()))
+            for name, gen in nsf_gens.items()}
     # (d)
     enc, x, mask = pp_encoder_and_inputs()
     pipe = pp.make_pipe_mesh(2)
@@ -4348,7 +4514,7 @@ def tp_worker(rank: int, port: int, out: str) -> int:
         if k.startswith("fft."):  # each stage holds its own layers' share
             dist.all_reduce(g)
         pp_grads[k] = g
-    # the timings, once (b)'s CLI has left the card (the parent writes go)
+    # the timings, once the CLIs have left the card (the parent writes go)
     while not os.path.exists(os.path.join(out, "go")):
         time.sleep(0.2)
     timer.take_intervals()
@@ -4362,10 +4528,19 @@ def tp_worker(rank: int, port: int, out: str) -> int:
     res["host_syncs_tp"] = len(host_syncs(lambda: step(*args)))
     res["k1_launches"] = tally[0]
     del step, model, optimizer
+    for voice, (v_step, v_args, v_tally) in voice_steps.items():
+        voices[voice]["tp_ms"] = wall_ms(lambda: v_step(*v_args), TP_VOICE_TIMED)
+        voices[voice]["k1_launches"] = v_tally[0]
+        voices[voice]["tp_steps"] = 2 + TP_VOICE_TIMED
+    res["voices"] = voices
+    del voice_steps, v_step
     torch.cuda.empty_cache()
     with torch.no_grad():
         for causal, gen in gens.items():
             res[f"sp_ms_{causal}"] = wall_ms(lambda: tp.sequence_parallel_apply(gen, mel), 5)
+        for name, gen in nsf_gens.items():
+            res[f"nsf_sp_ms_{name}"] = wall_ms(lambda: tp.sequence_parallel_apply(
+                gen, nsf_mel_, excitation=excitation[name]), 5)
     res["pp_ms"] = wall_ms(pipelined, 3)
     dist.barrier()
     mesh.destroy()
@@ -4391,11 +4566,33 @@ def tp_worker(rank: int, port: int, out: str) -> int:
         torch.equal(v, saved[k]) for k, v in plain.state_dict().items()))
     del ref_step, ref_model, plain, first
     torch.cuda.empty_cache()
+    for voice, got in voices.items():
+        v_args, fp_dict, _ = tp_voice_batch(voice, tmp)
+        v_step, _, _, _, v_seen = tp_am(None, None, voice, tmp, fp_dict)
+        loss = v_step(*v_args)["TotalLoss"].item()
+        got.update(plain_loss=loss, plain_norm=v_seen["norm"],
+                   loss_rel=abs(got["loss"] - loss) / abs(loss),
+                   norm_rel=abs(got["norm"] - v_seen["norm"]) / v_seen["norm"],
+                   plain_ms=wall_ms(lambda: v_step(*v_args), TP_VOICE_TIMED))
+        if voice == "bf16":  # its f32 twin is (a)'s one-process step
+            got["e_ref"] = abs(loss - ref_metrics["TotalLoss"])
+            got["gap_over_e_ref"] = abs(got["loss"] - loss) / got["e_ref"]
+        del v_step
+        torch.cuda.empty_cache()
     for causal, gen in gens.items():
         with torch.no_grad():
             want = gen(mel)
             res[f"sp_max_abs_err_{causal}"] = float((sp[causal] - want).abs().max())
             res[f"unsharded_ms_{causal}"] = wall_ms(lambda: gen(mel), 5)
+    for name, gen in nsf_gens.items():
+        with torch.no_grad():
+            want = gen(nsf_mel_, excitation=excitation[name])
+            for route, got in nsf_sp[name].items():
+                res[f"nsf_sp_max_abs_err_{name}_{route}"] = float((got - want).abs().max())
+            res[f"nsf_sp_routes_equal_{name}"] = bool(torch.equal(
+                nsf_sp[name]["given"], nsf_sp[name]["broadcast"]))
+            res[f"nsf_unsharded_ms_{name}"] = wall_ms(
+                lambda: gen(nsf_mel_, excitation=excitation[name]), 5)
     got_grads = pp_grads
 
     def sequential():
@@ -4443,8 +4640,11 @@ def tp_two_ranks(tmp: str, before_timing) -> dict:
             print(text, end="", flush=True)
             raise RuntimeError(f"tp worker {rank} exited {p.returncode}")
     res = [json.load(open(os.path.join(out, f"tp_rank{r}.json"))) for r in range(2)]
+    for voice, got in res[0]["voices"].items():
+        got["k1_launches"] = [r["voices"][voice]["k1_launches"] for r in res]
+        got["tp_ms_rank1"] = res[1]["voices"][voice]["tp_ms"]
     return dict(res[0], k1_launches=[r["k1_launches"] for r in res],
-                tp_ms_rank1=res[1]["tp_ms"], cli=before)
+                tp_ms_rank1=res[1]["tp_ms"], **before)
 
 
 def audited_train(argv) -> int:
@@ -4475,6 +4675,108 @@ def audited_train(argv) -> int:
     with open(f"{stage}.writes_rank{os.environ.get('RANK', '0')}.json", "w") as f:
         json.dump(writes, f)
     return 0
+
+
+def interrupted_train(argv) -> int:
+    """``--interrupted-train STAGE STEP ARGS``: ``train_sambert.main(ARGS)``
+    with a ``KeyboardInterrupt`` raised from the trainer on every rank as
+    step STEP starts, once rank 0 has saved the model state gathered there
+    to ``STAGE.gathered.pt`` and the wall time of the interrupt to
+    ``STAGE.interrupt_time`` ((f)). Exits 0 once the interrupt has gone
+    through ``train_sambert`` (its crash handler included)."""
+    import logging
+
+    import torch
+
+    from kantts_tpu_torch.bin import train_sambert
+    from kantts_tpu_torch.parallel import tp
+    from kantts_tpu_torch.train.trainer import SambertTrainer
+
+    stage, at, rest = os.path.abspath(argv[0]), int(argv[1]), argv[2:]
+    train_step = SambertTrainer.train_step
+
+    def interrupted(self, batch):
+        if self.steps == at:
+            state = {k: v.cpu() for k, v in tp.gather_state_dict(self.model).items()}
+            if os.environ.get("RANK", "0") == "0":
+                torch.save(state, f"{stage}.gathered.pt")
+                with open(f"{stage}.interrupt_time", "w") as f:
+                    f.write(repr(time.time()))
+            raise KeyboardInterrupt
+        return train_step(self, batch)
+
+    SambertTrainer.train_step = interrupted
+    logging.basicConfig(level=logging.INFO, force=True,
+                        format="%(asctime)s, %(levelname)-4s [%(filename)s:%(lineno)d] "
+                               "%(message)s")
+    try:
+        train_sambert.main(rest)
+    except KeyboardInterrupt:
+        return 0
+    raise AssertionError(f"train_sambert ran past step {at}")
+
+
+def tp_crash_cli(tmp: str):
+    """(f): F6 on the card. The tensor-parallel CLI under torchrun (two gloo
+    ranks on the card, B=32 on phase 4's corpus), started now, interrupted
+    on both ranks at ``TP_CRASH_STEP``. -> finish(), which checks the whole
+    crash checkpoint (no slice left, its bytes and seconds from the
+    interrupt to its landing, loaded plain bit-equal to the state gathered
+    at the interrupt), then resumes the CLI from it under
+    ``tensor_parallel: 2`` for step ``TP_CRASH_STEP`` + 1. -> its results."""
+    stage = os.path.join(tmp, "tp_crash")
+    corpus = os.path.join(tmp, "corpus")
+    env = dict(os.environ, KANTTS_DIST_BACKEND="gloo")
+    torchrun = ["-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2"]
+    cfg = train_config(os.path.join(tmp, "tp_crash_model.yaml"), **TP_KEYS)
+    crash_cli = Cli("tp_crash", [*torchrun, os.path.abspath(__file__), "--interrupted-train",
+                                 stage, str(TP_CRASH_STEP), "--model_config", cfg,
+                                 "--root_dir", corpus, "--stage_dir", stage], env=env)
+    return lambda: tp_crash_checks(tmp, stage, crash_cli, torchrun, env)
+
+
+def tp_crash_checks(tmp: str, stage: str, crash_cli, torchrun, env) -> dict:
+    """(f)'s checks once ``crash_cli`` has ended, and the resume."""
+    import torch
+
+    from kantts_tpu_torch.models.builder import load_checkpoint
+
+    corpus = os.path.join(tmp, "corpus")
+    crash_cli.result(timeout=300)
+    crash = os.path.join(stage, "ckpt", f"checkpoint-{TP_CRASH_STEP}.ckpt")
+    left = sorted(os.listdir(os.path.join(stage, "ckpt")))
+    if left != [os.path.basename(crash)]:
+        raise AssertionError(f"tp_crash left {left}")
+    with open(f"{stage}.interrupt_time") as f:
+        landed_s = os.path.getmtime(crash) - float(f.read())
+    gathered = torch.load(f"{stage}.gathered.pt", weights_only=True)
+    model, _ = load_checkpoint(crash, torch.device("cuda"))
+    state = model.state_dict()
+    bit_equal = state.keys() == gathered.keys() and all(
+        torch.equal(v.cpu(), gathered[k]) for k, v in state.items())
+    heads = model.text_encoder.ling_enc.fft[0].slf_attn.n_head
+    del model, state
+    with open(os.path.join(stage, "stdout.log")) as f:
+        joined = (f"Saved crash checkpoint at step {TP_CRASH_STEP}, joined from 2 slices"
+                  in f.read())
+    resumed = os.path.join(tmp, "tp_resume")
+    cfg = train_config(os.path.join(tmp, "tp_resume_model.yaml"), **dict(
+        TP_KEYS, train_max_steps=TP_CRASH_STEP + 1, save_interval_steps=TP_CRASH_STEP + 1,
+        eval_interval_steps=TP_CRASH_STEP + 1))
+    resume_cli = Cli("tp_resume", [*torchrun, "-m", "kantts_tpu_torch.bin.train_sambert",
+                                   "--model_config", cfg, "--root_dir", corpus,
+                                   "--stage_dir", resumed, "--resume_path", crash], env=env)
+    resume_cli.result(timeout=300)
+    with open(os.path.join(resumed, "stdout.log")) as f:
+        log_text = f.read()
+    res = dict(crash_bytes=os.path.getsize(crash), landed_s=round(landed_s, 3),
+               bit_equal=bit_equal, heads=heads, joined=joined,
+               resumed_at=f"Resumed from {crash} at step {TP_CRASH_STEP + 1}" in log_text,
+               resumed_ckpt=os.path.exists(ckpt_path(resumed, TP_CRASH_STEP + 1)),
+               crash_cli_s=round(crash_cli.seconds, 3), resume_cli_s=round(resume_cli.seconds, 3))
+    if not (bit_equal and joined and heads == 8 and res["resumed_at"] and res["resumed_ckpt"]):
+        raise AssertionError(f"tp_crash: {res}")
+    return res
 
 
 def tp_cli(tmp: str):
@@ -4514,19 +4816,46 @@ def tp_cli(tmp: str):
 
 
 def phase_model_parallel(tmp: str) -> dict:
-    """Phase 16: (b) the tensor-parallel CLI started, the checks of (a), (c)
-    and (d) on two ranks beside it, (b) checked, then (a), (c) and (d)
-    timed with the card to themselves. -> K1's launches in (a)'s steps and
-    the results."""
+    """Phase 16: (b) and (f)'s interrupted tensor-parallel CLIs started, the
+    checks of (a), (e), (c), (g) and (d) on two ranks beside them, (f)
+    checked and its resume run, (b) checked, then (a), (e), (c), (g) and
+    (d) timed with the card to themselves. -> K1's launches in the TP steps of (a) and
+    (e), and the results."""
     t_phase = time.perf_counter()
-    res = tp_two_ranks(tmp, tp_cli(tmp))
+    tp_voice_corpora(tmp)
+    finish_cli, finish_crash = tp_cli(tmp), tp_crash_cli(tmp)
+    res = tp_two_ranks(tmp, lambda: dict(crash=finish_crash(), cli=finish_cli()))
     seconds = time.perf_counter() - t_phase
+    nested = ("cli", "crash", "voices")
     log("model_parallel", seconds=round(seconds, 3),
         **{k: (round(v, 9) if isinstance(v, float) else v) for k, v in res.items()
-           if k != "cli"}, cli=json.dumps(res["cli"]).replace(" ", ""))
+           if k not in nested}, **{k: json.dumps(res[k]).replace(" ", "") for k in nested})
+    for voice, got in res["voices"].items():
+        log("tp_voice", voice=voice, **{k: (json.dumps(v).replace(" ", "")
+                                            if isinstance(v, (list, dict)) else v)
+                                        for k, v in got.items()})
     failures = []
     if 0 in res["k1_launches"]:
         failures.append(f"K1 did not launch in a rank's TP steps: {res['k1_launches']}")
+    for voice, got in res["voices"].items():
+        mas = voice != "fp" and voice != "se_nsf"
+        if got["k1_launches"] != [got["tp_steps"] if mas else 0] * 2:
+            failures.append(f"{voice}: K1 launched {got['k1_launches']} times in "
+                            f"{got['tp_steps']} TP steps a rank")
+        if got["k1_exact"] is not (True if mas else None):
+            failures.append(f"{voice}: K1 against b_mas_torch on the step's map: "
+                            f"{got['k1_exact']}")
+        if voice == "bf16":
+            close = got["gap_over_e_ref"] <= 0.5 and got["norm_rel"] <= 1e-3
+        else:
+            close = got["loss_rel"] <= 1e-5 and got["norm_rel"] <= 1e-5
+        if not (close and np.isfinite(got["loss"])):
+            failures.append(f"{voice}: the TP step is off the one-process step")
+    for name in NSF_SP:
+        if not all(res[f"nsf_sp_max_abs_err_{name}_{route}"] <= 1e-6
+                   for route in ("given", "broadcast")):
+            failures.append(f"NSF sequence-parallel vocoding of {name} is off the "
+                            "unsharded call")
     if not (res["loss_rel"] <= 1e-5 and res["grad_err_over_norm"] <= 1e-5
             and res["max_param_err"] <= 3e-4 and res["checkpoint_bit_equal"]):
         failures.append("the TP step is off the one-process step")
@@ -4536,7 +4865,8 @@ def phase_model_parallel(tmp: str) -> dict:
         failures.append("the pipelined encoder is off the sequential one")
     if failures:
         raise AssertionError("; ".join(failures))
-    return dict(res, k1_launches=sum(res["k1_launches"]), seconds=seconds)
+    return dict(res, k1_launches=sum(res["k1_launches"]) + sum(
+        sum(got["k1_launches"]) for got in res["voices"].values()), seconds=seconds)
 
 
 # ------------------------------------------------------------------ phase 14
@@ -5442,6 +5772,8 @@ def main(argv) -> int:
         return tp_worker(int(argv[1]), int(argv[2]), argv[3])
     if argv[:1] == ["--audited-train"]:
         return audited_train(argv[1:])
+    if argv[:1] == ["--interrupted-train"]:
+        return interrupted_train(argv[1:])
     smi = phase_device()
     phase_build()
     if argv[:1] == ["--k1-before"]:

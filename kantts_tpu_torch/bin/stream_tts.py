@@ -34,9 +34,21 @@ from kantts_tpu_torch.utils.audio import save_wav
 from kantts_tpu_torch.utils.device import resolve_device
 
 
+# The JAX StreamingTTS runs an NSF voice, but what it plays is a waveform no
+# other path of either package produces, so this port refuses it.
+NSF_REFUSAL = (
+    "streaming synthesis does not support NSF generators: the JAX "
+    "StreamingTTS feeds the vocoder the acoustic model's normalised f0/uv "
+    "channels (am_synthesis never calls denorm_f0, which text_to_wav and the "
+    "service apply), and each window restarts its harmonic source from "
+    "PRNGKey(0) with its phase reset, where the source is a whole-utterance "
+    "phase sum; use text_to_wav or TTSService for an NSF voice")
+
+
 class StreamingTTS:
     """Loaded pipeline on ``device``; synthesize() yields waveform chunks as
-    they become available."""
+    they become available. An NSF vocoder raises ``ValueError``
+    (``NSF_REFUSAL`` gives both reasons)."""
 
     def __init__(self, am_ckpt: str, voc_ckpt: str,
                  device: Union[str, torch.device] = "cuda"):
@@ -51,9 +63,7 @@ class StreamingTTS:
             raise ValueError("streaming synthesis requires a causal "
                              "generator config (hifigan_v1_*)")
         if self.voc_model.nsf_params is not None:
-            raise ValueError("streaming synthesis does not support NSF "
-                             "generators (the harmonic source phase is a "
-                             "whole-utterance cumsum)")
+            raise ValueError(NSF_REFUSAL)
         self.sampling_rate = (self.voc_config.get("audio_config", {})
                               .get("sampling_rate", 16000))
         self.hop = int(np.prod(self.voc_model.upsample_scales))

@@ -28,8 +28,13 @@ reads it, arranges the N ranks as a (N / K) x K grid when K divides N
 (otherwise it stays 1, and the log says so). The attention and FFN layers
 are sharded over each group of K ranks (``parallel/tp.py``), which see the
 same batch; ``batch_size`` is per data rank, and the global batch is
-``batch_size`` x N / K. Checkpoints hold the unsharded model. Ranks that
-share a card run over gloo (``KANTTS_DIST_BACKEND=gloo``).
+``batch_size`` x N / K. Checkpoints hold the unsharded model; the resume
+and the warm start load into it before it is sharded. A crash leaves
+``checkpoint-{steps}.ckpt`` as an unsharded run does, joined by rank 0 from
+each model rank's slice (``checkpoint-{steps}.rank{r}-of-{K}.ckpt``); when
+a rank left no slice, the slices stay and the log names the rank
+(``tp.join_slice_files`` joins them later). Ranks that share a card run
+over gloo (``KANTTS_DIST_BACKEND=gloo``).
 """
 
 from __future__ import annotations

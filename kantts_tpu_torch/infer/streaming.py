@@ -9,6 +9,15 @@ Latency is chunk_frames * hop / sr seconds.
 
 Every window has the same shape (context + chunk frames), so on the card
 one set of convolution algorithms serves every window of every utterance.
+
+NSF generators are not streamed here, where the JAX package streams them.
+Its ``StreamingTTS`` hands the vocoder the acoustic model's mel with the f0
+and uv channels still normalised (``am_synthesis`` does not denormalise;
+only ``am_infer``, ``text_to_wav`` and the service do), and its
+``stream_synthesis`` draws every window's source from ``PRNGKey(0)`` with
+the phase restarted, so the streamed waveform is neither the utterance's
+nor any other path's. The port's ``StreamingTTS`` refuses an NSF vocoder
+(``bin/stream_tts.py::NSF_REFUSAL``) rather than reproduce that.
 """
 
 from __future__ import annotations

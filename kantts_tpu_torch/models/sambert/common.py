@@ -20,14 +20,15 @@ and row-parallel ones (``TP_ROW``: input features split) and the count that
 is split (``tp_units``: heads or inner channels). Once sharded, ``tp`` holds
 the model group; the input of each column layer passes ``copy_to_model``
 and the partial products of the row layers are summed by
-``reduce_from_model`` before their bias is added, once. Without it (``tp``
-None) they compute exactly as before.
+``reduced_partials`` before their bias is added, once (under bf16 in
+float32, so that each product is rounded once, after the sum). Without it
+(``tp`` None) they compute exactly as before.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -60,12 +61,15 @@ class Linear(nn.Linear):
             return super().forward(x)
         return self.add_bias(self.partial(x))
 
-    def partial(self, x: torch.Tensor) -> torch.Tensor:
-        """The product without the bias, in the compute dtype."""
+    def partial(self, x: torch.Tensor, float32_sum: bool = False) -> torch.Tensor:
+        """The product without the bias, in the compute dtype; with
+        ``float32_sum`` its products of the operands rounded to the compute
+        dtype, summed and returned in float32 (``reduced_partials``)."""
         dt = self.compute_dtype
         if dt is None:
             return F.linear(x, self.weight)
-        return F.linear(x.to(dt), self.weight.to(dt))
+        x, w = x.to(dt), self.weight.to(dt)
+        return F.linear(x.float(), w.float()) if float32_sum else F.linear(x, w)
 
     def add_bias(self, y: torch.Tensor) -> torch.Tensor:
         return y if self.bias is None else y + self.bias.to(y.dtype)
@@ -93,10 +97,13 @@ class Conv1dBTC(nn.Conv1d):
                      self.padding, self.dilation, self.groups)
         return add_bias(y, self.bias).transpose(1, 2)
 
-    def partial(self, x: torch.Tensor) -> torch.Tensor:
-        """The convolution without the bias, in the compute dtype, (B, T, C)."""
+    def partial(self, x: torch.Tensor, float32_sum: bool = False) -> torch.Tensor:
+        """The convolution without the bias, in the compute dtype, (B, T, C);
+        ``float32_sum`` as ``Linear.partial``."""
         dt = self.compute_dtype
         x, w = (x, self.weight) if dt is None else (x.to(dt), self.weight.to(dt))
+        if dt is not None and float32_sum:
+            x, w = x.float(), w.float()
         return F.conv1d(x.transpose(1, 2), w, None, self.stride, self.padding,
                         self.dilation, self.groups).transpose(1, 2)
 
@@ -104,14 +111,27 @@ class Conv1dBTC(nn.Conv1d):
         return y if self.bias is None else y + self.bias.to(y.dtype)
 
 
+def reduced_partials(pairs, tp: ModelParallel) -> List[torch.Tensor]:
+    """The partial products of row-parallel ``(layer, x)`` pairs, each layer
+    holding its slice of the input features, summed over the model group in
+    one collective, each then in its layer's compute dtype. Under bf16 a
+    rank's share is the float32 sum of the rounded operands' products
+    (``partial(x, float32_sum=True)``), so the whole product is rounded to
+    bf16 once, after the sum, as the unsharded layer rounds it; summing
+    bf16 shares would round twice."""
+    parts = [layer.partial(x, float32_sum=True) for layer, x in pairs]
+    summed = reduce_from_model(torch.stack(parts), tp)
+    return [y if layer.compute_dtype is None else y.to(layer.compute_dtype)
+            for y, (layer, _) in zip(summed, pairs)]
+
+
 def row_parallel(layer, x: torch.Tensor, tp: Optional[ModelParallel]) -> torch.Tensor:
-    """``layer(x)`` (a ``Linear`` or ``Conv1dBTC``); sharded (``tp``), the
-    layer holds its slice of the input features, so its partial product is
-    summed over the model group and the bias, which every rank holds whole,
-    is added after."""
+    """``layer(x)`` (a ``Linear`` or ``Conv1dBTC``); sharded (``tp``), its
+    partial product is summed over the model group (``reduced_partials``)
+    and the bias, which every rank holds whole, is added after."""
     if tp is None:
         return layer(x)
-    return layer.add_bias(reduce_from_model(layer.partial(x), tp))
+    return layer.add_bias(reduced_partials([(layer, x)], tp)[0])
 
 
 def conv1d_same(in_channels: int, out_channels: int, kernel_size: int,

@@ -32,11 +32,12 @@ from kantts_tpu_torch.models.sambert.common import (
     Prenet,
     masked_zero,
     merge_heads,
+    reduced_partials,
     scaled_dot_attention,
     split_heads,
     torch_linear,
 )
-from kantts_tpu_torch.parallel.tp import ModelParallel, copy_to_model, reduce_from_model
+from kantts_tpu_torch.parallel.tp import ModelParallel, copy_to_model
 from kantts_tpu_torch.utils.precision import Dtype, weak_scalar
 
 
@@ -91,9 +92,9 @@ class MultiHeadPNCAAttention(nn.Module):
         if self.tp is None:
             out = self.fc_x(merge_heads(out_x)) + self.fc_h(merge_heads(out_h))
         else:
-            out = reduce_from_model(self.fc_x.partial(merge_heads(out_x))
-                                    + self.fc_h.partial(merge_heads(out_h)), self.tp)
-            out = self.fc_h.add_bias(self.fc_x.add_bias(out))
+            y_x, y_h = reduced_partials([(self.fc_x, merge_heads(out_x)),
+                                         (self.fc_h, merge_heads(out_h))], self.tp)
+            out = self.fc_x.add_bias(y_x) + self.fc_h.add_bias(y_h)
         return (self.drop(out) + x_t).to(x_t.dtype)
 
     def _qkv(self, x):

@@ -14,7 +14,9 @@ model_index) and the sharding is explicit, Megatron's pattern:
 - a **row-parallel** layer (``_ROW_LAYERS``: ``fc``, ``fc_x``, ``fc_h``,
   ``w_2``) holds the matching slice of its input features; its partial
   product passes ``reduce_from_model`` (summed over the model group forward,
-  identity backward), then its whole bias is added once;
+  identity backward; under bf16 in float32, rounded once after the sum:
+  ``sambert/common.py::reduced_partials``), then its whole bias is added
+  once;
 - both only inside ``_TP_SCOPES`` (``slf_attn``, ``pnca_attn``, ``pos_ffn``,
   ``fsmn``), leaf for leaf as ``_tp_spec`` picks them; everything else is
   replicated, and the data-parallel collectives go over the data group.
@@ -36,6 +38,13 @@ loads into a sharded model through ``shard_state_dict`` /
 parameters (``make_clip``). Adam's moments are sharded with their
 parameters, so its update stays local.
 
+A crash cannot gather: a rank that failed alone cannot join a collective,
+and a rank still inside one never reaches its handler. So each rank of the
+first model group writes its own slice with no collective (``local_slice``,
+to ``slice_path``), and rank 0 joins the slice files into the whole
+checkpoint (``join_slice_files``, ``join_slices``: the ``join`` that
+``gather_state_dict`` uses), or leaves them when one is missing.
+
 Sequence parallelism (``sequence_parallel_apply``): one utterance's
 generator forward with its mel split along time over a group. Where XLA
 partitions every conv and exchanges halos at each of the generator's 104
@@ -47,6 +56,8 @@ receptive field (``time_sharded``), trims, and the pieces meet in one
 from __future__ import annotations
 
 import logging
+import os
+import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -316,6 +327,88 @@ def shard_optimizer_state(sd: Dict, optimizer: torch.optim.Optimizer,
                         if torch.is_tensor(v) and v.shape == full else v)
                     for k, v in entry.items()}
     return {**sd, "state": state}
+
+
+# ------------------------------------------------------------- crash slices
+
+
+def slice_path(path: str, index: int, size: int) -> str:
+    """Where rank ``index`` of a model group of ``size`` writes its slice of
+    the whole checkpoint ``path``: ``checkpoint-7.ckpt`` ->
+    ``checkpoint-7.rank1-of-2.ckpt``."""
+    root, ext = os.path.splitext(path)
+    return f"{root}.rank{index}-of-{size}{ext}"
+
+
+def local_slice(model: nn.Module, optimizer: torch.optim.Optimizer) -> Dict:
+    """This rank's share of a sharded model's training state, taken with no
+    collective: its model and optimizer state dicts (live tensors), the plan
+    as tuples, the parameter name of each sharded optimizer entry, and its
+    index in the model group."""
+    tp = model.tensor_parallel
+    names = {id(p): k for k, p in model.named_parameters()}
+    return dict(model=model.state_dict(), optimizer=optimizer.state_dict(),
+                plan={k: (s.kind, s.dim, s.chunks) for k, s in tp.plan.items()},
+                optimizer_plan={i: names[id(p)] for i, (p, _) in
+                                _sharded_params(optimizer, model).items()},
+                index=tp.mp.index)
+
+
+def join_slices(slices: List[Dict]) -> Tuple[Dict[str, torch.Tensor], Dict]:
+    """The whole model and optimizer state dicts from every rank's
+    ``local_slice``, joined as ``gather_state_dict`` and
+    ``gather_optimizer_state`` join the gathered pieces, so bit for bit what
+    they return at the same step."""
+    slices = sorted(slices, key=lambda s: s["index"])
+    first = slices[0]
+    plan = {k: Shard(*v) for k, v in first["plan"].items()}
+    model = {k: (join([s["model"][k] for s in slices], plan[k]) if k in plan else v)
+             for k, v in first["model"].items()}
+    sd = first["optimizer"]
+    state = {}
+    for i, entry in sd["state"].items():
+        key = first["optimizer_plan"].get(i)
+        if key is None:
+            state[i] = entry
+            continue
+        shape = first["model"][key].shape
+        state[i] = {k: (join([s["optimizer"]["state"][i][k] for s in slices], plan[key])
+                        if torch.is_tensor(v) and v.shape == shape else v)
+                    for k, v in entry.items()}
+    return model, {**sd, "state": state}
+
+
+def join_slice_files(path: str, size: int, timeout: float = 0.0,
+                     steps: Optional[int] = None, config: Optional[Dict] = None
+                     ) -> Optional[Dict]:
+    """The whole checkpoint payload of ``path`` from its ``size`` slice
+    files, waiting up to ``timeout`` seconds for them to appear (each lands
+    whole: ``write_checkpoint`` renames it into place). Each slice must hold
+    ``steps`` and ``config`` where they are given, so that slices of another
+    run or step are not joined. -> the payload (``model``, ``config``,
+    ``optimizer``, ``scheduler``, ``steps``), or None with a log line naming
+    the ranks whose slice is missing or does not agree."""
+    paths = [slice_path(path, r, size) for r in range(size)]
+    deadline = time.monotonic() + timeout
+    while not all(os.path.exists(p) for p in paths) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    slices, bad = [], []
+    for r, p in enumerate(paths):
+        s = torch.load(p, map_location="cpu", weights_only=True) if os.path.exists(p) else None
+        if s is None:
+            bad.append(f"rank {r} (no slice)")
+        elif (steps is not None and s["steps"] != steps) or (
+                config is not None and s["config"] != config):
+            bad.append(f"rank {r} (a slice of another run or step)")
+        slices.append(s)
+    if bad:
+        logging.error("cannot join %s: %s; the slices present are left as they are",
+                      os.path.basename(path), "; ".join(bad))
+        return None
+    model, optimizer = join_slices(slices)
+    first = slices[0]
+    return {"model": model, "config": first["config"], "optimizer": optimizer,
+            "scheduler": first["scheduler"], "steps": first["steps"]}
 
 
 def make_clip(model: nn.Module, max_norm: float) -> Callable[[], torch.Tensor]:

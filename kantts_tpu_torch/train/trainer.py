@@ -32,8 +32,14 @@ on every rank; rank 0 alone writes checkpoints and intermediate results and
 logs. Under tensor parallelism (``parallel/tp.py``) a SAM-BERT checkpoint is
 the gathered, unsharded state, so every rank takes part in a save and rank 0
 writes it; the evaluation runs on the sharded model, and its intermediate
-results on rank 0 from a plain copy loaded with the gathered state; a crash
-leaves no checkpoint (the gather needs every rank). With ``KANTTS_TRAIN_PROFILE=1`` rank 0 also logs, at each log
+results on rank 0 from a plain copy loaded with the gathered state. A crash
+cannot gather (a rank that failed alone cannot join a collective), so each
+rank of the first model group writes its slice and rank 0 joins the slices
+into the same whole ``checkpoint-{steps}.ckpt``; when a slice does not come
+within ``crash_join_seconds`` the slices stay, with a log line
+(``SambertTrainer.save_crash_checkpoint``).
+
+With ``KANTTS_TRAIN_PROFILE=1`` rank 0 also logs, at each log
 interval, the wall seconds of the loop's phases: loader wait, device put,
 step (the host's dispatch, and its waits on the device), eval, save and log
 (the one host sync of the interval), and the collectives' seconds inside
@@ -94,25 +100,14 @@ def stamped_config(config: Dict[str, Any], stage_dir: str) -> Dict[str, Any]:
 
 
 def run(trainer: "Trainer") -> "Trainer":
-    """``trainer.train()``; on a failure rank 0 lets the pending
-    asynchronous writes land, then saves ``checkpoint-{steps}.ckpt``
-    synchronously, before the error goes on."""
+    """``trainer.train()``; on a failure the crash checkpoint
+    ``checkpoint-{steps}.ckpt`` goes out (``save_crash_checkpoint``) before
+    the error goes on."""
     try:
         trainer.train()
     except (Exception, KeyboardInterrupt):
         logging.exception("training failed at step %d", trainer.steps)
-        if trainer.collective_payload():
-            logging.error("no crash checkpoint: a tensor-parallel state is saved "
-                          "gathered over the model group, which a failed run "
-                          "cannot promise")
-        elif is_primary():
-            try:
-                trainer.wait_for_checkpoints()
-            except Exception:  # logged; the crash checkpoint still goes out
-                logging.exception("a pending checkpoint write failed")
-            trainer.save_checkpoint(
-                os.path.join(trainer.ckpt_dir, f"checkpoint-{trainer.steps}.ckpt"))
-            logging.info("Saved crash checkpoint at step %d", trainer.steps)
+        trainer.save_crash_checkpoint()
         raise
     return trainer
 
@@ -279,6 +274,8 @@ def batch_to_device(batch: Dict[str, Any], device: torch.device
 class Trainer:
     """Step-driven loop with interval-gated eval, save and log."""
 
+    crash_join_seconds = 10.0  # rank 0's wait for the other ranks' crash slices
+
     def __init__(self, config: Dict[str, Any], train_loader, valid_loader,
                  save_dir: str, device: torch.device, max_steps=None,
                  save_interval: int = 1, valid_interval: int = 1,
@@ -384,6 +381,26 @@ class Trainer:
         """Whether ``checkpoint_payload`` is a collective (a tensor-parallel
         model's gather), which every rank must call."""
         return False
+
+    def crash_path(self) -> str:
+        return os.path.join(self.ckpt_dir, f"checkpoint-{self.steps}.ckpt")
+
+    def drain_checkpoint_writes(self) -> None:
+        """Let the pending asynchronous writes land before a crash save; a
+        failed one is logged, and the crash save still goes out."""
+        try:
+            self.wait_for_checkpoints()
+        except Exception:
+            logging.exception("a pending checkpoint write failed")
+
+    def save_crash_checkpoint(self) -> None:
+        """Rank 0 drains the asynchronous writes, then saves
+        ``crash_path()`` synchronously. No collective runs here: a rank that
+        failed alone cannot join one."""
+        if is_primary():
+            self.drain_checkpoint_writes()
+            self.save_checkpoint(self.crash_path())
+            logging.info("Saved crash checkpoint at step %d", self.steps)
 
     def check_save_interval(self):
         if not (self.steps % self.save_interval == 0 or self.steps == self.max_steps):
@@ -561,6 +578,41 @@ class SambertTrainer(Trainer):
 
     def collective_payload(self) -> bool:
         return tp.is_sharded(self.model)
+
+    def save_crash_checkpoint(self) -> None:
+        """Sharded, with no collective: each rank of the first model group
+        writes its slice (``tp.local_slice`` with the schedule, the step and
+        the config) beside ``crash_path()``; rank 0, its asynchronous writes
+        drained first, waits up to ``crash_join_seconds`` for the others'
+        slices of this step and run, joins them into ``crash_path()`` (the
+        gathered state an interval save holds) and removes them. When one
+        is missing or disagrees it logs which and leaves the slices, and no
+        whole file is written."""
+        if not tp.is_sharded(self.model):
+            return super().save_crash_checkpoint()
+        grid = self.model.tensor_parallel.grid
+        if grid.data_index != 0:  # the other data ranks hold the same state
+            return
+        primary = is_primary()
+        if primary:
+            self.drain_checkpoint_writes()
+        path = self.crash_path()
+        mine = tp.slice_path(path, grid.model_index, grid.n_model)
+        write_checkpoint(host_copy(dict(
+            tp.local_slice(self.model, self.optimizer), config=self.config,
+            scheduler=self.scheduler.state_dict(), steps=self.steps)), mine)
+        logging.info("Saved crash slice %s at step %d", os.path.basename(mine), self.steps)
+        if not primary:
+            return
+        payload = tp.join_slice_files(path, grid.n_model, self.crash_join_seconds,
+                                      self.steps, self.config)
+        if payload is None:
+            return
+        write_checkpoint(payload, path)
+        for r in range(grid.n_model):
+            os.remove(tp.slice_path(path, r, grid.n_model))
+        logging.info("Saved crash checkpoint at step %d, joined from %d slices",
+                     self.steps, grid.n_model)
 
     def intermediate_result(self, batch, out=None):
         """Sharded, the model group gathers the state and rank 0 draws from a

@@ -443,3 +443,25 @@ def test_text_to_wav_nsf_cli(nsf_models, tmp_path):
         utt = os.path.basename(path)[:-len(".wav")]
         frames = np.load(out / "feat" / f"{utt}.npy").shape[0]
         assert wavfile.read(path)[1].shape[0] == frames * HOP
+
+
+def test_streaming_tts_refuses_nsf_and_says_why(nsf_models):
+    """``StreamingTTS`` on an NSF vocoder raises ``ValueError`` naming both
+    reasons, which the JAX sources still show: its ``StreamingTTS`` hands
+    ``am_synthesis``'s mel, f0/uv still normalised, to the vocoder, and its
+    ``stream_synthesis`` restarts every window's source from
+    ``PRNGKey(0)``."""
+    import inspect
+
+    from kantts_tpu.bin import stream_tts as j_stream_tts
+    from kantts_tpu.infer import streaming as j_streaming
+    from kantts_tpu_torch.bin.stream_tts import NSF_REFUSAL, StreamingTTS
+
+    with pytest.raises(ValueError) as err:
+        StreamingTTS(nsf_models["am_ckpt"], nsf_models["voc_ckpt"], device="cpu")
+    assert str(err.value) == NSF_REFUSAL
+    assert "denorm_f0" in NSF_REFUSAL and "PRNGKey(0)" in NSF_REFUSAL
+    synthesize = inspect.getsource(j_stream_tts.StreamingTTS.synthesize)
+    assert "am_synthesis" in synthesize and "denorm_f0" not in synthesize
+    assert "denorm_f0" not in inspect.getsource(j_stream_tts)
+    assert "PRNGKey(0)" in inspect.getsource(j_streaming.stream_synthesis)

@@ -24,6 +24,18 @@ on the CPU over gloo, at TINY widths, against the JAX package.
   with ``tensor_parallel: 2`` trains as the plain CLI does (parameters atol
   3e-4), rank 1 writes nothing, and its checkpoint goes through the JAX
   bridge as a plain one does.
+- The plan equals ``tp_shardings`` at every SAM-BERT config's published
+  widths. One tensor-parallel step of each voice the JAX CLI shards (bf16,
+  byte, FP, SE + NSF, the Textsy-BERT warm start) against the JAX step and
+  the port's plain step: float32 as above, bf16 within 0.5 e_ref of JAX bf16
+  (``tests/test_torch_port_bf16.py``'s bound).
+- A crash under tensor parallelism (both ranks interrupted at step k)
+  leaves the whole ``checkpoint-{k}.ckpt``, bit-equal to the gathered state,
+  and a resume from it runs step k + 1; a missing slice leaves no whole
+  file within the join's timeout.
+- Sequence-parallel vocoding of a tiny NSF generator, causal and not, with
+  its source given and broadcast from rank 0, against the JAX generator on
+  the whole utterance, atol 1e-5.
 
 The two processes run this file as a script (``worker``), which imports no
 JAX; the test process runs the JAX side while they work.
@@ -43,23 +55,35 @@ import torch
 import yaml
 
 from kantts_tpu_torch.bin import train_sambert
+from kantts_tpu_torch.data import dataset as tdata
 from kantts_tpu_torch.losses import criterion_builder
-from kantts_tpu_torch.models.builder import load_checkpoint, sambert_model_builder
+from kantts_tpu_torch.models.builder import (
+    load_checkpoint,
+    sambert_model_builder,
+    sambert_params,
+    save_checkpoint,
+    sybert_model_builder,
+)
 from kantts_tpu_torch.models.hifigan.generator import Generator
 from kantts_tpu_torch.models.sambert.sambert import SelfAttentionEncoder
 from kantts_tpu_torch.parallel import mesh, pp, tp
 from kantts_tpu_torch.train.steps import make_sambert_step
-from kantts_tpu_torch.utils.corpus import write_mas_corpus
+from kantts_tpu_torch.train.trainer import SambertTrainer, load_sambert_encoder_from_sybert
+from kantts_tpu_torch.utils.config import load_merged_config, load_yaml
+from kantts_tpu_torch.utils.corpus import write_fp_corpus, write_mas_corpus
 from test_torch_port_ddp import (
+    CONFIGS,
     SAMBERT_TINY,
     SHARDS,
     _free_port,
     _no_dropout,
+    _pad,
     _tensors,
     sambert_batch,
     sambert_config,
     sambert_items,
     sambert_lengths,
+    sybert_config,
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -120,9 +144,131 @@ def sp_mel():
                             .astype(np.float32))
 
 
+# --------------------------------------------------------------- the voices
+
+SE_UNITS = 8  # SAMBERT_TINY's speaker_units
+VOICES = {  # name: (config, SAMBERT_TINY overrides, top-level keys)
+    "bf16": ("sambert_16k_MAS", {}, {"mixed_precision": True}),
+    "byte": ("sambert_16k_MAS_byte", {"using_byte": True}, {}),
+    "fp": ("sambert_fp_8k", {"FP": True, "MAS": False, "fp_dropout": 0.0}, {}),
+    "se_nsf": ("sambert_se_nsf_global_16k",
+               {"MAS": False, "NSF": True, "SE": True, "num_mels": 82,
+                "nsf_norm_type": "global"}, {}),
+    "warm": ("sambert_16k_MAS", {}, {}),  # the encoder from a Textsy-BERT checkpoint
+}
+
+
+def voice_config(voice):
+    """The voice's published config at SAMBERT_TINY widths, every dropout at
+    0, grad_norm 0.1 (the clip acts on the first step), with its own Loss
+    section and linguistic unit."""
+    name, overrides, top = VOICES[voice]
+    cfg = load_yaml(os.path.join(CONFIGS, f"{name}.yaml"))
+    params = dict(SAMBERT_TINY, **overrides)
+    params.update({k: 0.0 for k in params if "dropout" in k})
+    cfg["Model"]["KanTtsSAMBERT"]["params"] = params
+    cfg.update(grad_norm=0.1, num_workers=0, **top)
+    return cfg
+
+
+def voice_batch(voice, fp_corpus):
+    """-> (a numpy batch of the voice, its fp_dict_lings or None). MAS
+    voices: ``sambert_items``' lengths, bytes (B, T, 1) for the byte voice.
+    SE + NSF: token durations and prosody, 82 mel channels and a speaker
+    embedding per token up to its length, as the SE loader gives them. FP:
+    the port's collate of ``fp_corpus``'s training set."""
+    cfg = voice_config(voice)
+    params = sambert_params(cfg)
+    if params.get("FP"):
+        config = load_merged_config(fp_corpus, os.path.join(CONFIGS, "sambert_fp_8k.yaml"))
+        config["Model"]["KanTtsSAMBERT"]["params"] = params
+        train, _ = tdata.get_am_datasets([os.path.join(fp_corpus, "raw_metafile.txt")],
+                                         [fp_corpus], config, input_bucket=8,
+                                         frame_bucket=12)
+        return train.collate_fn([train[i] for i in range(len(train))]), train.fp_dict_lings
+    if params["MAS"]:
+        items = sambert_items(voice_config("warm"))
+        if params.get("using_byte"):  # bytes, and the byte unit's emotions and speakers
+            rng = np.random.RandomState(9)
+            for it in items:
+                n = len(it["emo"])
+                it.update(ling=rng.randint(1, params["byte_index"], (n, 1)),
+                          emo=rng.randint(1, params["emotion"], n),
+                          spk=rng.randint(1, params["speaker"], n))
+        return sambert_batch(items, sambert_lengths(items)), None
+    rng = np.random.RandomState(4)
+    in_lens, out_lens = np.array([12, 9, 10, 7, 5]), np.array([36, 30, 33, 20, 17])
+    B, T_in, T_mel = len(in_lens), int(in_lens.max()), int(out_lens.max())
+    durs = np.zeros((B, T_in), np.float32)
+    for b, (n, m) in enumerate(zip(in_lens, out_lens)):
+        durs[b, :n] = 1 + rng.multinomial(m - n, np.full(n, 1.0 / n))
+        if n < T_in:
+            durs[b, n] = T_mel - m
+    se = rng.randn(SE_UNITS).astype(np.float32)
+    return dict(
+        input_lings=np.stack([rng.randint(1, params[k], (B, T_in)) for k in
+                              ("sy", "tone", "syllable_flag", "word_segment")], -1),
+        input_emotions=rng.randint(1, params["emotion"], (B, T_in)),
+        input_speakers=np.where((np.arange(T_in)[None] <= in_lens[:, None])[..., None],
+                                se, 0.0).astype(np.float32),
+        valid_input_lengths=in_lens, valid_output_lengths=out_lens,
+        mel_targets=_pad([rng.randn(m, params["num_mels"]).astype(np.float32)
+                          for m in out_lens], T_mel),
+        pitch_contours=np.abs(rng.randn(B, T_in)).astype(np.float32),
+        energy_contours=np.abs(rng.randn(B, T_in)).astype(np.float32),
+        durations=durs), None
+
+
+def voice_tensors(batch):
+    return {k: (tuple(torch.from_numpy(a) for a in v) if isinstance(v, tuple)
+                else torch.from_numpy(np.asarray(v)))
+            for k, v in batch.items() if v is not None}
+
+
+def voice_model(voice, outdir):
+    """The seeded model of the voice, dropout off; the warm start copies
+    the Textsy-BERT encoder in first, as ``train_sambert`` does before it
+    shards. -> (built, the names copied)."""
+    built = seeded_sambert(voice_config(voice))
+    copied = []
+    if voice == "warm":
+        copied = load_sambert_encoder_from_sybert(built["model"],
+                                                  os.path.join(outdir, "bert.ckpt"))
+    return built, copied
+
+
+# NSF generators for sequence parallelism: tests/test_torch_port_nsf.py::
+# nsf_generator_cfg (held equal in test_nsf_sequence_parallel_matches_jax)
+NSF_GEN = dict(in_channels=80, out_channels=1, channels=32, kernel_size=7,
+               upsample_scales=(4, 4), upsample_kernal_sizes=(8, 8),
+               resblock_kernel_sizes=(3, 7), resblock_dilations=((1, 3), (1, 3, 5)),
+               nonlinear_activation="LeakyReLU",
+               nonlinear_activation_params={"negative_slope": 0.1},
+               nsf_params={"nb_harmonics": 7, "sampling_rate": 16000})
+NSF_FRAMES = 60  # chunks of 30 frames, each under a wider window
+NSF_DRAW = 11  # the seed of the source's draws
+
+
+def nsf_sp_cfg(causal):
+    return dict(NSF_GEN, causal=causal)
+
+
+def nsf_sp_mel():
+    """(1, NSF_FRAMES, 82): a random mel, f0 of 80-300 Hz, uv 0/1."""
+    rng = np.random.RandomState(12)
+    mel = rng.randn(1, NSF_FRAMES, 82).astype(np.float32)
+    mel[..., -2] = rng.uniform(80.0, 300.0, (1, NSF_FRAMES))
+    mel[..., -1] = (rng.rand(1, NSF_FRAMES) > 0.3).astype(np.float32)
+    return torch.from_numpy(mel)
+
+
+def nsf_excitation(gen, mel):
+    return gen(mel, excitation_only=True, generator=torch.Generator().manual_seed(NSF_DRAW))
+
+
 def cli_config(path, **keys):
-    cfg = config(batch_size=4, train_max_steps=2, save_interval_steps=2,
-                 eval_interval_steps=2, log_interval_steps=1, **keys)
+    cfg = config(**dict(dict(batch_size=4, train_max_steps=2, save_interval_steps=2,
+                             eval_interval_steps=2, log_interval_steps=1), **keys))
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
@@ -175,12 +321,107 @@ def grid_step(name, outdir):
     return out
 
 
+def voice_step(voice, grid, outdir):
+    """One train step of the voice on the 1 x 2 grid from the seeded (or
+    warm-started) weights, sharded after the warm start as ``train_sambert``
+    shards. -> the metrics, the gathered state after the step, the whole
+    pre-clip gradients and norm, and for the warm start whether each copied
+    tensor arrived as this rank's slice of the Textsy-BERT tensor."""
+    cfg = voice_config(voice)
+    built, copied = voice_model(voice, outdir)
+    model = built["model"]
+    tp.shard_module(model, grid, built["optimizer"])
+    out = {}
+    if copied:
+        bert = torch.load(os.path.join(outdir, "bert.ckpt"), weights_only=True)["model"]
+        plan, own = model.tensor_parallel.plan, model.state_dict()
+        out["warm"] = dict(copied=len(copied), sliced=sum(k in plan for k in copied),
+                           equal=all(torch.equal(own[k], tp.split(bert[k], plan[k], 2,
+                                                                  grid.model_index)
+                                                 if k in plan else bert[k])
+                                     for k in copied))
+    clip, seen = tp.make_clip(model, cfg["grad_norm"]), {}
+
+    def recorded_clip():
+        seen["grads"] = tp.gather_grads(model)
+        seen["norm"] = float(clip())
+
+    batch, fp_dict = torch.load(os.path.join(outdir, "voices.pt"), weights_only=False)[voice]
+    step = make_sambert_step(model, criterion_builder(cfg), built["optimizer"],
+                             built["scheduler"], recorded_clip, sambert_params(cfg)["MAS"],
+                             fp_dict_lings=None if fp_dict is None else torch.from_numpy(fp_dict),
+                             group=grid.data_group)
+    metrics = step(voice_tensors(batch), EPOCH)
+    out.update(metrics={k: float(v) for k, v in metrics.items()}, grads=seen["grads"],
+               norm=seen["norm"], state=copy.deepcopy(tp.gather_state_dict(model)))
+    return out
+
+
+CRASH_STEP = 3  # the step both ranks are interrupted at
+
+
+def crash_runs(rank, outdir, data):
+    """F6: ``train_sambert.train`` with ``tensor_parallel: 2``, warm-started
+    from the Textsy-BERT checkpoint, interrupted on both ranks at
+    ``CRASH_STEP`` (a ``KeyboardInterrupt`` from the step), with the state
+    gathered there; a resume from the crash checkpoint; then the interrupt
+    again with rank 1 writing no slice and rank 0 waiting 2 s. -> what
+    each run saw."""
+    seen = {"steps": []}
+    step_fn, save_crash = SambertTrainer.train_step, SambertTrainer.save_crash_checkpoint
+
+    def interrupted(self, batch):
+        seen["steps"].append(self.steps)
+        if seen.get("interrupt") and self.steps == CRASH_STEP:
+            seen["gathered"] = copy.deepcopy(dict(
+                model=tp.gather_state_dict(self.model),
+                optimizer=tp.gather_optimizer_state(self.optimizer, self.model)))
+            seen["t0"] = time.perf_counter()
+            raise KeyboardInterrupt
+        return step_fn(self, batch)
+
+    def interrupted_run(stage, **kw):
+        seen.update(interrupt=True, steps=[])
+        try:
+            train_sambert.train(os.path.join(outdir, "crash", "model.yaml"), data, stage,
+                                device="cpu", **kw)
+        except KeyboardInterrupt:
+            return time.perf_counter() - seen["t0"]
+        raise AssertionError("the run was not interrupted")
+
+    out = {}
+    SambertTrainer.train_step = interrupted
+    try:
+        stage = os.path.join(outdir, "crash_stage")
+        out["handler_s"] = interrupted_run(
+            stage, resume_bert_path=os.path.join(outdir, "bert.ckpt"))
+        out["gathered"] = seen["gathered"]
+        seen.update(interrupt=False, steps=[])
+        resumed = train_sambert.train(
+            os.path.join(outdir, "crash", "model.yaml"), data,
+            os.path.join(outdir, "crash_resume_stage"),
+            resume_path=os.path.join(stage, "ckpt", f"checkpoint-{CRASH_STEP}.ckpt"),
+            device="cpu")
+        out["resumed_steps"] = list(seen["steps"])
+        out["resumed_taken"] = resumed.steps_taken
+        SambertTrainer.crash_join_seconds = 2.0
+        if rank == 1:  # a rank that dies before its handler runs
+            SambertTrainer.save_crash_checkpoint = lambda self: None
+        out["missing_handler_s"] = interrupted_run(os.path.join(outdir, "crash_missing"))
+    finally:
+        SambertTrainer.train_step, SambertTrainer.save_crash_checkpoint = step_fn, save_crash
+        SambertTrainer.crash_join_seconds = 10.0
+    return out
+
+
 def worker(rank: int, port: int, outdir: str, data: str) -> None:
     torch.set_num_threads(1)
     os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),
                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
     mesh.distributed_init("cpu")
     results = {name: grid_step(name, outdir) for name in GRIDS}
+    grid = mesh.make_mesh_2d(1, 2)
+    results["voices"] = {voice: voice_step(voice, grid, outdir) for voice in VOICES}
 
     ready = os.path.join(outdir, "generators_ready")
     while not os.path.exists(ready):  # the test process writes them meanwhile
@@ -189,6 +430,13 @@ def worker(rank: int, port: int, outdir: str, data: str) -> None:
         gen = Generator(**sp_generator_cfg(causal)).eval()
         gen.load_state_dict(torch.load(os.path.join(outdir, f"gen_{causal}.pt")))
         results[f"sp_{causal}"] = tp.sequence_parallel_apply(gen, sp_mel())
+        nsf = Generator(**nsf_sp_cfg(causal)).eval()
+        nsf.load_state_dict(torch.load(os.path.join(outdir, f"nsf_gen_{causal}.pt")))
+        mel = nsf_sp_mel()
+        results[f"nsf_sp_{causal}"] = dict(
+            given=tp.sequence_parallel_apply(nsf, mel, excitation=nsf_excitation(nsf, mel)),
+            broadcast=tp.sequence_parallel_apply(
+                nsf, mel, rng=torch.Generator().manual_seed(NSF_DRAW)))
 
     enc = port_encoder()
     x, mask = encoder_inputs()
@@ -205,6 +453,8 @@ def worker(rank: int, port: int, outdir: str, data: str) -> None:
     results["pp"] = dict(out=out.detach(), grads=grads, stage=pipe.stage,
                          x_grad=None if x.grad is None else x.grad.clone())
 
+    logging.basicConfig(level=logging.INFO, force=True)  # as the CLI's __main__ sets it
+    results["crash"] = crash_runs(rank, outdir, data)
     if rank == 0:
         torch.save(results, os.path.join(outdir, "results.pt"))
     stage = os.path.join(outdir, "cli_stage")
@@ -219,7 +469,6 @@ def worker(rank: int, port: int, outdir: str, data: str) -> None:
             if isinstance(path, str) and os.path.abspath(path).startswith(stage + os.sep):
                 writes.append(f"{event} {os.path.relpath(path, stage)}")
 
-    logging.basicConfig(level=logging.INFO, force=True)  # as the CLI's __main__ sets it
     sys.addaudithook(audit)
     train_sambert.main(["--model_config", os.path.join(outdir, "tp", "model.yaml"),
                         "--root_dir", data, "--stage_dir", stage, "--device", "cpu"])
@@ -280,7 +529,16 @@ def workers(tmp_path_factory):
     write_mas_corpus(data, 8, (6, 10), (24, 40), seed=0)
     cli_config(str(outdir / "tp" / "model.yaml"), tensor_parallel=2)
     cli_config(str(outdir / "plain" / "model.yaml"))
+    cli_config(str(outdir / "crash" / "model.yaml"), train_max_steps=CRASH_STEP + 1,
+               tensor_parallel=2, save_interval_steps=100, eval_interval_steps=100)
+    fp_corpus = str(outdir / "fp_corpus")
+    write_fp_corpus(fp_corpus, 12, (5, 9), (30, 50), seed=3)
+    save_checkpoint(str(outdir / "bert.ckpt"), sybert_model_builder(sybert_config(), 1)["model"],
+                    sybert_config())
+    voices = {voice: voice_batch(voice, fp_corpus) for voice in VOICES}
+    torch.save(voices, str(outdir / "voices.pt"))
     running = Workers(str(outdir), data)
+    running.voices = voices
     jax_gens = {}
     for causal in (True, False):
         cfg = sp_generator_cfg(causal)
@@ -290,6 +548,13 @@ def workers(tmp_path_factory):
         torch.save(sd, str(outdir / f"gen_{causal}.pt"))
         jax_gens[causal] = (cfg, convert_hifigan_generator(
             {k: v.numpy() for k, v in sd.items()}, cfg))
+        cfg = nsf_sp_cfg(causal)
+        gen = Generator(**cfg)
+        init_parameters(gen, 6)
+        sd = gen.state_dict()
+        torch.save(sd, str(outdir / f"nsf_gen_{causal}.pt"))
+        jax_gens[f"nsf_{causal}"] = (cfg, convert_hifigan_generator(
+            {k: v.numpy() for k, v in sd.items()}, cfg), gen.eval())
     (outdir / "generators_ready").write_text("")
     yield running, jax_gens
     running.stop()
@@ -309,7 +574,7 @@ def _jax_sharded_keys(model, cfg, n_model):
     from kantts_tpu.utils.torch_convert import convert_sambert
 
     keys = list(model.state_dict())
-    probe = {k: np.full(tuple(v.shape), float(i), np.float32)
+    probe = {k: np.broadcast_to(np.float32(i), tuple(v.shape))
              for i, (k, v) in enumerate(model.state_dict().items())}
     tree = convert_sambert(probe, cfg)
     specs = tp_shardings(tree, make_mesh_2d(1, n_model))
@@ -324,8 +589,6 @@ def _jax_sharded_keys(model, cfg, n_model):
 def test_plan_matches_jax(workers):
     """Every leaf ``tp_shardings`` shards over 2 ranks, and no other, with
     the predictors' FSMN inner width (15) left whole on both sides."""
-    from kantts_tpu_torch.models.builder import sambert_params
-
     cfg = config()
     cfg["Model"]["KanTtsSAMBERT"]["params"]["predictor_ffn_inner_dim"] = 15
     model = seeded_sambert(cfg)["model"]
@@ -340,8 +603,6 @@ def test_plan_matches_jax(workers):
 def test_plan_departs_only_where_heads_do_not_divide(workers):
     """Over 4 ranks the 2-head attentions stay whole here while GSPMD splits
     their 48 columns; the FFNs shard on both sides."""
-    from kantts_tpu_torch.models.builder import sambert_params
-
     cfg = config()
     model = seeded_sambert(cfg)["model"]
     plan = tp.tp_plan(model, 4)
@@ -351,6 +612,29 @@ def test_plan_departs_only_where_heads_do_not_divide(workers):
     assert set(plan) == jax_keys - attention
 
 
+SAMBERT_CONFIGS = sorted(os.path.basename(f)[:-len(".yaml")]
+                         for f in os.listdir(CONFIGS)
+                         if f.startswith("sambert_") and f.endswith(".yaml"))
+
+
+@pytest.mark.parametrize("name", SAMBERT_CONFIGS)
+def test_plan_matches_jax_on_every_config(name):
+    """At each SAM-BERT config's published widths (built on the meta device:
+    shapes only), over 2 ranks: the plan is exactly what ``tp_shardings``
+    shards, through the weight bridge; an FP voice's ``FP_predictor``
+    (``w_1``, ``w_2``, ``fc`` outside the scopes) stays whole."""
+    from kantts_tpu_torch.models.sambert.sambert import KanTtsSAMBERT
+
+    params = sambert_params(load_yaml(os.path.join(CONFIGS, f"{name}.yaml")))
+    with torch.device("meta"):
+        model = KanTtsSAMBERT(params)
+    plan = tp.tp_plan(model, 2)
+    assert plan and set(plan) == _jax_sharded_keys(model, params, 2)
+    assert not [k for k in plan if k.startswith("FP_predictor")]
+    assert params.get("FP", False) == any(k.startswith("FP_predictor")
+                                          for k in model.state_dict())
+
+
 # ----------------------------------------------------------- the steps
 
 
@@ -358,11 +642,16 @@ def _identity_dropout(rate, deterministic=None, **_):
     return lambda x, *args, **kw: x
 
 
-def _jax_step(cfg, state_dict, items, lengths):
-    """The JAX package's unsharded train step on the bridged weights and the
-    global batch -> (TotalLoss, params after the step). The port's steps run
+_JAX_STEPS = {}  # one compiled JAX step per config, whatever its weights
+
+
+def _jax_voice_step(cfg, state_dict, batch, fp_dict=None):
+    """The JAX package's unsharded train step on the bridged weights and a
+    numpy batch -> (metrics, params after the step). The port's steps run
     with every dropout at 0; the JAX ``Prenet`` hard-codes its 0.5, so flax's
-    ``Dropout`` is the identity while the step is traced."""
+    ``Dropout`` is the identity while the step is traced. Compiled with every
+    bf16 op rounded (``xla_allow_excess_precision`` off, as
+    ``tests/test_torch_port_bf16.py`` compiles its JAX side)."""
     import flax.linen
     import jax
     import jax.numpy as jnp
@@ -373,7 +662,6 @@ def _jax_step(cfg, state_dict, items, lengths):
     from kantts_tpu.train.states import TrainState
     from kantts_tpu.train.steps import make_sambert_step as j_make_sambert_step
     from kantts_tpu.utils.torch_convert import convert_sambert
-    from kantts_tpu_torch.models.builder import sambert_params
 
     params_cfg = sambert_params(cfg)
     params = jax.tree_util.tree_map(jnp.asarray, convert_sambert(
@@ -381,13 +669,29 @@ def _jax_step(cfg, state_dict, items, lengths):
     part = cfg["Model"]["KanTtsSAMBERT"]
     tx, _ = j_optimizer_builder(part["optimizer"], part.get("scheduler"), cfg["grad_norm"])
     state = TrainState(params, tx.init(params), jnp.asarray(0, dtype=jnp.int32))
-    step = j_make_sambert_step(JSAMBERT(params_cfg), j_criterion_builder(cfg), tx,
-                               True, False)
-    batch = {k: jnp.asarray(v) for k, v in sambert_batch(items, lengths).items()}
-    with pytest.MonkeyPatch.context() as patch:
-        patch.setattr(flax.linen, "Dropout", _identity_dropout)
-        new, metrics = step(state, batch, jax.random.PRNGKey(0), jnp.asarray(EPOCH))
-    return float(metrics["TotalLoss"]), jax.tree_util.tree_map(np.asarray, new.params)
+    args = (state, {k: (tuple(jnp.asarray(a) for a in v) if isinstance(v, tuple)
+                        else jnp.asarray(v)) for k, v in batch.items() if v is not None},
+            jax.random.PRNGKey(0), jnp.asarray(EPOCH))
+    key = json.dumps([params_cfg, part, cfg["Loss"], cfg["grad_norm"],
+                      fp_dict is not None], sort_keys=True, default=str)
+    if key not in _JAX_STEPS:
+        step = j_make_sambert_step(JSAMBERT(params_cfg), j_criterion_builder(cfg), tx,
+                                   params_cfg["MAS"], params_cfg.get("FP", False),
+                                   fp_dict_lings=fp_dict)
+        with pytest.MonkeyPatch.context() as patch:
+            patch.setattr(flax.linen, "Dropout", _identity_dropout)
+            _JAX_STEPS[key] = step.lower(*args).compile(
+                {"xla_allow_excess_precision": False})
+    new, metrics = _JAX_STEPS[key](*args)
+    return ({k: float(v) for k, v in metrics.items()},
+            jax.tree_util.tree_map(np.asarray, new.params))
+
+
+def _jax_step(cfg, state_dict, items, lengths):
+    """``_jax_voice_step`` on the MAS batch of ``items`` -> (TotalLoss,
+    params after the step)."""
+    metrics, params = _jax_voice_step(cfg, state_dict, sambert_batch(items, lengths))
+    return metrics["TotalLoss"], params
 
 
 def _flat(tree, prefix=""):
@@ -416,20 +720,41 @@ def _plain_step(cfg, items, lengths):
     return {k: float(v) for k, v in metrics.items()}, seen["grads"], seen["norm"]
 
 
-@pytest.fixture(scope="module")
-def references():
-    """The JAX step and the port's plain step on the global batch."""
+def _bridge(cfg):
+    """Port state dict -> the JAX params it bridges to, flattened."""
     from kantts_tpu.utils.torch_convert import convert_sambert
-    from kantts_tpu_torch.models.builder import sambert_params
 
+    return lambda sd: dict(_flat(convert_sambert({k: v.numpy() for k, v in sd.items()},
+                                                 sambert_params(cfg))))
+
+
+def _voice_reference(voice, batch, fp_dict, outdir):
+    """The JAX step (and for bf16 the JAX f32 step) and the port's plain
+    step on the voice's weights and batch."""
+    plain, init = _plain_voice_step(voice, batch, fp_dict, outdir)
+    cfg = voice_config(voice)
+    metrics, params = _jax_voice_step(cfg, init, batch, fp_dict)
+    out = dict(plain=plain, jax=(metrics, dict(_flat(params))), bridge=_bridge(cfg))
+    if cfg.get("mixed_precision"):
+        out["jax_f32"] = _jax_voice_step(dict(cfg, mixed_precision=False), init, batch,
+                                         fp_dict)
+    return out
+
+
+@pytest.fixture(scope="module")
+def references(workers):
+    """The JAX step and the port's plain step on the global batch, and on
+    each voice's (``_voice_reference``), computed while the workers run."""
+    running, _ = workers
     cfg = config()
     items, lengths = global_batch(cfg)
     init = seeded_sambert(cfg)["model"].state_dict()
     loss, params = _jax_step(cfg, init, items, lengths)
+    voices = {voice: _voice_reference(voice, *running.voices[voice], running.outdir)
+              for voice in VOICES}
     return dict(cfg=cfg, jax_loss=loss, jax_params=dict(_flat(params)),
                 plain=_plain_step(cfg, items, lengths), lengths=lengths,
-                bridge=lambda sd: dict(_flat(convert_sambert(
-                    {k: v.numpy() for k, v in sd.items()}, sambert_params(cfg)))))
+                bridge=_bridge(cfg), voices=voices)
 
 
 @pytest.mark.parametrize("grid", list(GRIDS))
@@ -477,6 +802,171 @@ def test_tp_checkpoint_loads_plain_bit_for_bit(workers):
     assert got["local_heads"] == SAMBERT_TINY["encoder_num_heads"] // 2
 
 
+# ----------------------------------------------------------- the voices
+
+
+def _plain_voice_step(voice, batch, fp_dict, outdir):
+    """The port's one-process step of the voice -> (metrics, pre-clip
+    gradients, pre-clip norm), and its initial weights."""
+    cfg = voice_config(voice)
+    built, _ = voice_model(voice, outdir)
+    init = copy.deepcopy(built["model"].state_dict())
+    seen = {}
+
+    def recorded_clip():
+        seen["grads"] = {k: p.grad.clone() for k, p in built["model"].named_parameters()
+                         if p.grad is not None}
+        seen["norm"] = float(built["clip"]())
+
+    step = make_sambert_step(built["model"], criterion_builder(cfg), built["optimizer"],
+                             built["scheduler"], recorded_clip, sambert_params(cfg)["MAS"],
+                             fp_dict_lings=None if fp_dict is None else torch.from_numpy(fp_dict),
+                             data_parallel=False)
+    metrics = step(voice_tensors(batch), EPOCH)
+    return ({k: float(v) for k, v in metrics.items()}, seen["grads"], seen["norm"]), init
+
+
+BF16_LOSSES = ("mel_loss_", "mel_loss", "dur_loss", "pitch_loss", "energy_loss",
+               "attn_ctc_loss", "attn_kl_loss", "TotalLoss")
+
+
+@pytest.mark.parametrize("voice", list(VOICES))
+def test_voice_tp_step_matches_jax_and_plain(workers, references, voice):
+    """Rank 0's tensor-parallel step of each voice on the 1 x 2 grid against
+    the JAX package's unsharded step on the same bridged weights and batch,
+    and the port's plain step. float32: loss rtol 1e-5, parameters atol
+    3e-4, pre-clip gradients within 1e-5 of their norm. bf16: every loss
+    within 0.5 e_ref of JAX bf16 (e_ref = |JAX bf16 - JAX f32|; the
+    attention losses, float32 in both, rtol 1e-5), parameters atol 3e-4,
+    gradients within 1e-3 of their norm (bf16 roundings of float32 sums
+    taken in another order). The warm start's encoder arrives as each
+    rank's slice of the Textsy-BERT tensors."""
+    got = workers[0].wait()["voices"][voice]
+    ref = references["voices"][voice]
+    want, want_params = ref["jax"]
+    if voice == "bf16":
+        f32, _ = ref["jax_f32"]
+        assert want["TotalLoss"] != f32["TotalLoss"]  # else the test cannot see bf16
+        for k in BF16_LOSSES:  # the attention losses stay float32: e_ref 0
+            e_ref = abs(want[k] - f32[k])
+            gap = abs(got["metrics"][k] - want[k])
+            bound = 0.5 * e_ref if e_ref > 0 else 1e-5 * abs(want[k])
+            assert gap <= bound, f"{k}: gap {gap}, e_ref {e_ref}"
+    else:
+        np.testing.assert_allclose(got["metrics"]["TotalLoss"], want["TotalLoss"], rtol=1e-5)
+    if voice == "fp":
+        assert got["metrics"]["fp_loss"] > 0
+    mapped = ref["bridge"](got["state"])
+    assert mapped.keys() == want_params.keys()
+    for k, w in want_params.items():
+        np.testing.assert_allclose(mapped[k], w, atol=3e-4, rtol=0, err_msg=k)
+    metrics, grads, norm = ref["plain"]
+    grad_tol = 1e-3 if voice == "bf16" else 1e-5
+    assert got["metrics"]["TotalLoss"] == pytest.approx(metrics["TotalLoss"],
+                                                        rel=grad_tol)
+    assert got["norm"] == pytest.approx(norm, rel=grad_tol) and norm > 0.1
+    assert got["grads"].keys() == grads.keys()
+    worst = max(float((got["grads"][k] - g).abs().max()) for k, g in grads.items())
+    assert worst <= grad_tol * norm, (worst, norm)
+    if voice == "warm":
+        assert got["warm"]["copied"] > 0 and got["warm"]["sliced"] > 0
+        assert got["warm"]["equal"]
+
+
+# ------------------------------------------------------------- F6: the crash
+
+
+def test_crash_checkpoint_under_tensor_parallelism(workers):
+    """Both ranks interrupted at step k: the whole ``checkpoint-{k}.ckpt``
+    holds the state ``gather_state_dict`` and ``gather_optimizer_state``
+    return at step k, bit for bit, and no slice is left; it loads into a
+    plain model and through the JAX bridge as an interval save does, and a
+    resume from it under ``tensor_parallel: 2`` runs from step k + 1. The
+    run was warm-started from Textsy-BERT."""
+    from kantts_tpu.utils.torch_convert import convert_sambert
+
+    running, _ = workers
+    got = running.wait()["crash"]
+    ckpt = os.path.join(running.outdir, "crash_stage", "ckpt")
+    path = os.path.join(ckpt, f"checkpoint-{CRASH_STEP}.ckpt")
+    assert sorted(os.listdir(ckpt)) == [os.path.basename(path)]
+    payload = torch.load(path, weights_only=True)
+    assert list(payload) == ["model", "config", "optimizer", "scheduler", "steps"]
+    assert payload["steps"] == CRASH_STEP and got["handler_s"] < 10
+    want = got["gathered"]
+    assert payload["model"].keys() == want["model"].keys()
+    for k, v in want["model"].items():
+        assert torch.equal(payload["model"][k], v), k
+    assert payload["optimizer"]["param_groups"] == want["optimizer"]["param_groups"]
+    assert payload["optimizer"]["state"].keys() == want["optimizer"]["state"].keys()
+    for i, entry in want["optimizer"]["state"].items():
+        for k, v in entry.items():
+            assert torch.equal(payload["optimizer"]["state"][i][k], v), (i, k)
+    model, _ = load_checkpoint(path, torch.device("cpu"))
+    assert model.text_encoder.ling_enc.fft[0].slf_attn.n_head == SAMBERT_TINY["encoder_num_heads"]
+    cfg = payload["config"]["Model"]["KanTtsSAMBERT"]["params"]
+    shapes = {k: v.shape for k, v in _flat(convert_sambert(
+        {k: v.numpy() for k, v in payload["model"].items()}, cfg))}
+    plain = seeded_sambert(config())["model"].state_dict()
+    assert shapes == {k: v.shape for k, v in _flat(convert_sambert(
+        {k: v.numpy() for k, v in plain.items()}, cfg))}
+    assert got["resumed_steps"] == [CRASH_STEP + 1] and got["resumed_taken"] == 1
+    assert os.path.exists(os.path.join(running.outdir, "crash_resume_stage", "ckpt",
+                                       f"checkpoint_{CRASH_STEP + 1}.ckpt"))
+    with open(os.path.join(running.outdir, "crash_stage", "stdout.log")) as f:
+        log = f.read()
+    assert "Warm-started the text encoder" in log
+    assert f"Saved crash checkpoint at step {CRASH_STEP}, joined from 2 slices" in log
+
+
+def test_crash_with_a_missing_slice_writes_no_whole_file(workers):
+    """Rank 1 interrupted without writing its slice: rank 0 gives up after
+    its 2 s, names rank 1 in the log, writes no whole file and leaves its
+    own slice."""
+    running, _ = workers
+    got = running.wait()["crash"]
+    stage = os.path.join(running.outdir, "crash_missing")
+    assert sorted(os.listdir(os.path.join(stage, "ckpt"))) == [
+        f"checkpoint-{CRASH_STEP}.rank0-of-2.ckpt"]
+    assert 2.0 <= got["missing_handler_s"] < 6.0
+    with open(os.path.join(stage, "stdout.log")) as f:
+        log = f.read()
+    assert f"cannot join checkpoint-{CRASH_STEP}.ckpt: rank 1 (no slice)" in log
+
+
+def test_join_slices_inverts_split():
+    """``join_slices`` of the ``split`` of every planned entry (model and
+    Adam moments) gives the whole state back, whatever the slices' order."""
+    cfg = config()
+    built = seeded_sambert(cfg)
+    model, optimizer = built["model"], built["optimizer"]
+    for p in model.parameters():
+        p.grad = torch.randn_like(p)
+    optimizer.step()
+    plan = tp.tp_plan(model, 2)
+    names = [k for k, _ in model.named_parameters()]
+    sd, opt = model.state_dict(), optimizer.state_dict()
+    slices = []
+    for r in (1, 0):
+        slices.append(dict(
+            model={k: (tp.split(v, plan[k], 2, r) if k in plan else v) for k, v in sd.items()},
+            optimizer={**opt, "state": {i: {k: (tp.split(v, plan[names[i]], 2, r)
+                                                if names[i] in plan and v.ndim else v)
+                                            for k, v in e.items()}
+                                        for i, e in opt["state"].items()}},
+            plan={k: (s.kind, s.dim, s.chunks) for k, s in plan.items()},
+            optimizer_plan={i: names[i] for i in opt["state"] if names[i] in plan},
+            index=r))
+    joined, joined_opt = tp.join_slices(slices)
+    assert joined.keys() == sd.keys()
+    for k, v in sd.items():
+        assert torch.equal(joined[k], v), k
+    for i, entry in opt["state"].items():
+        for k, v in entry.items():
+            assert torch.equal(joined_opt["state"][i][k], v), (i, k)
+    assert tp.slice_path("/s/ckpt/checkpoint-7.ckpt", 1, 2) == "/s/ckpt/checkpoint-7.rank1-of-2.ckpt"
+
+
 # ------------------------------------------------------ sequence parallelism
 
 
@@ -497,6 +987,37 @@ def test_sequence_parallel_matches_jax(workers, causal):
     got = running.wait()[f"sp_{causal}"].numpy()
     assert got.shape == want.shape == (1, SP_FRAMES * 200, 1)
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_nsf_sequence_parallel_matches_jax(workers, causal):
+    """A tiny NSF generator, causal and not, time-sharded over 2 ranks with
+    its source given (``excitation=``) and drawn on rank 0 and broadcast
+    (the same seed): both against the JAX generator on the whole utterance
+    with that excitation, atol 1e-5; the windows' context (the receptive
+    field plus the 4-frame source margin) leaves no seam."""
+    import jax.numpy as jnp
+
+    from kantts_tpu.models.hifigan.generator import Generator as JGenerator
+    from test_torch_port_nsf import nsf_generator_cfg
+
+    assert nsf_sp_cfg(causal) == nsf_generator_cfg(causal)
+    running, jax_gens = workers
+    cfg, params, port = jax_gens[f"nsf_{causal}"]
+    mel = nsf_sp_mel()
+    with torch.no_grad():
+        exc = nsf_excitation(port, mel)
+        assert torch.equal(exc, nsf_excitation(port, mel))
+        plain = port(mel, excitation=exc).numpy()
+    want = np.asarray(JGenerator(**cfg).apply({"params": params}, jnp.asarray(mel.numpy()),
+                                              excitation=jnp.asarray(exc.numpy())))
+    np.testing.assert_allclose(plain, want, atol=1e-5, rtol=0)
+    got = running.wait()[f"nsf_sp_{causal}"]
+    hop = int(np.prod(cfg["upsample_scales"]))
+    for route in ("given", "broadcast"):
+        assert got[route].shape == want.shape == (1, NSF_FRAMES * hop, 1)
+        np.testing.assert_allclose(got[route].numpy(), want, atol=1e-5, rtol=0,
+                                   err_msg=route)
 
 
 def test_time_sharded_windows():
