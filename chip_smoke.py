@@ -284,13 +284,14 @@ class Cli:
                                      text=True)
         Cli.running.append(self)
 
-    def result(self, timeout: float = 600) -> str:
+    def result(self, timeout: float = 600, fails: bool = False) -> str:
         """Wait for the run; -> its stdout; raises with its output if it
-        failed. ``seconds`` is then the wall from its start."""
+        failed (with ``fails``, if it did not). ``seconds`` is then the wall
+        from its start."""
         out, err = self.proc.communicate(timeout=timeout)
         Cli.running.remove(self)
         self.seconds = time.perf_counter() - self.t0
-        if self.proc.returncode != 0:
+        if (self.proc.returncode != 0) != fails:
             raise RuntimeError(f"{self.name} exited {self.proc.returncode}:\n"
                                f"{out[-4000:]}\n{err[-4000:]}")
         return out
@@ -4460,8 +4461,8 @@ def tp_worker(rank: int, port: int, out: str) -> int:
     first = dict(metrics=metrics, grads=seen["grads"], norm=seen["norm"],
                  state={k: v.clone() for k, v in tp.gather_state_dict(model).items()})
     ckpt = os.path.join(out, "tp_checkpoint.ckpt")
-    payload = checkpoint_payload(tp.gather_state_dict(model), cfg,
-                                 optimizer=tp.gather_optimizer_state(optimizer, model))
+    whole, whole_optimizer = tp.gather_training_state(model, optimizer)
+    payload = checkpoint_payload(whole, cfg, optimizer=whole_optimizer)
     saved = {k: v.clone() for k, v in payload["model"].items()}
     if rank == 0:
         save_checkpoint(ckpt, payload["model"], cfg, optimizer=payload["optimizer"])
@@ -4682,8 +4683,10 @@ def interrupted_train(argv) -> int:
     with a ``KeyboardInterrupt`` raised from the trainer on every rank as
     step STEP starts, once rank 0 has saved the model state gathered there
     to ``STAGE.gathered.pt`` and the wall time of the interrupt to
-    ``STAGE.interrupt_time`` ((f)). Exits 0 once the interrupt has gone
-    through ``train_sambert`` (its crash handler included)."""
+    ``STAGE.interrupt_time`` ((f)). The interrupt leaves ``train_sambert``
+    (its crash handler included) and this process as it leaves the CLI, so
+    torchrun sees the workers fail and stops the rest when the first one
+    exits."""
     import logging
 
     import torch
@@ -4709,17 +4712,15 @@ def interrupted_train(argv) -> int:
     logging.basicConfig(level=logging.INFO, force=True,
                         format="%(asctime)s, %(levelname)-4s [%(filename)s:%(lineno)d] "
                                "%(message)s")
-    try:
-        train_sambert.main(rest)
-    except KeyboardInterrupt:
-        return 0
+    train_sambert.main(rest)
     raise AssertionError(f"train_sambert ran past step {at}")
 
 
 def tp_crash_cli(tmp: str):
     """(f): F6 on the card. The tensor-parallel CLI under torchrun (two gloo
     ranks on the card, B=32 on phase 4's corpus), started now, interrupted
-    on both ranks at ``TP_CRASH_STEP``. -> finish(), which checks the whole
+    on both ranks at ``TP_CRASH_STEP``, so that torchrun exits as it does
+    for the interrupted CLI (not 0). -> finish(), which checks the whole
     crash checkpoint (no slice left, its bytes and seconds from the
     interrupt to its landing, loaded plain bit-equal to the state gathered
     at the interrupt), then resumes the CLI from it under
@@ -4742,7 +4743,7 @@ def tp_crash_checks(tmp: str, stage: str, crash_cli, torchrun, env) -> dict:
     from kantts_tpu_torch.models.builder import load_checkpoint
 
     corpus = os.path.join(tmp, "corpus")
-    crash_cli.result(timeout=300)
+    crash_cli.result(timeout=300, fails=True)
     crash = os.path.join(stage, "ckpt", f"checkpoint-{TP_CRASH_STEP}.ckpt")
     left = sorted(os.listdir(os.path.join(stage, "ckpt")))
     if left != [os.path.basename(crash)]:
@@ -4773,7 +4774,8 @@ def tp_crash_checks(tmp: str, stage: str, crash_cli, torchrun, env) -> dict:
                bit_equal=bit_equal, heads=heads, joined=joined,
                resumed_at=f"Resumed from {crash} at step {TP_CRASH_STEP + 1}" in log_text,
                resumed_ckpt=os.path.exists(ckpt_path(resumed, TP_CRASH_STEP + 1)),
-               crash_cli_s=round(crash_cli.seconds, 3), resume_cli_s=round(resume_cli.seconds, 3))
+               crash_cli_rc=crash_cli.proc.returncode, crash_cli_s=round(crash_cli.seconds, 3),
+               resume_cli_s=round(resume_cli.seconds, 3))
     if not (bit_equal and joined and heads == 8 and res["resumed_at"] and res["resumed_ckpt"]):
         raise AssertionError(f"tp_crash: {res}")
     return res

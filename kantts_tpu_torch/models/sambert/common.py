@@ -20,8 +20,9 @@ and row-parallel ones (``TP_ROW``: input features split) and the count that
 is split (``tp_units``: heads or inner channels). Once sharded, ``tp`` holds
 the model group; the input of each column layer passes ``copy_to_model``
 and the partial products of the row layers are summed by
-``reduced_partials`` before their bias is added, once (under bf16 in
-float32, so that each product is rounded once, after the sum). Without it
+``reduce_from_model`` before their bias is added, once (under bf16 in
+float32 by ``reduced_partials``, so that each product is rounded once,
+after the sum). Without it
 (``tp`` None) they compute exactly as before.
 """
 
@@ -112,25 +113,29 @@ class Conv1dBTC(nn.Conv1d):
 
 
 def reduced_partials(pairs, tp: ModelParallel) -> List[torch.Tensor]:
-    """The partial products of row-parallel ``(layer, x)`` pairs, each layer
-    holding its slice of the input features, summed over the model group in
-    one collective, each then in its layer's compute dtype. Under bf16 a
-    rank's share is the float32 sum of the rounded operands' products
-    (``partial(x, float32_sum=True)``), so the whole product is rounded to
-    bf16 once, after the sum, as the unsharded layer rounds it; summing
-    bf16 shares would round twice."""
+    """The partial products of bf16 row-parallel ``(layer, x)`` pairs, each
+    layer holding its slice of the input features, summed over the model
+    group in one collective, each then in bf16. A rank's share is the
+    float32 sum of the rounded operands' products (``partial(x,
+    float32_sum=True)``), so each whole product is rounded to bf16 once,
+    after the sum, as the unsharded layer rounds it; summing bf16 shares
+    would round twice. The all-reduce then moves float32: twice the bytes of
+    bf16 shares."""
     parts = [layer.partial(x, float32_sum=True) for layer, x in pairs]
-    summed = reduce_from_model(torch.stack(parts), tp)
-    return [y if layer.compute_dtype is None else y.to(layer.compute_dtype)
-            for y, (layer, _) in zip(summed, pairs)]
+    summed = (reduce_from_model(parts[0], tp)[None] if len(parts) == 1
+              else reduce_from_model(torch.stack(parts), tp))
+    return [y.to(layer.compute_dtype) for y, (layer, _) in zip(summed, pairs)]
 
 
 def row_parallel(layer, x: torch.Tensor, tp: Optional[ModelParallel]) -> torch.Tensor:
     """``layer(x)`` (a ``Linear`` or ``Conv1dBTC``); sharded (``tp``), its
-    partial product is summed over the model group (``reduced_partials``)
-    and the bias, which every rank holds whole, is added after."""
+    partial product is summed over the model group (under bf16 by
+    ``reduced_partials``) and the bias, which every rank holds whole, is
+    added after."""
     if tp is None:
         return layer(x)
+    if layer.compute_dtype is None:
+        return layer.add_bias(reduce_from_model(layer.partial(x), tp))
     return layer.add_bias(reduced_partials([(layer, x)], tp)[0])
 
 

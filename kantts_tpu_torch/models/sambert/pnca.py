@@ -37,7 +37,7 @@ from kantts_tpu_torch.models.sambert.common import (
     split_heads,
     torch_linear,
 )
-from kantts_tpu_torch.parallel.tp import ModelParallel, copy_to_model
+from kantts_tpu_torch.parallel.tp import ModelParallel, copy_to_model, reduce_from_model
 from kantts_tpu_torch.utils.precision import Dtype, weak_scalar
 
 
@@ -91,7 +91,11 @@ class MultiHeadPNCAAttention(nn.Module):
     def _project_out(self, x_t, out_x, out_h):
         if self.tp is None:
             out = self.fc_x(merge_heads(out_x)) + self.fc_h(merge_heads(out_h))
-        else:
+        elif self.fc_x.compute_dtype is None:  # the two shares in one all-reduce
+            out = reduce_from_model(self.fc_x.partial(merge_heads(out_x))
+                                    + self.fc_h.partial(merge_heads(out_h)), self.tp)
+            out = self.fc_h.add_bias(self.fc_x.add_bias(out))
+        else:  # each product rounded to bf16 once, as the plain layers round it
             y_x, y_h = reduced_partials([(self.fc_x, merge_heads(out_x)),
                                          (self.fc_h, merge_heads(out_h))], self.tp)
             out = self.fc_x.add_bias(y_x) + self.fc_h.add_bias(y_h)

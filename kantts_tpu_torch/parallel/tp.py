@@ -42,8 +42,12 @@ A crash cannot gather: a rank that failed alone cannot join a collective,
 and a rank still inside one never reaches its handler. So each rank of the
 first model group writes its own slice with no collective (``local_slice``,
 to ``slice_path``), and rank 0 joins the slice files into the whole
-checkpoint (``join_slice_files``, ``join_slices``: the ``join`` that
-``gather_state_dict`` uses), or leaves them when one is missing.
+checkpoint (``join_slice_files``), or leaves them when one is missing. A
+slice carries the run's number (``TensorParallel.run``, drawn once per
+``shard_module``), so a slice that an earlier run left at the same step is
+never joined with this run's. ``join_slices`` is the one join of per-rank
+pieces: ``gather_state_dict`` and ``gather_optimizer_state`` are the
+``all_gather`` of the live shards into the same pieces, then that join.
 
 Sequence parallelism (``sequence_parallel_apply``): one utterance's
 generator forward with its mel split along time over a group. Where XLA
@@ -191,10 +195,20 @@ def join(pieces: List[torch.Tensor], shard: Shard) -> torch.Tensor:
 
 class TensorParallel:
     """What ``shard_module`` leaves on a model (``model.tensor_parallel``):
-    the grid, the plan, and the model group's handle."""
+    the grid, the plan, the model group's handle, and the run's number, on
+    which the model group agreed (``_run_number``)."""
 
-    def __init__(self, grid: Grid, plan: Dict[str, Shard], mp: ModelParallel):
-        self.grid, self.plan, self.mp = grid, plan, mp
+    def __init__(self, grid: Grid, plan: Dict[str, Shard], mp: ModelParallel, run: int):
+        self.grid, self.plan, self.mp, self.run = grid, plan, mp, run
+
+
+def _run_number(group: Optional[dist.ProcessGroup], device: torch.device) -> int:
+    """A number that every rank of ``group`` returns and another run does
+    not draw: the largest of each rank's random draw (one all-reduce)."""
+    t = torch.tensor([int.from_bytes(os.urandom(7), "little")], dtype=torch.int64,
+                     device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return int(t.item())
 
 
 def is_sharded(model: nn.Module) -> bool:
@@ -234,7 +248,8 @@ def shard_module(model: nn.Module, grid: Grid,
         module.tp = mp
         if hasattr(module, "n_head"):
             module.n_head //= n
-    model.tensor_parallel = TensorParallel(grid, plan, mp)
+    run = _run_number(grid.model_group, next(model.parameters()).device)
+    model.tensor_parallel = TensorParallel(grid, plan, mp, run)
     logging.info("tensor parallel: %d entries of %d sharded %d-way (%s)", len(plan),
                  len(params), n, grid.describe())
     return plan
@@ -250,12 +265,18 @@ def gather_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
     """The unsharded state dict of a sharded ``model``, on every rank (a
     collective of the model group); a plain model's own. The sharded entries
     are new tensors, the rest the live ones."""
-    state = model.state_dict()
     if not is_sharded(model):
-        return state
-    tp = model.tensor_parallel
-    return {k: (_gather(v, tp.plan[k], tp.mp) if k in tp.plan else v)
-            for k, v in state.items()}
+        return model.state_dict()
+    return join_slices(_gathered_slices(model))[0]
+
+
+def gather_training_state(model: nn.Module, optimizer: torch.optim.Optimizer
+                          ) -> Tuple[Dict[str, torch.Tensor], Dict]:
+    """``gather_state_dict`` and ``gather_optimizer_state`` in one gather:
+    what a checkpoint holds."""
+    if not is_sharded(model):
+        return model.state_dict(), optimizer.state_dict()
+    return join_slices(_gathered_slices(model, optimizer))
 
 
 def gather_grads(model: nn.Module) -> Dict[str, torch.Tensor]:
@@ -292,20 +313,7 @@ def gather_optimizer_state(optimizer: torch.optim.Optimizer, model: nn.Module
                            ) -> Dict:
     """``optimizer.state_dict()`` with the moments of ``model``'s sharded
     parameters gathered whole (a collective of the model group)."""
-    sd = optimizer.state_dict()
-    if not is_sharded(model):
-        return sd
-    mp = model.tensor_parallel.mp
-    state = {}
-    for i, entry in sd["state"].items():
-        sharded = _sharded_params(optimizer, model).get(i)
-        if sharded is None:
-            state[i] = entry
-            continue
-        p, shard = sharded
-        state[i] = {k: (_gather(v, shard, mp) if torch.is_tensor(v) and v.shape == p.shape
-                        else v) for k, v in entry.items()}
-    return {**sd, "state": state}
+    return gather_training_state(model, optimizer)[1]
 
 
 def shard_optimizer_state(sd: Dict, optimizer: torch.optim.Optimizer,
@@ -340,67 +348,116 @@ def slice_path(path: str, index: int, size: int) -> str:
     return f"{root}.rank{index}-of-{size}{ext}"
 
 
-def local_slice(model: nn.Module, optimizer: torch.optim.Optimizer) -> Dict:
+def local_slice(model: nn.Module, optimizer: Optional[torch.optim.Optimizer] = None
+                ) -> Dict:
     """This rank's share of a sharded model's training state, taken with no
-    collective: its model and optimizer state dicts (live tensors), the plan
-    as tuples, the parameter name of each sharded optimizer entry, and its
-    index in the model group."""
+    collective: its model and optimizer (or None) state dicts (live
+    tensors), the plan as tuples, the parameter name of each sharded
+    optimizer entry, its index in the model group and the run's number."""
     tp = model.tensor_parallel
     names = {id(p): k for k, p in model.named_parameters()}
-    return dict(model=model.state_dict(), optimizer=optimizer.state_dict(),
+    return dict(model=model.state_dict(),
+                optimizer=None if optimizer is None else optimizer.state_dict(),
                 plan={k: (s.kind, s.dim, s.chunks) for k, s in tp.plan.items()},
-                optimizer_plan={i: names[id(p)] for i, (p, _) in
-                                _sharded_params(optimizer, model).items()},
-                index=tp.mp.index)
+                optimizer_plan={} if optimizer is None else {
+                    i: names[id(p)] for i, (p, _) in _sharded_params(optimizer, model).items()},
+                index=tp.mp.index, run=tp.run)
 
 
-def join_slices(slices: List[Dict]) -> Tuple[Dict[str, torch.Tensor], Dict]:
+def _sharded_keys(piece: Dict) -> Dict[tuple, Shard]:
+    """Where each sharded tensor of a ``local_slice`` lies, and its split:
+    ``("model", key)`` for each planned entry, ``("optimizer", i, name)``
+    for each optimizer state tensor shaped like its sharded parameter
+    (Adam's moments; not its step count)."""
+    plan = {k: Shard(*v) for k, v in piece["plan"].items()}
+    keys = {("model", k): s for k, s in plan.items()}
+    state = {} if piece["optimizer"] is None else piece["optimizer"]["state"]
+    for i, key in piece["optimizer_plan"].items():
+        shape = piece["model"][key].shape
+        keys.update({("optimizer", i, k): plan[key] for k, v in state.get(i, {}).items()
+                     if torch.is_tensor(v) and v.shape == shape})
+    return keys
+
+
+def _at(piece: Dict, key: tuple) -> torch.Tensor:
+    if key[0] == "model":
+        return piece["model"][key[1]]
+    return piece["optimizer"]["state"][key[1]][key[2]]
+
+
+def _with(piece: Dict, tensors: Dict[tuple, torch.Tensor]) -> Dict:
+    """``piece`` with the tensors at ``tensors``' keys replaced (new dicts
+    down to them; everything else shared)."""
+    model, opt = dict(piece["model"]), piece["optimizer"]
+    state = None if opt is None else {i: dict(e) for i, e in opt["state"].items()}
+    for key, t in tensors.items():
+        if key[0] == "model":
+            model[key[1]] = t
+        else:
+            state[key[1]][key[2]] = t
+    return dict(piece, model=model, optimizer=None if opt is None else {**opt, "state": state})
+
+
+def join_slices(slices: List[Dict]) -> Tuple[Dict[str, torch.Tensor], Optional[Dict]]:
     """The whole model and optimizer state dicts from every rank's
-    ``local_slice``, joined as ``gather_state_dict`` and
-    ``gather_optimizer_state`` join the gathered pieces, so bit for bit what
-    they return at the same step."""
+    ``local_slice``, in any order: each sharded tensor joined from the
+    ranks' pieces, the rest as the first rank holds them."""
     slices = sorted(slices, key=lambda s: s["index"])
-    first = slices[0]
-    plan = {k: Shard(*v) for k, v in first["plan"].items()}
-    model = {k: (join([s["model"][k] for s in slices], plan[k]) if k in plan else v)
-             for k, v in first["model"].items()}
-    sd = first["optimizer"]
-    state = {}
-    for i, entry in sd["state"].items():
-        key = first["optimizer_plan"].get(i)
-        if key is None:
-            state[i] = entry
-            continue
-        shape = first["model"][key].shape
-        state[i] = {k: (join([s["optimizer"]["state"][i][k] for s in slices], plan[key])
-                        if torch.is_tensor(v) and v.shape == shape else v)
-                    for k, v in entry.items()}
-    return model, {**sd, "state": state}
+    whole = _with(slices[0], {key: join([_at(s, key) for s in slices], shard)
+                              for key, shard in _sharded_keys(slices[0]).items()})
+    return whole["model"], whole["optimizer"]
+
+
+def _gathered_slices(model: nn.Module, optimizer: Optional[torch.optim.Optimizer] = None
+                     ) -> List[Dict]:
+    """Every rank's ``local_slice`` of the model group, its sharded tensors
+    brought here by one ``all_gather`` each (a collective of the group)."""
+    mine = local_slice(model, optimizer)
+    mp = model.tensor_parallel.mp
+    pieces = {}
+    for key in _sharded_keys(mine):
+        t = _at(mine, key)
+        pieces[key] = [torch.empty_like(t) for _ in range(mp.size)]
+        dist.all_gather(pieces[key], t.contiguous(), group=mp.group)
+    return [dict(_with(mine, {k: p[r] for k, p in pieces.items()}), index=r)
+            for r in range(mp.size)]
+
+
+def _agrees(piece: Dict, steps, config, run) -> bool:
+    return all(want is None or piece.get(k) == want
+               for k, want in (("steps", steps), ("config", config), ("run", run)))
 
 
 def join_slice_files(path: str, size: int, timeout: float = 0.0,
-                     steps: Optional[int] = None, config: Optional[Dict] = None
-                     ) -> Optional[Dict]:
+                     steps: Optional[int] = None, config: Optional[Dict] = None,
+                     run: Optional[int] = None) -> Optional[Dict]:
     """The whole checkpoint payload of ``path`` from its ``size`` slice
-    files, waiting up to ``timeout`` seconds for them to appear (each lands
-    whole: ``write_checkpoint`` renames it into place). Each slice must hold
-    ``steps`` and ``config`` where they are given, so that slices of another
-    run or step are not joined. -> the payload (``model``, ``config``,
+    files, waiting up to ``timeout`` seconds for each to appear and hold
+    ``steps``, ``config`` and ``run`` where they are given (each lands
+    whole: ``write_checkpoint`` renames it into place; a file that does not
+    agree is read again once it is replaced, so a slice of another run or
+    step is never joined). -> the payload (``model``, ``config``,
     ``optimizer``, ``scheduler``, ``steps``), or None with a log line naming
     the ranks whose slice is missing or does not agree."""
     paths = [slice_path(path, r, size) for r in range(size)]
+    slices: List[Optional[Dict]] = [None] * size
+    read: List[Optional[tuple]] = [None] * size  # the file each rank's slice was read from
     deadline = time.monotonic() + timeout
-    while not all(os.path.exists(p) for p in paths) and time.monotonic() < deadline:
+    while True:
+        for r, p in enumerate(paths):
+            try:
+                st = os.stat(p)
+            except FileNotFoundError:
+                continue
+            if slices[r] is None and read[r] != (st.st_ino, st.st_size, st.st_mtime_ns):
+                read[r] = (st.st_ino, st.st_size, st.st_mtime_ns)
+                piece = torch.load(p, map_location="cpu", weights_only=True)
+                slices[r] = piece if _agrees(piece, steps, config, run) else None
+        if all(s is not None for s in slices) or time.monotonic() >= deadline:
+            break
         time.sleep(0.05)
-    slices, bad = [], []
-    for r, p in enumerate(paths):
-        s = torch.load(p, map_location="cpu", weights_only=True) if os.path.exists(p) else None
-        if s is None:
-            bad.append(f"rank {r} (no slice)")
-        elif (steps is not None and s["steps"] != steps) or (
-                config is not None and s["config"] != config):
-            bad.append(f"rank {r} (a slice of another run or step)")
-        slices.append(s)
+    bad = [f"rank {r} ({'no slice' if read[r] is None else 'a slice of another run or step'})"
+           for r in range(size) if slices[r] is None]
     if bad:
         logging.error("cannot join %s: %s; the slices present are left as they are",
                       os.path.basename(path), "; ".join(bad))

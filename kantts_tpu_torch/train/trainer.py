@@ -36,7 +36,9 @@ results on rank 0 from a plain copy loaded with the gathered state. A crash
 cannot gather (a rank that failed alone cannot join a collective), so each
 rank of the first model group writes its slice and rank 0 joins the slices
 into the same whole ``checkpoint-{steps}.ckpt``; when a slice does not come
-within ``crash_join_seconds`` the slices stay, with a log line
+within ``crash_join_seconds`` the slices stay, with a log line. The other
+ranks raise only once rank 0 is done, since under torchrun the first
+worker to exit has the rest stopped
 (``SambertTrainer.save_crash_checkpoint``).
 
 With ``KANTTS_TRAIN_PROFILE=1`` rank 0 also logs, at each log
@@ -274,7 +276,8 @@ def batch_to_device(batch: Dict[str, Any], device: torch.device
 class Trainer:
     """Step-driven loop with interval-gated eval, save and log."""
 
-    crash_join_seconds = 10.0  # rank 0's wait for the other ranks' crash slices
+    # rank 0's wait for the other ranks' crash slices; they wait twice it for the join
+    crash_join_seconds = 10.0
 
     def __init__(self, config: Dict[str, Any], train_loader, valid_loader,
                  save_dir: str, device: torch.device, max_steps=None,
@@ -587,32 +590,52 @@ class SambertTrainer(Trainer):
         slices of this step and run, joins them into ``crash_path()`` (the
         gathered state an interval save holds) and removes them. When one
         is missing or disagrees it logs which and leaves the slices, and no
-        whole file is written."""
+        whole file is written. Every other rank stays until rank 0 is done
+        (``await_crash_join``)."""
         if not tp.is_sharded(self.model):
             return super().save_crash_checkpoint()
+        since_ns = time.time_ns() - 1_000_000_000  # a margin for coarse file times
         grid = self.model.tensor_parallel.grid
-        if grid.data_index != 0:  # the other data ranks hold the same state
-            return
         primary = is_primary()
         if primary:
             self.drain_checkpoint_writes()
         path = self.crash_path()
-        mine = tp.slice_path(path, grid.model_index, grid.n_model)
-        write_checkpoint(host_copy(dict(
-            tp.local_slice(self.model, self.optimizer), config=self.config,
-            scheduler=self.scheduler.state_dict(), steps=self.steps)), mine)
-        logging.info("Saved crash slice %s at step %d", os.path.basename(mine), self.steps)
+        slices = [tp.slice_path(path, r, grid.n_model) for r in range(grid.n_model)]
+        if grid.data_index == 0:  # the other data ranks hold the same state
+            mine = slices[grid.model_index]
+            write_checkpoint(host_copy(dict(
+                tp.local_slice(self.model, self.optimizer), config=self.config,
+                scheduler=self.scheduler.state_dict(), steps=self.steps)), mine)
+            logging.info("Saved crash slice %s at step %d", os.path.basename(mine), self.steps)
         if not primary:
-            return
+            return self.await_crash_join(path, slices, since_ns)
         payload = tp.join_slice_files(path, grid.n_model, self.crash_join_seconds,
-                                      self.steps, self.config)
+                                      self.steps, self.config, self.model.tensor_parallel.run)
         if payload is None:
             return
         write_checkpoint(payload, path)
-        for r in range(grid.n_model):
-            os.remove(tp.slice_path(path, r, grid.n_model))
+        for p in slices:
+            os.remove(p)
         logging.info("Saved crash checkpoint at step %d, joined from %d slices",
                      self.steps, grid.n_model)
+
+    def await_crash_join(self, path: str, slices: List[str], since_ns: int) -> None:
+        """A rank other than 0 stays until rank 0 has joined the crash
+        checkpoint (``path`` written since ``since_ns`` and no slice left),
+        for at most twice ``crash_join_seconds``. Under torchrun the first
+        worker to exit has the others stopped (SIGTERM), so one that went
+        on to raise at once could stop rank 0 in the middle of its join."""
+        deadline = time.monotonic() + 2 * self.crash_join_seconds
+        while time.monotonic() < deadline:
+            try:
+                landed = os.stat(path).st_mtime_ns >= since_ns
+            except FileNotFoundError:
+                landed = False
+            if landed and not any(os.path.exists(p) for p in slices):
+                return
+            time.sleep(0.05)
+        logging.error("rank 0 did not join %s within %g s", os.path.basename(path),
+                      2 * self.crash_join_seconds)
 
     def intermediate_result(self, batch, out=None):
         """Sharded, the model group gathers the state and rank 0 draws from a
@@ -700,10 +723,9 @@ class SambertTrainer(Trainer):
     def checkpoint_payload(self):
         """The unsharded state: a sharded model's is gathered (a collective
         of the model group)."""
-        return checkpoint_payload(
-            tp.gather_state_dict(self.model), self.config,
-            optimizer=tp.gather_optimizer_state(self.optimizer, self.model),
-            scheduler=self.scheduler.state_dict(), steps=self.steps)
+        model, optimizer = tp.gather_training_state(self.model, self.optimizer)
+        return checkpoint_payload(model, self.config, optimizer=optimizer,
+                                  scheduler=self.scheduler.state_dict(), steps=self.steps)
 
     def load_checkpoint(self, path, restore_training_state=False):
         """Load the model; with ``restore_training_state`` also the optimizer

@@ -63,6 +63,7 @@ from kantts_tpu_torch.models.builder import (
     sambert_params,
     save_checkpoint,
     sybert_model_builder,
+    write_checkpoint,
 )
 from kantts_tpu_torch.models.hifigan.generator import Generator
 from kantts_tpu_torch.models.sambert.sambert import SelfAttentionEncoder
@@ -414,6 +415,33 @@ def crash_runs(rank, outdir, data):
     return out
 
 
+def interrupted_cli(outdir: str, data: str) -> None:
+    """Run under torchrun: the tensor-parallel CLI interrupted on both ranks
+    at ``CRASH_STEP``, the ``KeyboardInterrupt`` left to end the process as
+    it ends the CLI's, so torchrun stops the other worker once the first
+    exits. Rank 0's join is held back 2 s, as a full-width join takes
+    seconds: a rank 1 that exited as soon as its slice was written would
+    have rank 0 stopped before the whole file lands."""
+    torch.set_num_threads(1)
+    step_fn, join_files = SambertTrainer.train_step, tp.join_slice_files
+
+    def interrupted(self, batch):
+        if self.steps == CRASH_STEP:
+            raise KeyboardInterrupt
+        return step_fn(self, batch)
+
+    def held_back(*args, **kw):
+        time.sleep(2.0)
+        return join_files(*args, **kw)
+
+    SambertTrainer.train_step, tp.join_slice_files = interrupted, held_back
+    logging.basicConfig(level=logging.INFO, force=True)
+    train_sambert.main(["--model_config", os.path.join(outdir, "crash", "model.yaml"),
+                        "--root_dir", data, "--stage_dir",
+                        os.path.join(outdir, "torchrun_crash_stage"), "--device", "cpu"])
+    raise AssertionError(f"train_sambert ran past step {CRASH_STEP}")
+
+
 def worker(rank: int, port: int, outdir: str, data: str) -> None:
     torch.set_num_threads(1)
     os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),
@@ -494,7 +522,12 @@ class Workers:
              os.path.join(outdir, "plain", "model.yaml"), "--root_dir", data,
              "--stage_dir", os.path.join(outdir, "plain_stage"), "--device", "cpu"],
             cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        self.done = None
+        self.torchrun = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "2", "--monitor-interval", "0.1", os.path.abspath(__file__),
+             "interrupted-cli", str(outdir), data],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.done = self.torchrun_log = None
 
     def wait(self):
         if self.done is None:
@@ -510,7 +543,16 @@ class Workers:
                                    weights_only=False)
         return self.done
 
+    def wait_torchrun(self):
+        """-> torchrun's exit code and output."""
+        if self.torchrun_log is None:
+            self.torchrun_log = self.torchrun.communicate(timeout=400)[0]
+        return self.torchrun.returncode, self.torchrun_log
+
     def stop(self):
+        if self.torchrun.poll() is None:  # its agent stops its workers
+            self.torchrun.terminate()
+            self.torchrun.wait()
         for p in self.procs:
             if p.poll() is None:
                 p.kill()
@@ -934,9 +976,30 @@ def test_crash_with_a_missing_slice_writes_no_whole_file(workers):
     assert f"cannot join checkpoint-{CRASH_STEP}.ckpt: rank 1 (no slice)" in log
 
 
-def test_join_slices_inverts_split():
-    """``join_slices`` of the ``split`` of every planned entry (model and
-    Adam moments) gives the whole state back, whatever the slices' order."""
+def test_crash_checkpoint_from_the_cli_under_torchrun(workers):
+    """The tensor-parallel CLI under torchrun, interrupted on both ranks at
+    step k, with rank 0's join held back 2 s: torchrun fails, as it does for
+    an interrupted CLI, and the whole ``checkpoint-{k}.ckpt`` has landed
+    all the same, with no slice left, and loads into a plain model: rank 1
+    stayed until the join was done, so torchrun did not stop rank 0 in it."""
+    running, _ = workers
+    rc, out = running.wait_torchrun()
+    assert rc != 0, out[-4000:]
+    stage = os.path.join(running.outdir, "torchrun_crash_stage")
+    ckpt = os.path.join(stage, "ckpt")
+    assert sorted(os.listdir(ckpt)) == [f"checkpoint-{CRASH_STEP}.ckpt"], out[-4000:]
+    path = os.path.join(ckpt, f"checkpoint-{CRASH_STEP}.ckpt")
+    assert torch.load(path, weights_only=True)["steps"] == CRASH_STEP
+    model, _ = load_checkpoint(path, torch.device("cpu"))
+    assert model.text_encoder.ling_enc.fft[0].slf_attn.n_head == SAMBERT_TINY["encoder_num_heads"]
+    with open(os.path.join(stage, "stdout.log")) as f:
+        log = f.read()
+    assert f"Saved crash checkpoint at step {CRASH_STEP}, joined from 2 slices" in log
+
+
+def _split_state():
+    """A tiny model's state after one Adam step, and each rank's slice of
+    it as ``local_slice`` holds it, split by ``split``."""
     cfg = config()
     built = seeded_sambert(cfg)
     model, optimizer = built["model"], built["optimizer"]
@@ -946,18 +1009,23 @@ def test_join_slices_inverts_split():
     plan = tp.tp_plan(model, 2)
     names = [k for k, _ in model.named_parameters()]
     sd, opt = model.state_dict(), optimizer.state_dict()
-    slices = []
-    for r in (1, 0):
-        slices.append(dict(
-            model={k: (tp.split(v, plan[k], 2, r) if k in plan else v) for k, v in sd.items()},
-            optimizer={**opt, "state": {i: {k: (tp.split(v, plan[names[i]], 2, r)
-                                                if names[i] in plan and v.ndim else v)
-                                            for k, v in e.items()}
-                                        for i, e in opt["state"].items()}},
-            plan={k: (s.kind, s.dim, s.chunks) for k, s in plan.items()},
-            optimizer_plan={i: names[i] for i in opt["state"] if names[i] in plan},
-            index=r))
-    joined, joined_opt = tp.join_slices(slices)
+    slices = [dict(
+        model={k: (tp.split(v, plan[k], 2, r) if k in plan else v) for k, v in sd.items()},
+        optimizer={**opt, "state": {i: {k: (tp.split(v, plan[names[i]], 2, r)
+                                            if names[i] in plan and v.ndim else v)
+                                        for k, v in e.items()}
+                                    for i, e in opt["state"].items()}},
+        plan={k: (s.kind, s.dim, s.chunks) for k, s in plan.items()},
+        optimizer_plan={i: names[i] for i in opt["state"] if names[i] in plan},
+        index=r) for r in range(2)]
+    return sd, opt, slices
+
+
+def test_join_slices_inverts_split():
+    """``join_slices`` of the ``split`` of every planned entry (model and
+    Adam moments) gives the whole state back, whatever the slices' order."""
+    sd, opt, slices = _split_state()
+    joined, joined_opt = tp.join_slices(slices[::-1])
     assert joined.keys() == sd.keys()
     for k, v in sd.items():
         assert torch.equal(joined[k], v), k
@@ -965,6 +1033,38 @@ def test_join_slices_inverts_split():
         for k, v in entry.items():
             assert torch.equal(joined_opt["state"][i][k], v), (i, k)
     assert tp.slice_path("/s/ckpt/checkpoint-7.ckpt", 1, 2) == "/s/ckpt/checkpoint-7.rank1-of-2.ckpt"
+
+
+@pytest.mark.parametrize("replaced", [True, False])
+def test_join_slice_files_never_joins_another_runs_slice(tmp_path, caplog, replaced):
+    """Rank 1's slice of an earlier run at the same step and config lies
+    where this run's goes: ``join_slice_files`` does not join it. Replaced
+    0.3 s later by this run's, the join waits for it and is whole; left
+    alone, the join gives up at its timeout, writes nothing and names it."""
+    import threading
+
+    sd, _, slices = _split_state()
+    extra = dict(config={"k": 1}, scheduler={}, steps=CRASH_STEP)
+    path = str(tmp_path / f"checkpoint-{CRASH_STEP}.ckpt")
+    write_checkpoint(dict(slices[0], run=7, **extra), tp.slice_path(path, 0, 2))
+    stale = dict(slices[1], run=6, **extra)
+    stale["model"] = {k: torch.zeros_like(v) for k, v in stale["model"].items()}
+    write_checkpoint(stale, tp.slice_path(path, 1, 2))
+    fresh = threading.Timer(0.3, write_checkpoint, (dict(slices[1], run=7, **extra),
+                                                    tp.slice_path(path, 1, 2)))
+    if replaced:
+        fresh.start()
+    t0 = time.perf_counter()
+    payload = tp.join_slice_files(path, 2, 1.5, CRASH_STEP, {"k": 1}, run=7)
+    waited = time.perf_counter() - t0
+    if replaced:
+        fresh.join()
+        assert 0.3 <= waited < 1.5
+        for k, v in sd.items():
+            assert torch.equal(payload["model"][k], v), k
+    else:
+        assert payload is None and waited >= 1.5
+        assert "rank 1 (a slice of another run or step)" in caplog.text
 
 
 # ------------------------------------------------------ sequence parallelism
@@ -1130,3 +1230,5 @@ def test_train_sambert_cli_tensor_parallel(workers):
 
 if __name__ == "__main__" and sys.argv[1] == "worker":
     worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+if __name__ == "__main__" and sys.argv[1] == "interrupted-cli":
+    interrupted_cli(sys.argv[2], sys.argv[3])
