@@ -1,0 +1,12 @@
+"""Share of the traced window in which no kernel, copy or memset ran on
+the card. The window is traced with the device's activity alone, from the
+first launch to the end of the device's last operation. Even so the
+profiler's cost for each of the step's thousands of launches holds the
+host back, so this reads idler than an untraced window would."""
+
+
+def read(run):
+    tr = run.trace and run.trace.device
+    if tr is None or tr.window_s == 0 or tr.busy_s == 0:
+        return None
+    return 100.0 * (1.0 - tr.busy_s / tr.window_s)
