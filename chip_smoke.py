@@ -184,11 +184,11 @@ hifigan_v1_16k, with weights made from a seed:
      576 x 96) and one int8 vocoder call at B=1 on phase 5's step-40
      generator under ``utils/profiling.trace``, whose Chrome trace must
      name K1's ``mas_*`` kernels and K2's 104 ``i8_conv_kernel`` launches;
-     then, once the CLIs have ended, ``profiling.timed`` of the int8 call
-     beside its CUDA-event ms, and the call under ``torch.profiler`` (104
-     K2 device launches, no other K2 kernel, K2's device ms beside the
-     call's wall ms); (c) whether tensorboardX, tensorboard and
-     matplotlib are installed, and phase 4's and 5's eval artifacts as the
+     then, once the CLIs have ended, the int8 call's wall ms between two
+     synchronises beside its CUDA-event ms, and the call under
+     ``torch.profiler`` (104 K2 device launches, no other K2 kernel, K2's
+     device ms beside the call's wall ms); (c) whether tensorboardX,
+     tensorboard and matplotlib are installed, and phase 4's and 5's eval artifacts as the
      trainers wrote them with what there is (the ``.npy`` and wav files;
      PNGs only with matplotlib, TensorBoard events only with a writer).
      K1 launches in (b).
@@ -1068,9 +1068,9 @@ def trace_kernels(tmp: str, voc_ckpt: str, go: str) -> dict:
     ``mas_*`` kernels and 104 ``i8_conv_kernel`` launches (a window whose
     records CUPTI lost is traced again, up to PROFILE_WINDOWS). Then, once
     ``go`` exists (the parent writes it when the card has no other process
-    on it), ``profiling.timed`` of the int8 call beside its CUDA-event ms,
-    and ``k2_profile`` of the same call: K2's device launches and ms a
-    call are profiled here, in a fresh process, because the smoke's own
+    on it), the int8 call's wall ms between two synchronises beside its
+    CUDA-event ms, and ``k2_profile`` of the same call: K2's device
+    launches and ms a call are profiled here, in a fresh process, because the smoke's own
     process loses K2's records too by phase 14 (``k2_profile_in_process``
     logs how many)."""
     import torch
@@ -1114,13 +1114,15 @@ def trace_kernels(tmp: str, voc_ckpt: str, go: str) -> dict:
             if time.perf_counter() > deadline:
                 raise TimeoutError(f"no {go} within 900 s")
             time.sleep(0.05)
-        timed = {}
-        with profiling.timed("int8_vocoder_b1", timed):
-            gen8(mel)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen8(mel)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
         event_ms = cuda_ms(lambda: gen8(mel), 10)
     return {"trace_bytes": os.path.getsize(prof.path), "trace_kernels": len(kernels),
             "k1_kernels": k1, "k2_launches_in_trace": k2,
-            "timed_ms": timed["int8_vocoder_b1"] * 1e3, "cuda_event_ms": event_ms,
+            "timed_ms": wall_ms, "cuda_event_ms": event_ms,
             "windows": len(seen) + 1, "k2_profile": k2_profile(gen8, mel)}
 
 

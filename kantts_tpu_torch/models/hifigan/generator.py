@@ -16,7 +16,9 @@ NSF (``nsf_params``): the input's last two channels are f0 and uv; the
 ``SourceModule`` turns them into a sample-rate excitation e, which stage i
 sees through ``source_downs_i``, a strided conv down to that stage's rate.
 With ``out_channels`` > 1 the output is the PQMF sub-band signal
-(``models/pqmf.py`` synthesises the full band).
+(``models/pqmf.py`` synthesises the full band). The source and each
+``source_downs_i`` run inside the span ``kantts.hifigan.nsf_source``
+(``utils/profiling.py``).
 
 ``dtype`` (bf16 under ``mixed_precision``) is the compute dtype of every
 conv, the source's ``ffn`` included; the stream between them stays in it and
@@ -51,6 +53,7 @@ from kantts_tpu_torch.models.hifigan.layers import (
     get_activation,
     leaky_relu,
 )
+from kantts_tpu_torch.utils.profiling import NSF_SOURCE, span
 
 
 class Generator(nn.Module):
@@ -144,8 +147,9 @@ class Generator(nn.Module):
         else:
             mel = x[:, :, :-2]
             if excitation is None:
-                excitation = self.source_module(x[:, :, -2:-1], x[:, :, -1:],
-                                                generator=generator)
+                with span(NSF_SOURCE):
+                    excitation = self.source_module(x[:, :, -2:-1], x[:, :, -1:],
+                                                    generator=generator)
             if excitation_only:
                 return excitation
             e_in = excitation.transpose(1, 2)
@@ -158,7 +162,7 @@ class Generator(nn.Module):
             if self.nsf_params is None:
                 h = rep + tr_up(h)[:, :, :n]
             else:
-                h = rep + self.source_downs[i](e_in)[:, :, :n] + tr_up(h)[:, :, :n]
+                h = rep + self._source_down(i, e_in)[:, :, :n] + tr_up(h)[:, :, :n]
             blocks = self.conv_blocks[i * self.n_res:(i + 1) * self.n_res]
             acc = blocks[0](h)
             for block in blocks[1:]:
@@ -166,6 +170,12 @@ class Generator(nn.Module):
             h = acc / self.n_res
         h = self.conv_post(leaky_relu(h, 0.01))
         return torch.tanh(h).transpose(1, 2)
+
+    def _source_down(self, i: int, e: torch.Tensor) -> torch.Tensor:
+        """``source_downs[i](e)`` inside the NSF source's span; a call, so
+        that its output is freed as soon as the sum has read it."""
+        with span(NSF_SOURCE):
+            return self.source_downs[i](e)
 
 
 def int8_convs(generator: nn.Module) -> Dict[str, Int8ConvMixin]:

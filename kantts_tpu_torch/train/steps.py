@@ -37,6 +37,8 @@ from torch import nn
 
 from kantts_tpu_torch.losses.losses import Reduce
 from kantts_tpu_torch.parallel import mesh
+from kantts_tpu_torch.utils import profiling
+from kantts_tpu_torch.utils.profiling import span
 
 Metrics = Dict[str, torch.Tensor]
 # SAM-BERT metrics that are equal on every rank, not shares of a sum
@@ -280,7 +282,8 @@ def run_discriminators(discriminators: Discriminators, y: torch.Tensor,
     {name: feature maps})."""
     outs, fmaps = {}, {}
     for name, disc in discriminators.items():
-        outs[name], fmaps[name] = disc(y, update_stats)
+        with span(profiling.gan_net(name)):
+            outs[name], fmaps[name] = disc(y, update_stats)
     return outs, fmaps
 
 
@@ -304,7 +307,8 @@ def generator_losses(generator: nn.Module, discriminators: Discriminators,
     draws from ``rng``. Under data parallelism the STFT losses take their
     sums over the ranks through ``reduce`` and every mean is weighted by
     ``share``, the shard's part of the global batch."""
-    y_ = generator(mel, generator=rng)
+    with span(profiling.GAN_GENERATOR):
+        y_ = generator(mel, generator=rng)
     y_full = pqmf.synthesis(y_) if pqmf is not None else y_
     yt, yt_ = wav[..., 0], y_full[..., 0]
     gen_loss = 0.0
@@ -403,52 +407,67 @@ def make_gan_step(generator: nn.Module, discriminators: Discriminators,
 
     ``data_parallel`` and ``timer``: see ``DataParallel``; the gradients are
     summed over the ranks after each backward, the generator's in one
-    collective and each discriminator family's in one."""
+    collective and each discriminator family's in one.
+
+    A step opens the spans of ``utils/profiling.py``: ``kantts.gan.step``
+    around it, one span a phase (``GAN_PHASES``: ``g_loss``, ``g_backward``,
+    ``g_update``, then ``d_regen``, ``d_loss``, ``d_backward``,
+    ``d_update``; a phase that a gate skips opens none) and one around
+    each network forward."""
     dp = DataParallel(data_parallel, timer)
     disc_params = [p for d in discriminators.values() for p in d.parameters()]
     disc_clips = disc_clips or {}
 
     def step(wav: torch.Tensor, mel: torch.Tensor) -> Metrics:
-        metrics = {}
-        share = dp.batch_share(wav.shape[0], wav)
-        rng_state = rng.get_state() if rng is not None else None
-        if train_generator:
-            gen_optimizer.zero_grad(set_to_none=True)
-            _set_requires_grad(disc_params, False)
-            try:
-                gen_loss, gmetrics = generator_losses(
-                    generator, discriminators, criterion, wav, mel,
-                    include_adversarial, pqmf, rng, dp.reduce, share)
-                gen_loss.backward()
-            finally:
-                _set_requires_grad(disc_params, True)
-            dp.grads(gen_optimizer)
-            if gen_clip is not None:
-                gen_clip()
-            gen_optimizer.step()
-            gen_scheduler.step()
-            metrics.update(gmetrics)
-        if include_adversarial:
-            if rng is not None:
-                rng.set_state(rng_state)
-            with torch.no_grad():
-                y_fake = generator(mel, generator=rng)
-                if pqmf is not None:
-                    y_fake = pqmf.synthesis(y_fake)
-                y_fake = y_fake.transpose(1, 2)
-            for opt in disc_optimizers.values():
-                opt.zero_grad(set_to_none=True)
-            dis_loss, dmetrics = discriminator_losses(
-                discriminators, criterion, wav.transpose(1, 2), y_fake, share)
-            dis_loss.backward()
-            for name in discriminators:
-                dp.grads(disc_optimizers[name])
-                if disc_clips.get(name) is not None:
-                    disc_clips[name]()
-                disc_optimizers[name].step()
-                disc_schedulers[name].step()
-            metrics.update(dmetrics)
-        return dp.metrics(metrics)
+        with span(profiling.GAN_STEP):
+            metrics = {}
+            share = dp.batch_share(wav.shape[0], wav)
+            rng_state = rng.get_state() if rng is not None else None
+            if train_generator:
+                try:
+                    with span(profiling.GAN_G_LOSS):
+                        gen_optimizer.zero_grad(set_to_none=True)
+                        _set_requires_grad(disc_params, False)
+                        gen_loss, gmetrics = generator_losses(
+                            generator, discriminators, criterion, wav, mel,
+                            include_adversarial, pqmf, rng, dp.reduce, share)
+                    with span(profiling.GAN_G_BACKWARD):
+                        gen_loss.backward()
+                finally:
+                    _set_requires_grad(disc_params, True)
+                with span(profiling.GAN_G_UPDATE):
+                    dp.grads(gen_optimizer)
+                    if gen_clip is not None:
+                        gen_clip()
+                    gen_optimizer.step()
+                    gen_scheduler.step()
+                metrics.update(gmetrics)
+            if include_adversarial:
+                with span(profiling.GAN_D_REGEN):
+                    if rng is not None:
+                        rng.set_state(rng_state)
+                    with torch.no_grad():
+                        with span(profiling.GAN_GENERATOR):
+                            y_fake = generator(mel, generator=rng)
+                        if pqmf is not None:
+                            y_fake = pqmf.synthesis(y_fake)
+                        y_fake = y_fake.transpose(1, 2)
+                with span(profiling.GAN_D_LOSS):
+                    for opt in disc_optimizers.values():
+                        opt.zero_grad(set_to_none=True)
+                    dis_loss, dmetrics = discriminator_losses(
+                        discriminators, criterion, wav.transpose(1, 2), y_fake, share)
+                with span(profiling.GAN_D_BACKWARD):
+                    dis_loss.backward()
+                with span(profiling.GAN_D_UPDATE):
+                    for name in discriminators:
+                        dp.grads(disc_optimizers[name])
+                        if disc_clips.get(name) is not None:
+                            disc_clips[name]()
+                        disc_optimizers[name].step()
+                        disc_schedulers[name].step()
+                metrics.update(dmetrics)
+            return dp.metrics(metrics)
 
     return step
 

@@ -46,6 +46,10 @@ interval, the wall seconds of the loop's phases: loader wait, device put,
 step (the host's dispatch, and its waits on the device), eval, save and log
 (the one host sync of the interval), and the collectives' seconds inside
 the steps (``allreduce``, device time from CUDA events on the card).
+Whether or not it is set, each of those loop phases runs inside the span
+``kantts.train.<phase>`` (``utils/profiling.py``), so a ``torch.profiler``
+trace of the loop names the same phases on the kernels' clock; the
+variable switches the seconds log alone.
 """
 
 from __future__ import annotations
@@ -75,6 +79,7 @@ from kantts_tpu_torch.utils import plot
 from kantts_tpu_torch.utils.audio import save_wav
 from kantts_tpu_torch.utils.config import load_yaml, stamp_and_dump
 from kantts_tpu_torch.utils.log import log_to_file
+from kantts_tpu_torch.utils.profiling import span, train_phase
 
 History = List[Tuple[str, int, Dict[str, float]]]
 PROFILE_ENV = "KANTTS_TRAIN_PROFILE"
@@ -347,13 +352,15 @@ class Trainer:
         return batch_to_device(batch, self.device)
 
     def _timed(self, phase: str, fn: Callable, *args):
-        """``fn(*args)``, its wall seconds added to ``phase`` when profiling."""
-        if not self.profile:
-            return fn(*args)
-        t0 = time.perf_counter()
-        out = fn(*args)
-        self.phase_seconds[phase] += time.perf_counter() - t0
-        return out
+        """``fn(*args)`` inside the span ``kantts.train.<phase>``, its wall
+        seconds added to ``phase`` when profiling."""
+        with span(train_phase(phase)):
+            if not self.profile:
+                return fn(*args)
+            t0 = time.perf_counter()
+            out = fn(*args)
+            self.phase_seconds[phase] += time.perf_counter() - t0
+            return out
 
     def train_epoch(self):
         batches = iter(self.train_loader)

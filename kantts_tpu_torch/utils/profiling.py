@@ -1,10 +1,20 @@
-"""Tracing and timing tools (counterpart of ``kantts_tpu/utils/profiling.py``).
+"""Tracing tools (counterpart of ``kantts_tpu/utils/profiling.py``).
 
-``trace`` records a region with ``torch.profiler`` and writes a Chrome
-trace; ``timed`` wall-clocks a region up to the end of the device work it
-queued; ``rtf_report`` is a copy of the JAX package's. The JAX package's
-``start_profiler_server`` (a server that TensorBoard's profile plugin
-captures from) has no PyTorch counterpart: take a ``trace`` instead.
+``span`` opens one of the port's named spans: a ``torch.profiler``
+record-function region while a profiler records, on the clock of the
+kernels it traces, and a shared no-op otherwise. ``trace`` records a
+region with ``torch.profiler`` and writes a Chrome trace; ``rtf_report``
+is a copy of the JAX package's.
+
+Every span name is listed here once. Names read ``kantts.<layer>.<what>``:
+
+- ``GAN_STEP``: one ``make_gan_step`` step; inside it ``GAN_PHASES``, as
+  the step runs them; inside those, ``GAN_GENERATOR`` around each
+  generator forward and ``gan_net(family)`` around each discriminator
+  family's;
+- ``NSF_SOURCE``: the NSF generator's ``source_module`` and each
+  ``source_downs`` conv;
+- ``train_phase(phase)``: a phase of the trainers' loop (``TRAIN_PHASES``).
 """
 
 from __future__ import annotations
@@ -13,17 +23,45 @@ import contextlib
 import logging
 import os
 import time
-from typing import Iterator, Optional
+from typing import ContextManager, Iterator
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+GAN_STEP = "kantts.gan.step"
+GAN_G_LOSS = "kantts.gan.g_loss"
+GAN_G_BACKWARD = "kantts.gan.g_backward"
+GAN_G_UPDATE = "kantts.gan.g_update"
+GAN_D_REGEN = "kantts.gan.d_regen"
+GAN_D_LOSS = "kantts.gan.d_loss"
+GAN_D_BACKWARD = "kantts.gan.d_backward"
+GAN_D_UPDATE = "kantts.gan.d_update"
+GAN_PHASES = (GAN_G_LOSS, GAN_G_BACKWARD, GAN_G_UPDATE, GAN_D_REGEN, GAN_D_LOSS,
+              GAN_D_BACKWARD, GAN_D_UPDATE)
+GAN_GENERATOR = "kantts.gan.net.generator"
+NSF_SOURCE = "kantts.hifigan.nsf_source"
+TRAIN_PHASES = ("loader_wait", "device_put", "step", "eval", "save", "log")
+
+_OFF = contextlib.nullcontext()
 
 
-def start_profiler_server(port: int = 9999) -> None:
-    """Not ported: PyTorch has no profiler server to capture from."""
-    raise NotImplementedError(
-        "start_profiler_server has no PyTorch counterpart (the JAX package "
-        "starts jax.profiler's server); record a region with "
-        "kantts_tpu_torch.utils.profiling.trace(log_dir) instead")
+def gan_net(name: str) -> str:
+    """The span of one discriminator family's forward in the GAN step."""
+    return f"kantts.gan.net.{name}"
+
+
+def train_phase(phase: str) -> str:
+    """The span of one of the trainers' loop phases."""
+    return f"kantts.train.{phase}"
+
+
+def span(name: str) -> ContextManager:
+    """The span ``name``: ``torch.profiler.record_function(name)`` while a
+    profiler records, else a shared no-op context (entering a
+    record-function region costs microseconds even with no profiler)."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 def _sync() -> None:
@@ -51,21 +89,6 @@ def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
     prof.path = os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
     prof.export_chrome_trace(prof.path)
     logging.info("[trace] %s", prof.path)
-
-
-@contextlib.contextmanager
-def timed(name: str, results: Optional[dict] = None) -> Iterator[None]:
-    """Wall-clock a region. Once CUDA is in use the clock is read after a
-    synchronise of the current device at both ends, so the region's time
-    holds the device work it queued and none queued before it."""
-    _sync()
-    t0 = time.perf_counter()
-    yield
-    _sync()
-    elapsed = time.perf_counter() - t0
-    if results is not None:
-        results[name] = elapsed
-    logging.info("[timed] %s: %.4fs", name, elapsed)
 
 
 def rtf_report(audio_seconds: float, wall_seconds: float, name: str = "synthesis"

@@ -14,6 +14,7 @@ regenerated, shows at once), every metric rtol 1e-5. Three Adam steps: see
 ``test_three_adam_steps_match_jax``.
 """
 
+import collections
 import glob
 import logging
 import os
@@ -65,12 +66,14 @@ from kantts_tpu_torch.utils.convert import (
     mpd_state_dict_from_jax,
     msd_state_dict_from_jax,
 )
-from kantts_tpu_torch.utils import plot
+from kantts_tpu_torch.utils import plot, profiling
 from kantts_tpu_torch.utils.corpus import write_voc_corpus
 from test_sambert import TINY
 from test_torch_port_tools import (  # noqa: F401 - torch_one_thread is a fixture
     assert_same_checkpoint,
     assert_scalars_match_log,
+    cpu_profile,
+    recorded_spans,
     torch_one_thread,
 )
 from test_train_steps import GEN_CFG, LOSS_CFG
@@ -402,6 +405,52 @@ def test_sgd_gan_step_matches_jax(gates):
     disc_moved = any(not torch.equal(before[n][k], v) for n, d in pair.discs.items()
                      for k, v in d.state_dict().items())
     assert gen_moved == train_generator and disc_moved == include_adversarial
+
+
+@pytest.mark.parametrize("gates", list(GATES))
+def test_gan_step_spans(gates):
+    """One step under a CPU profiler: one ``kantts.gan.step``; inside it the
+    phases the gates open, once each, in order and apart (the generator's
+    three with ``train_generator``, the discriminators' four with
+    ``include_adversarial``); the generator's forward in ``g_loss`` and
+    ``d_regen``; each discriminator family's in each loss phase once a
+    pass through ``run_discriminators`` (fake and real: feature maps in
+    ``g_loss``, scores in ``d_loss``), none with the adversarial terms
+    off; no network span outside a phase."""
+    train_generator, include_adversarial = GATES[gates]
+    torch.manual_seed(0)
+    gen = Generator(**GEN).train()
+    discs = {n: DISCS[n][1](**DISCS[n][3]).train() for n in DISCS}
+    gen_opt, gen_sched, _ = optimizer_builder(gen.parameters(), ADAM, MULTISTEP)
+    parts = {n: optimizer_builder(d.parameters(), ADAM, MULTISTEP) for n, d in discs.items()}
+    step = make_gan_step(gen, discs, criterion_builder(LOSS_CFG), gen_opt, gen_sched,
+                         {n: p[0] for n, p in parts.items()},
+                         {n: p[1] for n, p in parts.items()},
+                         train_generator=train_generator,
+                         include_adversarial=include_adversarial)
+    wav, mel = (torch.from_numpy(a) for a in _batch())
+    with cpu_profile() as prof:
+        step(wav, mel)
+    spans = recorded_spans(prof, "kantts.gan.")
+    (name, t0, t1), = [s for s in spans if s[0] == profiling.GAN_STEP]
+    assert all(t0 <= a and b <= t1 for _, a, b in spans)
+    phases = [s for s in spans if s[0] in profiling.GAN_PHASES]
+    g, d = profiling.GAN_PHASES[:3], profiling.GAN_PHASES[3:]
+    assert [s[0] for s in phases] == ([*g] if train_generator else []) + (
+        [*d] if include_adversarial else [])
+    assert all(a[2] <= b[1] for a, b in zip(phases, phases[1:]))
+    fams = {profiling.gan_net(n): 2 for n in DISCS}
+    want = {profiling.GAN_G_LOSS: {profiling.GAN_GENERATOR: 1,
+                                   **(fams if include_adversarial else {})},
+            profiling.GAN_D_REGEN: {profiling.GAN_GENERATOR: 1},
+            profiling.GAN_D_LOSS: fams}
+    nets = [s for s in spans if s[0].startswith("kantts.gan.net.")]
+    inside = 0
+    for phase, a, b in phases:
+        got = collections.Counter(n for n, x, y in nets if a <= x and y <= b)
+        assert got == want.get(phase, {}), phase
+        inside += sum(got.values())
+    assert inside == len(nets)
 
 
 def test_three_adam_steps_match_jax():

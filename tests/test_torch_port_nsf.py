@@ -60,11 +60,13 @@ from kantts_tpu_torch.models.sambert.sambert import KanTtsSAMBERT, sambert_infer
 from kantts_tpu_torch.text.ling_unit import KanTtsLinguisticUnit
 from kantts_tpu_torch.train.steps import sambert_losses
 from kantts_tpu_torch.utils.convert import hifigan_state_dict_from_jax, sambert_state_dict_from_jax
+from kantts_tpu_torch.utils import profiling
 from kantts_tpu_torch.utils.corpus import write_am_corpus, write_voc_corpus
 from test_sambert import TINY
 from test_torch_port_hifigan import small_generator_cfg
 from test_torch_port_slice import ROOT, TEXTS, _symbols
 from test_torch_port_stream import _capture_wavs
+from test_torch_port_tools import cpu_profile, recorded_spans
 from test_torch_port_train import (
     MAS_LOSSES,
     EPOCH,
@@ -203,6 +205,25 @@ def test_nsf_generator_matches_jax(causal, spied_draws):
     plain = port_generator(small_generator_cfg(causal), None)
     with pytest.raises(ValueError, match="NSF-only"):
         plain(t_mel[..., :80], excitation=e)
+
+
+def test_nsf_source_spans():
+    """A forward that draws its source leaves one ``kantts.hifigan.nsf_source``
+    span for the source and one for each ``source_downs`` conv; with an
+    excitation given, the convs' alone."""
+    cfg = nsf_generator_cfg(True, in_channels=20)
+    port = hifigan_model_builder({"model_type": "hifigan",
+                                  "Model": {"Generator": {"params": cfg}}}, seed=2)
+    mel = torch.from_numpy(nsf_mel(np.random.RandomState(3), 1, 9, n_mels=20))
+    n = len(port.source_downs)
+    assert n == len(cfg["upsample_scales"])
+    with torch.no_grad(), cpu_profile() as prof:
+        e = port(mel, excitation_only=True, generator=torch.Generator().manual_seed(0))
+        port(mel, generator=torch.Generator().manual_seed(0))
+        port(mel, excitation=e)
+    names = [s[0] for s in recorded_spans(prof)]
+    # the source alone, then the source and the n convs, then the n convs
+    assert names == [profiling.NSF_SOURCE] * (1 + (1 + n) + n)
 
 
 @pytest.mark.parametrize("T,n_chunks", [(37, 4), (100, 8)])

@@ -1,9 +1,10 @@
 """The port's training and utils tooling on the CPU: ``utils/profiling.py``
-(``trace``, ``timed``), ``utils/plot.py`` against the JAX package's figures,
-the checkpoint write path (``models/builder.py::write_checkpoint``, the
-trainer's ``HostSnapshot`` and ``AsyncCheckpointWriter``), and the
-trainer's TensorBoard scalars, on a toy trainer whose steps are exact, so
-that its asynchronous and synchronous runs must write equal files.
+(``trace``, ``span``, the trainers' phase spans), ``utils/plot.py``
+against the JAX package's figures, the checkpoint write path
+(``models/builder.py::write_checkpoint``, the trainer's ``HostSnapshot``
+and ``AsyncCheckpointWriter``), and the trainer's TensorBoard scalars, on
+a toy trainer whose steps are exact, so that its asynchronous and
+synchronous runs must write equal files.
 
 Also the helpers the ``train_sambert`` and ``train_hifigan`` CLI tests use
 to compare checkpoints tensor by tensor and to read TensorBoard events
@@ -143,20 +144,49 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     assert any(e.key == "aten::mm" for e in prof.key_averages())
 
 
-def test_timed_fills_results(caplog):
-    results = {}
-    with caplog.at_level(logging.INFO):
-        with profiling.timed("sum", results):
-            torch.randn(1000).sum()
-        with profiling.timed("unstored"):
-            pass
-    assert results.keys() == {"sum"} and results["sum"] > 0
-    assert "[timed] sum: " in caplog.text and "[timed] unstored: " in caplog.text
+def recorded_spans(prof, prefix="kantts."):
+    """[(name, start, end)] of the spans named ``prefix...`` that a
+    ``torch.profiler.profile`` recorded, in order of their start."""
+    return sorted(((e.name, e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.name.startswith(prefix)),
+                  key=lambda s: s[1])
 
 
-def test_start_profiler_server_names_its_replacement():
-    with pytest.raises(NotImplementedError, match=r"trace\(log_dir\)"):
-        profiling.start_profiler_server()
+def cpu_profile():
+    return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
+
+
+def test_span_costs_no_record_function_without_a_profiler(monkeypatch):
+    """With no profiler recording, ``span`` is the shared no-op and never
+    enters ``record_function``; under one, it records the region."""
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) entered with no profiler")
+
+    with monkeypatch.context() as m:
+        m.setattr(torch.profiler, "record_function", refuse)
+        with profiling.span(profiling.GAN_STEP) as a, profiling.span("kantts.x.y") as b:
+            torch.ones(2).sum()
+        assert a is None and b is None
+        assert profiling.span("kantts.x.y") is profiling.span(profiling.NSF_SOURCE)
+    with cpu_profile() as prof:
+        with profiling.span(profiling.NSF_SOURCE):
+            torch.ones(2).sum()
+    assert [s[0] for s in recorded_spans(prof)] == [profiling.NSF_SOURCE]
+
+
+def test_trainer_phases_are_spans(tmp_path):
+    """Each phase of the loop runs inside ``kantts.train.<phase>`` with the
+    seconds log off: 6 steps of 3-batch epochs make one ``step`` span a
+    step and one ``loader_wait`` a batch, plus one for the first epoch's
+    end."""
+    trainer = ToyTrainer(tmp_path, {})
+    with cpu_profile() as prof:
+        run(trainer)
+    names = [s[0] for s in recorded_spans(prof, "kantts.train.")]
+    assert not trainer.profile
+    assert set(names) == {profiling.train_phase(p) for p in profiling.TRAIN_PHASES}
+    assert names.count(profiling.train_phase("step")) == 6
+    assert names.count(profiling.train_phase("loader_wait")) == 7
 
 
 # -------------------------------------------------------------------- plot
