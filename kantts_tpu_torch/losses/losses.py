@@ -309,14 +309,18 @@ class STFTLoss:
         self.shift_size = shift_size
         self.win_length = win_length
         self.window = torch.from_numpy(hann_window(win_length))
+        self._on: dict = {}  # device -> the window there
 
     def sums(self, x, y) -> Tuple[torch.Tensor, ...]:
         """-> the shard's ||y - x||^2, ||y||^2, sum |log y - log x| and its
         count of magnitudes, the sums that the two terms are made of."""
+        if x.device not in self._on:  # once: no copy from the host in a step
+            self._on[x.device] = self.window.to(x.device)
+        window = self._on[x.device]
         x_mag = stft_magnitude(x, self.fft_size, self.shift_size,
-                               self.win_length, self.window)
+                               self.win_length, window)
         y_mag = stft_magnitude(y, self.fft_size, self.shift_size,
-                               self.win_length, self.window)
+                               self.win_length, window)
         return (((y_mag - x_mag) ** 2).sum(), (y_mag ** 2).sum(),
                 (torch.log(y_mag) - torch.log(x_mag)).abs().sum(),
                 y_mag.new_full((), y_mag.numel(), dtype=torch.int64))

@@ -11,6 +11,9 @@ name. The update is the one the JAX package's optax chain makes:
 - the gradient is clipped to a global norm before the update, as optax's
   ``clip_by_global_norm`` does: scaled by max_norm / norm when the norm is
   at least max_norm, with no epsilon added to the norm.
+
+``make_capturable`` readies an Adam or AdamW for a CUDA graph of its update
+(``train/steps.py::make_gan_step``), with no change to its checkpoints.
 """
 
 from __future__ import annotations
@@ -80,3 +83,31 @@ def optimizer_builder(params: Iterable[torch.nn.Parameter],
         def clip() -> torch.Tensor:
             return clip_by_global_norm(params, grad_norm)
     return optimizer, scheduler, clip
+
+
+def make_capturable(optimizer: torch.optim.Optimizer) -> None:
+    """Let ``optimizer``'s update be captured in a CUDA graph: ``capturable``
+    on in every group, and every step count on its parameter's device (a
+    resumed state holds them on the host), so that the count and the bias
+    correction live on the device. Its ``state_dict()`` keeps the plain
+    format all the same, ``capturable`` off and the step counts on the
+    host, so that a checkpoint loads into a fresh optimizer on any device.
+    Only an optimizer with the option (Adam, AdamW) takes it."""
+    if all(group["capturable"] for group in optimizer.param_groups):
+        return
+    for group in optimizer.param_groups:
+        group["capturable"] = True
+        for p in group["params"]:
+            state = optimizer.state.get(p, {})
+            if torch.is_tensor(state.get("step")) and state["step"].device != p.device:
+                state["step"] = state["step"].to(p.device)
+    optimizer.register_state_dict_post_hook(_plain_state_dict)
+
+
+def _plain_state_dict(optimizer: torch.optim.Optimizer, state_dict: dict) -> dict:
+    for group in state_dict["param_groups"]:  # copies of the live groups
+        group["capturable"] = False
+    state_dict["state"] = {  # the live states' entries, in new dicts
+        k: dict(s, step=s["step"].cpu()) if torch.is_tensor(s.get("step")) else s
+        for k, s in state_dict["state"].items()}
+    return state_dict

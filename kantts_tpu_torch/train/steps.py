@@ -11,7 +11,9 @@ generator losses and update, the fake regenerated by the updated generator,
 then the discriminator losses and one update per discriminator family.
 Steps take device tensors and return their metrics as detached device
 scalars: nothing in a step reads a value back to the host, so the caller
-decides when to wait (the trainer does at log time).
+decides when to wait (the trainer does at log time). On a CUDA device a GAN
+step function replays one CUDA graph of its step from its second call on,
+where the step allows it (``make_gan_step``).
 
 Data parallelism (``data_parallel``, by default whenever the process is in a
 process group; ``parallel/mesh.py``): each rank runs its shard of the global
@@ -37,6 +39,7 @@ from torch import nn
 
 from kantts_tpu_torch.losses.losses import Reduce
 from kantts_tpu_torch.parallel import mesh
+from kantts_tpu_torch.train import optim
 from kantts_tpu_torch.utils import profiling
 from kantts_tpu_torch.utils.profiling import span
 
@@ -377,6 +380,97 @@ def _set_requires_grad(params: Iterable[nn.Parameter], flag: bool) -> None:
         p.requires_grad_(flag)
 
 
+class _StepGraph:
+    """The CUDA graph of one GAN step function's ``body`` (its losses,
+    backward passes and updates, without the schedules), for the shapes of
+    its first batch.
+
+    The first call is the warm-up: the optimizers are made capturable
+    (``optim.make_capturable``), then ``eager`` runs a real step on a side
+    stream, which makes cuDNN's, cuFFT's and cuBLAS's state and Adam's
+    before anything is captured. The next call of those shapes captures
+    ``body`` on copies of its inputs and replays it once (a capture runs
+    nothing, so that replay is the step); every later one copies its
+    inputs in and replays. A call of other shapes runs ``eager``.
+
+    Each optimizer group's learning rate is a device tensor during the
+    capture alone, filled from the group's float before every replay: the
+    replay follows the schedules, which step after it, and the groups, the
+    schedules and their checkpoints keep floats. The metrics of a replay are
+    new tensors, one stack of the graph's own a dtype, so a caller may hold
+    them across steps. The graph holds the optimizers' state tensors: state
+    is loaded into the optimizers before the first step, not after."""
+
+    def __init__(self, body: Callable, schedule: Callable[[], None],
+                 eager: Callable, optimizers, stats: Dict[str, int]):
+        self.body, self.schedule, self.eager = body, schedule, eager
+        self.optimizers, self.stats = optimizers, stats
+        self.key = self.graph = None
+
+    def takes(self, wav: torch.Tensor, mel: torch.Tensor) -> bool:
+        if self.key is None:
+            return wav.is_cuda and all(p.device == wav.device for o in self.optimizers
+                                       for g in o.param_groups for p in g["params"])
+        return _batch_key(wav, mel) == self.key
+
+    def __call__(self, wav: torch.Tensor, mel: torch.Tensor) -> Metrics:
+        if self.key is None:
+            return self.warm_up(wav, mel)
+        if self.graph is None:
+            self.capture(wav, mel)
+        else:
+            self.wav.copy_(wav)
+            self.mel.copy_(mel)
+        with span(profiling.GAN_REPLAY):
+            for lr, group in self.lrs:
+                lr.fill_(group["lr"])
+            self.graph.replay()
+        self.stats["replays"] += 1
+        self.schedule()
+        out = {}
+        for keys, values in self.outputs:
+            out.update(zip(keys, torch.stack(values).unbind()))
+        return {k: out[k] for k in self.order}
+
+    def warm_up(self, wav: torch.Tensor, mel: torch.Tensor) -> Metrics:
+        for opt in self.optimizers:
+            optim.make_capturable(opt)
+        side, main = torch.cuda.Stream(wav.device), torch.cuda.current_stream(wav.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            metrics = self.eager(wav, mel)
+        main.wait_stream(side)
+        self.key = _batch_key(wav, mel)
+        self.stats["eager"] += 1
+        return metrics
+
+    def capture(self, wav: torch.Tensor, mel: torch.Tensor) -> None:
+        self.wav, self.mel = wav.clone(), mel.clone()
+        groups = [g for o in self.optimizers for g in o.param_groups]
+        rates = [g["lr"] for g in groups]
+        self.lrs = [(torch.full((), r, device=wav.device), g) for r, g in zip(rates, groups)]
+        graph = torch.cuda.CUDAGraph()
+        try:
+            for lr, group in self.lrs:
+                group["lr"] = lr
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                metrics = self.body(self.wav, self.mel)
+        finally:
+            for rate, group in zip(rates, groups):
+                group["lr"] = rate
+        by_dtype: Dict[torch.dtype, list] = {}
+        for k, v in metrics.items():
+            by_dtype.setdefault(v.dtype, []).append(k)
+        self.outputs = [(keys, [metrics[k] for k in keys]) for keys in by_dtype.values()]
+        self.order = list(metrics)
+        self.graph = graph
+        self.stats["captures"] += 1
+
+
+def _batch_key(wav: torch.Tensor, mel: torch.Tensor) -> tuple:
+    return (wav.shape, wav.dtype, wav.device, mel.shape, mel.dtype, mel.device)
+
+
 def make_gan_step(generator: nn.Module, discriminators: Discriminators,
                   criterion: Dict[str, Any],
                   gen_optimizer: torch.optim.Optimizer,
@@ -400,75 +494,120 @@ def make_gan_step(generator: nn.Module, discriminators: Discriminators,
 
     1. Generator losses with the discriminators frozen (the JAX step
        differentiates the generator's parameters only), backward, clip,
-       update, schedule.
+       update.
     2. With ``include_adversarial``: the fake regenerated by the updated
        generator without gradient, the discriminator losses, backward, and
-       per family clip, update, schedule.
+       per family clip and update.
+    3. The schedules of the optimizers the step updated.
 
     ``data_parallel`` and ``timer``: see ``DataParallel``; the gradients are
     summed over the ranks after each backward, the generator's in one
     collective and each discriminator family's in one.
 
+    On a CUDA device, 1 and 2 run as one CUDA graph (``_StepGraph``) from
+    the step function's second call on, where what the step can observe
+    allows it: no data parallelism, a generator with no NSF source (its
+    draws rewind ``rng`` between the two forwards), Adam or AdamW
+    optimizers (``capturable``), and the shapes and dtypes of the first
+    batch. Every other call runs them eagerly. ``step.graph`` is the
+    ``_StepGraph``, None where no call can replay; ``step.graph_stats``
+    counts the calls: ``captures``, ``replays`` and ``eager``;
+    ``step.eager`` is the step run eagerly, what the graph captures, for
+    tests to hold the graph against.
+
     A step opens the spans of ``utils/profiling.py``: ``kantts.gan.step``
-    around it, one span a phase (``GAN_PHASES``: ``g_loss``, ``g_backward``,
-    ``g_update``, then ``d_regen``, ``d_loss``, ``d_backward``,
-    ``d_update``; a phase that a gate skips opens none) and one around
-    each network forward."""
+    around it; on an eager step one span a phase (``GAN_PHASES``:
+    ``g_loss``, ``g_backward``, ``g_update``, then ``d_regen``, ``d_loss``,
+    ``d_backward``, ``d_update``; a phase that a gate skips opens none) and
+    one around each network forward; on a replay ``kantts.gan.replay``."""
     dp = DataParallel(data_parallel, timer)
     disc_params = [p for d in discriminators.values() for p in d.parameters()]
     disc_clips = disc_clips or {}
+    optimizers = (([gen_optimizer] if train_generator else [])
+                  + (list(disc_optimizers.values()) if include_adversarial else []))
+
+    def body(wav: torch.Tensor, mel: torch.Tensor,
+             rewind: Optional[Callable[[], None]] = None) -> Metrics:
+        metrics = {}
+        share = dp.batch_share(wav.shape[0], wav)
+        if train_generator:
+            try:
+                with span(profiling.GAN_G_LOSS):
+                    gen_optimizer.zero_grad(set_to_none=True)
+                    _set_requires_grad(disc_params, False)
+                    gen_loss, gmetrics = generator_losses(
+                        generator, discriminators, criterion, wav, mel,
+                        include_adversarial, pqmf, rng, dp.reduce, share)
+                with span(profiling.GAN_G_BACKWARD):
+                    gen_loss.backward()
+            finally:
+                _set_requires_grad(disc_params, True)
+            with span(profiling.GAN_G_UPDATE):
+                dp.grads(gen_optimizer)
+                if gen_clip is not None:
+                    gen_clip()
+                gen_optimizer.step()
+            metrics.update(gmetrics)
+        if include_adversarial:
+            with span(profiling.GAN_D_REGEN):
+                if rewind is not None:
+                    rewind()
+                with torch.no_grad():
+                    with span(profiling.GAN_GENERATOR):
+                        y_fake = generator(mel, generator=rng)
+                    if pqmf is not None:
+                        y_fake = pqmf.synthesis(y_fake)
+                    y_fake = y_fake.transpose(1, 2)
+            with span(profiling.GAN_D_LOSS):
+                for opt in disc_optimizers.values():
+                    opt.zero_grad(set_to_none=True)
+                dis_loss, dmetrics = discriminator_losses(
+                    discriminators, criterion, wav.transpose(1, 2), y_fake, share)
+            with span(profiling.GAN_D_BACKWARD):
+                dis_loss.backward()
+            with span(profiling.GAN_D_UPDATE):
+                for name in discriminators:
+                    dp.grads(disc_optimizers[name])
+                    if disc_clips.get(name) is not None:
+                        disc_clips[name]()
+                    disc_optimizers[name].step()
+            metrics.update(dmetrics)
+        return dp.metrics(metrics)
+
+    def schedule() -> None:
+        if train_generator:
+            gen_scheduler.step()
+        if include_adversarial:
+            for name in discriminators:
+                disc_schedulers[name].step()
+
+    def eager(wav: torch.Tensor, mel: torch.Tensor) -> Metrics:
+        rewind = None
+        if rng is not None:
+            rewind = functools.partial(rng.set_state, rng.get_state())
+        metrics = body(wav, mel, rewind)
+        schedule()
+        return metrics
+
+    stats = {"captures": 0, "replays": 0, "eager": 0}
+    graph = None
+    if (optimizers and not dp.enabled
+            and getattr(generator, "nsf_params", None) is None
+            and all("capturable" in o.defaults for o in optimizers)):
+        graph = _StepGraph(body, schedule, eager, optimizers, stats)
 
     def step(wav: torch.Tensor, mel: torch.Tensor) -> Metrics:
         with span(profiling.GAN_STEP):
-            metrics = {}
-            share = dp.batch_share(wav.shape[0], wav)
-            rng_state = rng.get_state() if rng is not None else None
-            if train_generator:
-                try:
-                    with span(profiling.GAN_G_LOSS):
-                        gen_optimizer.zero_grad(set_to_none=True)
-                        _set_requires_grad(disc_params, False)
-                        gen_loss, gmetrics = generator_losses(
-                            generator, discriminators, criterion, wav, mel,
-                            include_adversarial, pqmf, rng, dp.reduce, share)
-                    with span(profiling.GAN_G_BACKWARD):
-                        gen_loss.backward()
-                finally:
-                    _set_requires_grad(disc_params, True)
-                with span(profiling.GAN_G_UPDATE):
-                    dp.grads(gen_optimizer)
-                    if gen_clip is not None:
-                        gen_clip()
-                    gen_optimizer.step()
-                    gen_scheduler.step()
-                metrics.update(gmetrics)
-            if include_adversarial:
-                with span(profiling.GAN_D_REGEN):
-                    if rng is not None:
-                        rng.set_state(rng_state)
-                    with torch.no_grad():
-                        with span(profiling.GAN_GENERATOR):
-                            y_fake = generator(mel, generator=rng)
-                        if pqmf is not None:
-                            y_fake = pqmf.synthesis(y_fake)
-                        y_fake = y_fake.transpose(1, 2)
-                with span(profiling.GAN_D_LOSS):
-                    for opt in disc_optimizers.values():
-                        opt.zero_grad(set_to_none=True)
-                    dis_loss, dmetrics = discriminator_losses(
-                        discriminators, criterion, wav.transpose(1, 2), y_fake, share)
-                with span(profiling.GAN_D_BACKWARD):
-                    dis_loss.backward()
-                with span(profiling.GAN_D_UPDATE):
-                    for name in discriminators:
-                        dp.grads(disc_optimizers[name])
-                        if disc_clips.get(name) is not None:
-                            disc_clips[name]()
-                        disc_optimizers[name].step()
-                        disc_schedulers[name].step()
-                metrics.update(dmetrics)
-            return dp.metrics(metrics)
+            if graph is not None and graph.takes(wav, mel):
+                return graph(wav, mel)
+            stats["eager"] += 1
+            return eager(wav, mel)
 
+    def step_eagerly(wav: torch.Tensor, mel: torch.Tensor) -> Metrics:
+        with span(profiling.GAN_STEP):
+            return eager(wav, mel)
+
+    step.graph, step.graph_stats, step.eager = graph, stats, step_eagerly
     return step
 
 

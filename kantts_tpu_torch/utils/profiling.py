@@ -8,10 +8,11 @@ is a copy of the JAX package's.
 
 Every span name is listed here once. Names read ``kantts.<layer>.<what>``:
 
-- ``GAN_STEP``: one ``make_gan_step`` step; inside it ``GAN_PHASES``, as
-  the step runs them; inside those, ``GAN_GENERATOR`` around each
-  generator forward and ``gan_net(family)`` around each discriminator
-  family's;
+- ``GAN_STEP``: one ``make_gan_step`` step. On a step that runs eagerly,
+  inside it ``GAN_PHASES``, as the step runs them, and inside those
+  ``GAN_GENERATOR`` around each generator forward and ``gan_net(family)``
+  around each discriminator family's; on a step that replays its CUDA
+  graph, ``GAN_REPLAY`` alone (Python does not run inside a replay);
 - ``NSF_SOURCE``: the NSF generator's ``source_module`` and each
   ``source_downs`` conv;
 - ``train_phase(phase)``: a phase of the trainers' loop (``TRAIN_PHASES``).
@@ -38,6 +39,7 @@ GAN_D_BACKWARD = "kantts.gan.d_backward"
 GAN_D_UPDATE = "kantts.gan.d_update"
 GAN_PHASES = (GAN_G_LOSS, GAN_G_BACKWARD, GAN_G_UPDATE, GAN_D_REGEN, GAN_D_LOSS,
               GAN_D_BACKWARD, GAN_D_UPDATE)
+GAN_REPLAY = "kantts.gan.replay"
 GAN_GENERATOR = "kantts.gan.net.generator"
 NSF_SOURCE = "kantts.hifigan.nsf_source"
 TRAIN_PHASES = ("loader_wait", "device_put", "step", "eval", "save", "log")

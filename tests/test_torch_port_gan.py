@@ -59,7 +59,9 @@ from kantts_tpu_torch.models.hifigan.discriminators import (
     MultiScaleDiscriminator,
 )
 from kantts_tpu_torch.models.hifigan.generator import Generator
-from kantts_tpu_torch.train.optim import optimizer_builder
+from kantts_tpu_torch.parallel import mesh
+from kantts_tpu_torch.train import steps as port_steps
+from kantts_tpu_torch.train.optim import make_capturable, optimizer_builder
 from kantts_tpu_torch.train.steps import make_gan_eval_step, make_gan_step
 from kantts_tpu_torch.utils.convert import (
     hifigan_state_dict_from_jax,
@@ -451,6 +453,126 @@ def test_gan_step_spans(gates):
         assert got == want.get(phase, {}), phase
         inside += sum(got.values())
     assert inside == len(nets)
+
+
+def _seeded_gan(gen_cfg=GEN, seed=0):
+    """The port's generator and discriminators at the test widths, drawn by
+    ``init_parameters`` from ``seed`` as ``hifigan_gan_builder`` draws them,
+    with Adam and MultiStepLR each: (networks, {name: optimizer}, {name:
+    schedule}), the generator first."""
+    nets = {"Generator": Generator(**gen_cfg),
+            **{n: DISCS[n][1](**DISCS[n][3]) for n in DISCS}}
+    for i, net in enumerate(nets.values()):
+        init_parameters(net, seed + i)
+        net.train()
+    parts = {n: optimizer_builder(m.parameters(), ADAM, MULTISTEP) for n, m in nets.items()}
+    return nets, {n: p[0] for n, p in parts.items()}, {n: p[1] for n, p in parts.items()}
+
+
+def _gan_step(nets, opts, scheds, **kw):
+    discs = {n: m for n, m in nets.items() if n != "Generator"}
+    return make_gan_step(nets["Generator"], discs, criterion_builder(LOSS_CFG),
+                         opts["Generator"], scheds["Generator"],
+                         {n: opts[n] for n in discs}, {n: scheds[n] for n in discs}, **kw)
+
+
+@pytest.mark.parametrize("case", ["cpu", "data_parallel", "nsf", "new_shape"])
+def test_gan_step_graph_only_where_it_can_replay(case, tmp_path):
+    """The step replays a CUDA graph only on a card, without data
+    parallelism, with a generator that draws nothing and on the shapes of
+    its warm-up; every other call runs eagerly and counts as ``eager``.
+    Under data parallelism or with an NSF generator (whose two forwards
+    rewind ``rng`` between them) the step holds no graph at all; on the CPU
+    it holds one that never warms up; a batch of other shapes than the
+    warm-up's (its key set here as a card's first call sets it) runs
+    eagerly."""
+    wav, mel = (torch.from_numpy(a) for a in _batch())
+    kw, calls = {}, [(wav, mel), (wav, mel)]
+    gen_cfg = GEN
+    if case == "nsf":
+        gen_cfg = dict(GEN, nsf_params={"nb_harmonics": 7, "sampling_rate": 16000})
+        f0 = torch.full((B, FRAMES, 1), 150.0)
+        uv = (torch.arange(FRAMES) % 3 != 0).float()[None, :, None].expand(B, -1, -1)
+        calls = [(wav, torch.cat([mel, f0, uv], -1))]
+        kw["rng"] = torch.Generator().manual_seed(0)
+    if case == "data_parallel":
+        store = torch.distributed.FileStore(str(tmp_path / "store"), 1)
+        torch.distributed.init_process_group("gloo", store=store, rank=0, world_size=1)
+        kw["data_parallel"] = True
+    try:
+        step = _gan_step(*_seeded_gan(gen_cfg), **kw)
+        if case == "new_shape":
+            step.graph.key = port_steps._batch_key(wav, mel)
+            calls = [(wav[:1], mel[:1]), (wav[..., :HOP * (FRAMES - 2), :], mel[:, :-2])]
+            assert step.graph.takes(wav, mel)
+            assert not any(step.graph.takes(*c) for c in calls)
+        for c in calls:
+            metrics = step(*c)
+            assert all(torch.isfinite(v) for v in metrics.values())
+    finally:
+        if case == "data_parallel":
+            mesh.destroy()
+    assert (step.graph is None) == (case in ("data_parallel", "nsf"))
+    assert step.graph_stats == {"captures": 0, "replays": 0, "eager": len(calls)}
+    if case == "cpu":
+        assert step.graph.key is None
+
+
+def test_gan_replay_span_is_listed():
+    """A replayed step opens ``kantts.gan.replay`` in ``kantts.gan.step``: a
+    name of ``utils/profiling.py``, listed in its docstring, apart from the
+    phases an eager step opens."""
+    assert profiling.GAN_REPLAY == "kantts.gan.replay"
+    assert "``GAN_REPLAY``" in profiling.__doc__
+    assert profiling.GAN_REPLAY not in profiling.GAN_PHASES
+    names = [v for k, v in vars(profiling).items() if k.startswith("GAN_")
+             and isinstance(v, str)]
+    assert len(names) == len(set(names))
+
+
+def test_gan_checkpoint_after_graph_conversion_resumes_on_cpu(tmp_path):
+    """The graph path makes the step's optimizers capturable
+    (``make_capturable``) before its warm-up. A checkpoint of them holds
+    what one of optimizers never converted holds (``capturable`` off,
+    float rates, step counts on the host), loads with the trainers' own
+    ``torch.load`` into fresh optimizers and schedules on the CPU, and
+    resumes: the next step equals the never-converted copy's, bit for bit."""
+    wav, mel = (torch.from_numpy(a) for a in _batch(0))
+    wav2, mel2 = (torch.from_numpy(a) for a in _batch(1))
+    converted, plain = _seeded_gan(), _seeded_gan()
+    for gan in (converted, plain):
+        _gan_step(*gan)(wav, mel)
+    for opt in converted[1].values():
+        make_capturable(opt)
+        assert all(g["capturable"] for g in opt.param_groups)
+
+    def payload(gan):
+        nets, opts, scheds = gan
+        return {"model": {n: m.state_dict() for n, m in nets.items()},
+                "optimizer": {n: o.state_dict() for n, o in opts.items()},
+                "scheduler": {n: s.state_dict() for n, s in scheds.items()}}
+
+    path = str(tmp_path / "checkpoint.ckpt")
+    torch.save(payload(converted), path)
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    want = payload(plain)
+    for n, sd in saved["optimizer"].items():
+        assert sd["param_groups"] == want["optimizer"][n]["param_groups"]
+        assert all(not g["capturable"] and isinstance(g["lr"], float)
+                   for g in sd["param_groups"])
+        for k, st in want["optimizer"][n]["state"].items():
+            assert st.keys() == sd["state"][k].keys()
+            assert all(torch.equal(v, sd["state"][k][key]) and v.device == sd["state"][k][key].device
+                       for key, v in st.items())
+    resumed = _seeded_gan(seed=1)
+    for part, objs in zip(("model", "optimizer", "scheduler"), resumed):
+        for n, obj in objs.items():
+            obj.load_state_dict(saved[part][n])
+    got, want = _gan_step(*resumed)(wav2, mel2), _gan_step(*plain)(wav2, mel2)
+    assert all(torch.equal(got[k], v) for k, v in want.items())
+    for n, m in plain[0].items():
+        for (k, v), w in zip(m.state_dict().items(), resumed[0][n].state_dict().values()):
+            assert torch.equal(v, w), (n, k)
 
 
 def test_three_adam_steps_match_jax():

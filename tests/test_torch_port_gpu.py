@@ -13,10 +13,12 @@ import yaml
 
 from kantts_tpu_torch.bin.train_hifigan import train as train_hifigan
 from kantts_tpu_torch.bin.train_sambert import train
-from kantts_tpu_torch.models.builder import load_checkpoint
+from kantts_tpu_torch.losses import criterion_builder
+from kantts_tpu_torch.models.builder import hifigan_gan_builder, load_checkpoint
 from kantts_tpu_torch.models.hifigan.generator import Generator
 from kantts_tpu_torch.models.sambert.alignment import b_mas_torch, mas_align
 from kantts_tpu_torch.ops.mas import b_mas_cuda
+from kantts_tpu_torch.train.steps import make_gan_step
 from kantts_tpu_torch.utils.corpus import write_mas_corpus, write_voc_corpus
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -138,8 +140,11 @@ def test_train_steps_on_the_card_launch_k1(cuda, tmp_path):
 
 def test_gan_steps_on_the_card(cuda, tmp_path):
     """Three GAN steps of a narrow hifigan_v1_16k (80 mels, hop 200, MPD and
-    MSD with spectral norm) through train_hifigan on the card; the
-    checkpoint's generator loads for serving."""
+    MSD with spectral norm) through train_hifigan on the card, the last two
+    replayed from the step's CUDA graph; the checkpoint's generator loads
+    for serving, and its whole training state, saved after the capture,
+    loads on the CPU in the plain format and takes a step there. Resumed
+    on the card, the run captures again on its own second step."""
     with open(os.path.join(ROOT, "kantts_tpu/configs/hifigan_v1_16k.yaml")) as f:
         cfg = yaml.safe_load(f)
     model = cfg["Model"]
@@ -159,9 +164,136 @@ def test_gan_steps_on_the_card(cuda, tmp_path):
     assert trainer.steps_taken == 3
     logged = trainer.history[-1][2]
     assert all(np.isfinite(v) for v in logged.values()), logged
-    model, _ = load_checkpoint(str(tmp_path / "stage" / "ckpt" / "checkpoint_3.ckpt"),
-                               cuda)
+    path = str(tmp_path / "stage" / "ckpt" / "checkpoint_3.ckpt")
+    model, _ = load_checkpoint(path, cuda)
     assert isinstance(model, Generator) and next(model.parameters()).is_cuda
+    assert trainer.step_fn().graph_stats == {"captures": 1, "replays": 2, "eager": 1}
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    opts = [payload["optimizer"]["generator"], *payload["optimizer"]["discriminator"].values()]
+    for opt in opts:
+        assert all(not g["capturable"] and isinstance(g["lr"], float)
+                   for g in opt["param_groups"])
+        assert all(st["step"].device.type == "cpu" and float(st["step"]) == 3
+                   for st in opt["state"].values())
+    cpu = hifigan_gan_builder(trainer.config, 1, torch.device("cpu"))
+    cpu["generator"].load_state_dict(payload["model"]["generator"])
+    cpu["gen_optimizer"].load_state_dict(payload["optimizer"]["generator"])
+    cpu["gen_scheduler"].load_state_dict(payload["scheduler"]["generator"])
+    for name, disc in cpu["discriminators"].items():
+        disc.load_state_dict(payload["model"]["discriminator"][name])
+        cpu["disc_optimizers"][name].load_state_dict(payload["optimizer"]["discriminator"][name])
+        cpu["disc_schedulers"][name].load_state_dict(payload["scheduler"]["discriminator"][name])
+    step = make_gan_step(cpu["generator"], cpu["discriminators"],
+                         criterion_builder(trainer.config), cpu["gen_optimizer"],
+                         cpu["gen_scheduler"], cpu["disc_optimizers"], cpu["disc_schedulers"],
+                         cpu["gen_clip"], cpu["disc_clips"])
+    wav, mel = torch.rand(2, 2400, 1) - 0.5, torch.randn(2, 12, 80)
+    assert all(torch.isfinite(v) for v in step(wav, mel).values())
+    assert step.graph_stats["eager"] == 1
+    cfg["train_max_steps"] = 5
+    with open(str(tmp_path / "model.yaml"), "w") as f:
+        yaml.safe_dump(cfg, f)
+    again = train_hifigan(str(tmp_path / "model.yaml"), data, str(tmp_path / "resumed"),
+                          resume_path=path, resume_training_state=True)
+    assert again.steps_taken == 2 and again.gen_scheduler.last_epoch == 5
+    assert again.step_fn().graph_stats == {"captures": 1, "replays": 1, "eager": 1}
+    assert float(again.gen_optimizer.state_dict()["state"][0]["step"]) == 5
+
+
+def _graph_config(variant: str) -> dict:
+    """hifigan_v1_16k at the widths of ``test_gan_steps_on_the_card``, each
+    schedule halving the rate after every update; ``pqmf``: four sub-bands
+    (5x5x2), MultiSpecDiscriminator and the sub-band STFT loss; ``bf16``:
+    ``mixed_precision``."""
+    with open(os.path.join(ROOT, "kantts_tpu_torch/resources/configs/hifigan_v1_16k.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    model = cfg["Model"]
+    model["Generator"]["params"].update(channels=32)
+    model["MultiScaleDiscriminator"]["params"]["discriminator_params"].update(
+        channels=16, max_downsample_channels=64)
+    model["MultiPeriodDiscriminator"]["params"]["discriminator_params"].update(
+        channels=8, max_downsample_channels=64)
+    if variant == "pqmf":
+        model["Generator"]["params"].update(out_channels=4, upsample_scales=[5, 5, 2],
+                                            upsample_kernal_sizes=[10, 10, 4])
+        model["MultiSpecDiscriminator"] = {"params": {},
+                                           "optimizer": model["Generator"]["optimizer"]}
+        cfg["Loss"]["subband_stft_loss"]["enable"] = True
+    if variant == "bf16":
+        cfg["mixed_precision"] = True
+    for net in model.values():
+        net["scheduler"] = {"type": "MultiStepLR",
+                            "params": {"gamma": 0.5, "milestones": [1, 2, 3, 4, 5, 6]}}
+    return cfg
+
+
+# Largest relative loss gap and absolute parameter gap over the steps, with
+# cuDNN deterministic and TF32 off. Found in three runs on an NVIDIA H100
+# 80GB HBM3: float32 losses 8.2e-8-1.2e-7, parameters 6.0e-8-7.3e-7; pqmf
+# 9.6e-8-2.0e-7, 8.4e-8-5.6e-7; bf16 0-1.5e-4, 6.0e-8-1.1e-5. float32
+# round-off (the graph's Adam computes its step size on the device, and
+# ATen's atomic adds sum in no fixed order), which Adam lifts to ~lr on an
+# element whose gradient is round-off alone; bf16's round-off is 3.9e-3.
+GRAPH_BOUNDS = {
+    "float32": {"loss": 1e-6, "param": 5e-6},
+    "pqmf": {"loss": 1e-6, "param": 5e-6},
+    "bf16": {"loss": 2e-3, "param": 1e-4},
+}
+
+
+@pytest.mark.parametrize("variant", list(GRAPH_BOUNDS))
+def test_gan_graph_replays_the_eager_step(cuda, variant):
+    """Two copies of one GAN from the same weights: one steps through
+    ``step.eager`` (the eager step the graph captures), the other as the
+    trainer and the benchmark call it, which warms up, captures on its
+    second call and replays. Five steps on the same batches under a rate
+    that halves every step, then a batch of another shape (eager) and one
+    of the first shape again (a replay). The losses and the parameters
+    agree within ``GRAPH_BOUNDS``; the counter reads one warm-up, one
+    capture and four replays after five steps; metrics held from step 2
+    are unchanged after step 5; every rate followed its schedule."""
+    cfg = _graph_config(variant)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    batches = [(torch.rand(4, 2400, 1, device=cuda, generator=gen) - 0.5,
+                torch.randn(4, 12, 80, device=cuda, generator=gen)) for _ in range(6)]
+    batches.insert(5, (batches[0][0][:2], batches[0][1][:2]))
+    copies, steps = {}, {}
+    for how in ("eager", "graph"):
+        b = copies[how] = hifigan_gan_builder(cfg, 0, cuda)
+        step = make_gan_step(b["generator"], b["discriminators"], criterion_builder(cfg),
+                             b["gen_optimizer"], b["gen_scheduler"], b["disc_optimizers"],
+                             b["disc_schedulers"], b["gen_clip"], b["disc_clips"],
+                             pqmf=b["pqmf"])
+        steps[how] = step.eager if how == "eager" else step
+    got = {how: [] for how in steps}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        for k, (wav, mel) in enumerate(batches):
+            for how, step in steps.items():
+                got[how].append(step(wav, mel))
+            if k == 1:
+                held = {key: v.clone() for key, v in got["graph"][1].items()}
+            if k == 4:
+                torch.cuda.synchronize()
+                assert steps["graph"].graph_stats == {"captures": 1, "replays": 4,
+                                                      "eager": 1}
+                assert all(torch.equal(got["graph"][1][key], v) for key, v in held.items())
+    torch.cuda.synchronize()
+    assert steps["graph"].graph_stats == {"captures": 1, "replays": 5, "eager": 2}
+    bound = GRAPH_BOUNDS[variant]
+    loss_gap = max(float((a[key].float() - b[key].float()).abs() / b[key].float().abs())
+                   for a, b in zip(got["graph"], got["eager"]) for key in b)
+    nets = {how: [c["generator"], *c["discriminators"].values()]
+            for how, c in copies.items()}
+    param_gap = max(float((p.detach().float() - q.detach().float()).abs().max())
+                    for g, e in zip(nets["graph"], nets["eager"])
+                    for p, q in zip(g.parameters(), e.parameters()))
+    print(f"[graph_vs_eager] {variant}: loss_gap {loss_gap:.3e} param_gap {param_gap:.3e}")
+    assert loss_gap <= bound["loss"] and param_gap <= bound["param"]
+    for how, c in copies.items():
+        for opt in (c["gen_optimizer"], *c["disc_optimizers"].values()):
+            assert opt.param_groups[0]["lr"] == pytest.approx(2e-4 * 0.5 ** 6), how
+            assert isinstance(opt.param_groups[0]["lr"], float)
 
 
 @pytest.mark.parametrize("geom", [

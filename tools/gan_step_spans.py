@@ -6,9 +6,14 @@ program's own spans.
 Builds the benchmark's ``voice16k_mas.gan_train_b16`` cell (the port's
 ``make_gan_step`` at 16 x 9600, seeded weights and corpus), runs it
 untraced for ``--seconds`` (steps a second), then traces about three
-seconds of further steps with the host's activity (``h100bench/devtrace.py``)
-and prints one JSON line:
+seconds of further steps with the host's activity (``h100bench/devtrace.py``),
+as the benchmark calls them, which replay the step's CUDA graph, and then
+three steps through ``step.eager``, which open the phase spans. It prints
+one JSON line:
 
+- ``graph``: the step's ``graph_stats`` after the run, and the captures,
+  replays and eager calls among the traced steps (``traced``);
+- ``replayed`` and ``eager``: the two traces, each read as below;
 - ``spans``: for every ``kantts.gan.*`` span, each a step: its regions,
   its host ms, the device ms in which a kernel, copy or memset launched
   inside it (on any thread) ran, their summed durations (``kernel_ms``:
@@ -18,7 +23,7 @@ and prints one JSON line:
   cover; ``blocking``: the host-blocking calls inside the steps;
 - ``idle_gaps``: idle by the innermost host region, as the benchmark's
   ``breakdown`` names it;
-- ``traced_steps_per_s`` (the host-traced window's) and
+- ``traced_steps_per_s`` (the host-traced window's, each trace's) and
   ``untraced_steps_per_s``;
 - ``span_off_ns`` and ``record_function_ns``: one span entered and left
   with no profiler, through ``utils/profiling.span`` and through
@@ -39,6 +44,7 @@ sys.path.insert(0, ROOT)
 
 from h100bench import devtrace, harness, stepspan  # noqa: E402
 from h100bench.paths.gan_train import Cell  # noqa: E402
+from kantts_tpu_torch.train.trainer import array_to_device  # noqa: E402
 from kantts_tpu_torch.utils import profiling  # noqa: E402
 
 CELL = "voice16k_mas.gan_train_b16"
@@ -101,6 +107,42 @@ def read(tr: devtrace.Trace, n_steps: int) -> dict:
             "window_busy_s": tr.busy_s, "window_s": tr.window_s}
 
 
+def measure(cell: Cell, seconds: float) -> dict:
+    """Set ``cell`` up, run it untraced for ``seconds``, then trace its
+    replayed steps and three eager ones."""
+    try:
+        cell.setup()
+        cell.window(seconds)
+        out = {"untraced_steps_per_s": cell.n_steps / cell.window_s}
+        step = cell.steps.step
+        before = dict(step.graph_stats)
+
+        def eager(wav, mel):
+            return step.eager(array_to_device(wav, cell.device),
+                              array_to_device(mel, cell.device))
+
+        for key, call, n in (("replayed", cell.timed,
+                              max(3, int(3.0 * cell.n_steps / cell.window_s))),
+                             ("eager", eager, 3)):
+            wall = []
+
+            def run() -> None:
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    with torch.profiler.record_function(devtrace.CALL_SPAN):
+                        call(*next(cell.batches))
+                with torch.profiler.record_function(devtrace.CALL_SPAN):
+                    cell.sync()
+                wall.append(time.perf_counter() - t0)
+            tr = devtrace.profile(run, cell.sync, host=True)
+            out[key] = dict(traced_steps=n, traced_steps_per_s=n / wall[-1], **read(tr, n))
+        out["graph"] = dict(step.graph_stats, traced={
+            k: step.graph_stats[k] - v for k, v in before.items()})
+        return out
+    finally:
+        cell.cleanup()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--seed", type=int, required=True)
@@ -116,27 +158,8 @@ def main() -> int:
     mix = harness.load_json(os.path.join(ROOT, "h100bench", "traffic", f"{entry['traffic']}.json"))
     harness.set_precision(cfg)
     cell = Cell(cfg, mix, args.seed, device)
-    try:
-        cell.setup()
-        cell.window(args.seconds)
-        out = {"card": torch.cuda.get_device_name(device),
-               "power_limit_w": harness.power_limit_w(),
-               "untraced_steps_per_s": cell.n_steps / cell.window_s}
-        n = max(3, int(3.0 * cell.n_steps / cell.window_s))
-        wall = []
-
-        def run() -> None:
-            t0 = time.perf_counter()
-            for _ in range(n):
-                with torch.profiler.record_function(devtrace.CALL_SPAN):
-                    cell.timed(*next(cell.batches))
-            with torch.profiler.record_function(devtrace.CALL_SPAN):
-                cell.sync()
-            wall.append(time.perf_counter() - t0)
-        tr = devtrace.profile(run, cell.sync, host=True)
-        out.update(traced_steps=n, traced_steps_per_s=n / wall[-1], **read(tr, n))
-    finally:
-        cell.cleanup()
+    out = {"card": torch.cuda.get_device_name(device),
+           "power_limit_w": harness.power_limit_w(), **measure(cell, args.seconds)}
     out["span_off_ns"] = per_call_ns(profiling.span, 1_000_000)
     out["record_function_ns"] = per_call_ns(torch.profiler.record_function, 100_000)
     line = json.dumps(out)
