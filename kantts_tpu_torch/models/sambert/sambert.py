@@ -69,8 +69,10 @@ from kantts_tpu_torch.models.sambert.positions import (
     add_sinusoidal_position,
     duration_position_encoding,
 )
+from kantts_tpu_torch.utils import profiling
 from kantts_tpu_torch.utils.mask import get_mask_from_lengths
 from kantts_tpu_torch.utils.precision import Dtype
+from kantts_tpu_torch.utils.profiling import span
 
 
 class SelfAttentionEncoder(nn.Module):
@@ -336,7 +338,9 @@ class KanTtsSAMBERT(nn.Module):
                 global_max: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
                 ) -> Dict[str, Any]:
         """Teacher-forced forward, as the training step runs it (no loss).
-        Dropout follows the module's ``train()``/``eval()`` mode.
+        Dropout follows the module's ``train()``/``eval()`` mode. The
+        encoder, the MAS branch, the variance adaptor, the decoder and the
+        postnet each run inside their span (``utils/profiling.py``).
 
         The PNCA band width comes from the batch's largest duration; under
         data parallelism ``global_max`` takes that to the largest over every
@@ -358,7 +362,8 @@ class KanTtsSAMBERT(nn.Module):
         r = self.r
 
         input_masks = get_mask_from_lengths(input_lengths, T_in)
-        text_hid, enc_attns, ling_emb = self.encode(inputs_ling, input_masks)
+        with span(profiling.AM_ENCODER):
+            text_hid, enc_attns, ling_emb = self.encode(inputs_ling, input_masks)
         res: Dict[str, Any] = {"enc_slf_attn_lst": enc_attns}
 
         inter_lengths, fp_p = input_lengths, None
@@ -371,9 +376,10 @@ class KanTtsSAMBERT(nn.Module):
                 inter_lengths = fp_plan[3]
 
         if self.mas_enable:
-            attn_soft, attn_logprob = self.align_attention(
-                mel_targets, ling_emb, input_masks, attn_priors)
-            attn_hard = mas_align(attn_soft, input_lengths, output_lengths)
+            with span(profiling.AM_MAS):
+                attn_soft, attn_logprob = self.align_attention(
+                    mel_targets, ling_emb, input_masks, attn_priors)
+                attn_hard = mas_align(attn_soft, input_lengths, output_lengths)
             duration_targets = attn_hard.sum(dim=2)[:, 0, :]
             pitch_targets = average_frame_feat(pitch_targets, duration_targets)
             energy_targets = average_frame_feat(energy_targets, duration_targets)
@@ -388,14 +394,15 @@ class KanTtsSAMBERT(nn.Module):
         emo_hid, spk_hid = self.tokenize(inputs_emotion, inputs_speaker)
         inter_masks = get_mask_from_lengths(inter_lengths, text_hid.shape[1])
         output_masks = get_mask_from_lengths(output_lengths, T_mel)
-        pitch_pred, energy_pred, text_aug, dur_cond = self.variance_pre(
-            text_hid, emo_hid, spk_hid, inter_masks, pitch_targets,
-            energy_targets)
-        log_dur_pred = self.duration_teacher(duration_targets, dur_cond,
-                                             inter_masks)
-        LR_text, LR_emo, LR_spk, LR_length = self._regulate(
-            text_aug, emo_hid, spk_hid, duration_targets, T_mel, output_masks)
-        memory = self.build_memory(LR_text, LR_emo, LR_spk)
+        with span(profiling.AM_VARIANCE_ADAPTOR):
+            pitch_pred, energy_pred, text_aug, dur_cond = self.variance_pre(
+                text_hid, emo_hid, spk_hid, inter_masks, pitch_targets,
+                energy_targets)
+            log_dur_pred = self.duration_teacher(duration_targets, dur_cond,
+                                                 inter_masks)
+            LR_text, LR_emo, LR_spk, LR_length = self._regulate(
+                text_aug, emo_hid, spk_hid, duration_targets, T_mel, output_masks)
+            memory = self.build_memory(LR_text, LR_emo, LR_spk)
 
         masked_dur = duration_targets.float().masked_fill(inter_masks, 0.0)
         largest = masked_dur.max()
@@ -404,18 +411,20 @@ class KanTtsSAMBERT(nn.Module):
         band_width = torch.floor(largest / r + 0.5).to(torch.int32)
         lfr_masks = get_mask_from_lengths((output_lengths + r - 1) // r, T_mel // r)
         dec_in = mel_targets
-        if ss_prob is not None:
-            with torch.no_grad():
-                dec1, _, _ = self.mel_decoder(memory, band_width, band_width,
-                                              mel_targets, lfr_masks)
-            own = dec1.reshape(B, T_mel, self.d_mel).to(mel_targets.dtype)
-            take = torch.rand((B, T_mel // r), generator=generator,
-                              device=mel_targets.device) < ss_prob
-            take = take.repeat_interleave(r, dim=1)[..., None]
-            dec_in = torch.where(take, own, mel_targets)
-        dec_outputs, pnca_x_attn, pnca_h_attn = self.mel_decoder(
-            memory, band_width, band_width, dec_in, lfr_masks)
-        dec, post = self.decode_postnet(dec_outputs, output_masks)
+        with span(profiling.AM_DECODER):
+            if ss_prob is not None:
+                with torch.no_grad():
+                    dec1, _, _ = self.mel_decoder(memory, band_width, band_width,
+                                                  mel_targets, lfr_masks)
+                own = dec1.reshape(B, T_mel, self.d_mel).to(mel_targets.dtype)
+                take = torch.rand((B, T_mel // r), generator=generator,
+                                  device=mel_targets.device) < ss_prob
+                take = take.repeat_interleave(r, dim=1)[..., None]
+                dec_in = torch.where(take, own, mel_targets)
+            dec_outputs, pnca_x_attn, pnca_h_attn = self.mel_decoder(
+                memory, band_width, band_width, dec_in, lfr_masks)
+        with span(profiling.AM_POSTNET):
+            dec, post = self.decode_postnet(dec_outputs, output_masks)
 
         res.update(
             x_band_width=band_width, h_band_width=band_width,

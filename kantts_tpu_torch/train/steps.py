@@ -127,40 +127,42 @@ def sambert_losses(model: nn.Module, criterion: Dict[str, Any],
     the total is this rank's share of the global batch's."""
     dp = dp if dp is not None else DataParallel(False)
     reduce = dp.reduce
-    res = sambert_forward(model, batch, ss_prob, generator, fp_dict_lings,
-                          dp.global_max)
-    mel_loss_, mel_loss = criterion["MelReconLoss"](
-        batch["valid_output_lengths"], batch["mel_targets"],
-        res["dec_outputs"], res["postnet_outputs"], reduce=reduce)
-    dur_loss, pitch_loss, energy_loss = criterion["ProsodyReconLoss"](
-        res["valid_inter_lengths"], res["duration_targets"],
-        res["pitch_targets"], res["energy_targets"],
-        res["log_duration_predictions"], res["pitch_predictions"],
-        res["energy_predictions"], reduce=reduce)
-    total = mel_loss_ + mel_loss + dur_loss + pitch_loss + energy_loss
-    metrics = {
-        "mel_loss_": mel_loss_, "mel_loss": mel_loss, "dur_loss": dur_loss,
-        "pitch_loss": pitch_loss, "energy_loss": energy_loss,
-        "x_band_width": res["x_band_width"].float(),
-        "h_band_width": res["h_band_width"].float(),
-    }
-    if getattr(model, "fp_enable", False):
-        fp_loss = criterion["FpCELoss"](batch["valid_input_lengths"],
-                                        res["fp_predictions"], batch["fp_label"],
-                                        reduce=reduce)
-        total = total + fp_loss
-        metrics["fp_loss"] = fp_loss
-    if with_mas:
-        ctc = criterion["AttentionCTCLoss"](
-            res["attn_logprob"], batch["valid_input_lengths"],
-            batch["valid_output_lengths"], reduce=reduce)
-        kl = criterion["AttentionBinarizationLoss"](
-            epoch, res["attn_hard"], res["attn_soft"], reduce=reduce)
-        total = total + ctc + kl
-        metrics["attn_ctc_loss"] = ctc
-        metrics["attn_kl_loss"] = kl
-    metrics["TotalLoss"] = total
-    return total, {k: v.detach() for k, v in metrics.items()}
+    with span(profiling.AM_FORWARD):
+        res = sambert_forward(model, batch, ss_prob, generator, fp_dict_lings,
+                              dp.global_max)
+    with span(profiling.AM_LOSS):
+        mel_loss_, mel_loss = criterion["MelReconLoss"](
+            batch["valid_output_lengths"], batch["mel_targets"],
+            res["dec_outputs"], res["postnet_outputs"], reduce=reduce)
+        dur_loss, pitch_loss, energy_loss = criterion["ProsodyReconLoss"](
+            res["valid_inter_lengths"], res["duration_targets"],
+            res["pitch_targets"], res["energy_targets"],
+            res["log_duration_predictions"], res["pitch_predictions"],
+            res["energy_predictions"], reduce=reduce)
+        total = mel_loss_ + mel_loss + dur_loss + pitch_loss + energy_loss
+        metrics = {
+            "mel_loss_": mel_loss_, "mel_loss": mel_loss, "dur_loss": dur_loss,
+            "pitch_loss": pitch_loss, "energy_loss": energy_loss,
+            "x_band_width": res["x_band_width"].float(),
+            "h_band_width": res["h_band_width"].float(),
+        }
+        if getattr(model, "fp_enable", False):
+            fp_loss = criterion["FpCELoss"](batch["valid_input_lengths"],
+                                            res["fp_predictions"], batch["fp_label"],
+                                            reduce=reduce)
+            total = total + fp_loss
+            metrics["fp_loss"] = fp_loss
+        if with_mas:
+            ctc = criterion["AttentionCTCLoss"](
+                res["attn_logprob"], batch["valid_input_lengths"],
+                batch["valid_output_lengths"], reduce=reduce)
+            kl = criterion["AttentionBinarizationLoss"](
+                epoch, res["attn_hard"], res["attn_soft"], reduce=reduce)
+            total = total + ctc + kl
+            metrics["attn_ctc_loss"] = ctc
+            metrics["attn_kl_loss"] = kl
+        metrics["TotalLoss"] = total
+        return total, {k: v.detach() for k, v in metrics.items()}
 
 
 def make_sambert_step(model: nn.Module, criterion: Dict[str, Any],
@@ -177,7 +179,9 @@ def make_sambert_step(model: nn.Module, criterion: Dict[str, Any],
     """-> step(batch, epoch) -> metrics. ``clip`` is the global-norm clip of
     ``optimizer_builder`` (None: no clip). The train step runs in ``train()``
     mode: zero the gradients, forward, backward, clip, update, advance the
-    schedule. The eval step runs in ``eval()`` mode without gradients.
+    schedule, each train call inside the span ``kantts.am.step`` and its
+    phases inside theirs (``utils/profiling.py``). The eval step runs in
+    ``eval()`` mode without gradients.
 
     Scheduled sampling follows the config keys ``scheduled_sampling_prob``
     (the largest replacement probability; 0 is off) and
@@ -203,20 +207,24 @@ def make_sambert_step(model: nn.Module, criterion: Dict[str, Any],
         return eval_step
 
     def train_step(batch, epoch):
-        model.train()
-        ss_prob = None
-        if ss_max > 0.0:
-            ss_prob = ss_max * min(scheduler.last_epoch / ss_ramp, 1.0)
-        optimizer.zero_grad(set_to_none=True)
-        total, metrics = sambert_losses(model, criterion, batch, epoch, with_mas,
-                                        ss_prob, generator, fp_dict_lings, dp)
-        total.backward()
-        dp.grads(optimizer)
-        if clip is not None:
-            clip()
-        optimizer.step()
-        scheduler.step()
-        return dp.metrics(metrics)
+        with span(profiling.AM_STEP):
+            model.train()
+            ss_prob = None
+            if ss_max > 0.0:
+                ss_prob = ss_max * min(scheduler.last_epoch / ss_ramp, 1.0)
+            optimizer.zero_grad(set_to_none=True)
+            total, metrics = sambert_losses(model, criterion, batch, epoch, with_mas,
+                                            ss_prob, generator, fp_dict_lings, dp)
+            with span(profiling.AM_BACKWARD):
+                total.backward()
+                dp.grads(optimizer)
+            if clip is not None:
+                with span(profiling.AM_CLIP):
+                    clip()
+            with span(profiling.AM_UPDATE):
+                optimizer.step()
+                scheduler.step()
+            return dp.metrics(metrics)
 
     return train_step
 

@@ -15,6 +15,13 @@ Every span name is listed here once. Names read ``kantts.<layer>.<what>``:
   graph, ``GAN_REPLAY`` alone (Python does not run inside a replay);
 - ``NSF_SOURCE``: the NSF generator's ``source_module`` and each
   ``source_downs`` conv;
+- ``AM_STEP``: one train call of a ``make_sambert_step`` step; inside it
+  ``AM_PHASES`` as the step runs them (``AM_FORWARD`` and ``AM_LOSS`` are
+  opened by ``sambert_losses``, so the eval step opens them too, outside
+  any step span), and inside ``AM_FORWARD`` the model's parts:
+  ``AM_ENCODER``, ``AM_MAS`` (the alignment attention with its prior, and
+  ``mas_align``), ``AM_VARIANCE_ADAPTOR`` (the pitch, energy and duration
+  predictors and the length regulator), ``AM_DECODER``, ``AM_POSTNET``;
 - ``train_phase(phase)``: a phase of the trainers' loop (``TRAIN_PHASES``).
 """
 
@@ -42,6 +49,18 @@ GAN_PHASES = (GAN_G_LOSS, GAN_G_BACKWARD, GAN_G_UPDATE, GAN_D_REGEN, GAN_D_LOSS,
 GAN_REPLAY = "kantts.gan.replay"
 GAN_GENERATOR = "kantts.gan.net.generator"
 NSF_SOURCE = "kantts.hifigan.nsf_source"
+AM_STEP = "kantts.am.step"
+AM_FORWARD = "kantts.am.forward"
+AM_LOSS = "kantts.am.loss"
+AM_BACKWARD = "kantts.am.backward"
+AM_CLIP = "kantts.am.clip"
+AM_UPDATE = "kantts.am.update"
+AM_PHASES = (AM_FORWARD, AM_LOSS, AM_BACKWARD, AM_CLIP, AM_UPDATE)
+AM_ENCODER = "kantts.am.net.encoder"
+AM_MAS = "kantts.am.mas"
+AM_VARIANCE_ADAPTOR = "kantts.am.net.variance_adaptor"
+AM_DECODER = "kantts.am.net.decoder"
+AM_POSTNET = "kantts.am.net.postnet"
 TRAIN_PHASES = ("loader_wait", "device_put", "step", "eval", "save", "log")
 
 _OFF = contextlib.nullcontext()

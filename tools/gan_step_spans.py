@@ -72,17 +72,19 @@ def idle_in(gaps, ends, a: float, b: float) -> float:
     return total
 
 
-def read(tr: devtrace.Trace, n_steps: int) -> dict:
+def read(tr: devtrace.Trace, n_steps: int, step: str = profiling.GAN_STEP,
+         phase_names=profiling.GAN_PHASES, prefix: str = "kantts.gan.") -> dict:
     """The span table of a host trace of ``n_steps`` steps ({} where the
-    program opens no step span)."""
+    program opens no step span): the spans named ``prefix...``, the phases
+    ``phase_names`` of the step span ``step``."""
     steps = sorted((e["ts"], e["ts"] + e["dur"]) for e in tr.host
-                   if e["name"] == profiling.GAN_STEP)
+                   if e["name"] == step)
     if not steps:
         return {}
     edges = [tr.t0] + [x for iv in tr.busy_intervals for x in iv] + [tr.t1]
     gaps = [(a, b) for a, b in zip(edges[0::2], edges[1::2]) if b > a]
     ends = [b for _, b in gaps]
-    names = sorted({e["name"] for e in tr.host if e["name"].startswith("kantts.gan.")})
+    names = sorted({e["name"] for e in tr.host if e["name"].startswith(prefix)})
     spans = {}
     for name in names:
         s = stepspan.Steps(tr, name)
@@ -96,13 +98,13 @@ def read(tr: devtrace.Trace, n_steps: int) -> dict:
             "idle_ms": sum(idle_in(gaps, ends, a, b) for a, b in regions) / 1e3 / n_steps,
         }
     phases = [(e["ts"], e["ts"] + e["dur"]) for e in tr.host
-              if e["name"] in profiling.GAN_PHASES]
+              if e["name"] in phase_names]
     cover = min(sum(b - a for a, b in phases if s0 <= a and b <= s1) / (s1 - s0)
                 for s0, s1 in steps)
     inside = sum(1 for e in tr.host if e["name"].startswith("kantts.")
                  and any(s0 <= e["ts"] <= s1 for s0, s1 in steps))
     return {"spans": spans, "phase_cover": cover,
-            "blocking": stepspan.Steps(tr, profiling.GAN_STEP).blocking(),
+            "blocking": stepspan.Steps(tr, step).blocking(),
             "idle_gaps": tr.idle_gaps(20), "spans_per_step": inside / len(steps),
             "window_busy_s": tr.busy_s, "window_s": tr.window_s}
 
